@@ -1,12 +1,15 @@
-// Shared pieces of the three flash-attention kernels of horovod_tpu_torch
-// (flash_fwd.cu, flash_dq.cu, flash_dkv.cu), written for Hopper (sm_90a).
+// Shared pieces of the flash-attention kernels of horovod_tpu_torch, written
+// for Hopper (sm_90a): the layout contract, constants and launch helper of
+// all five, and the tile staging of the three SIMT kernels (flash_fwd.cu,
+// flash_dq.cu, flash_dkv.cu). The tensor-core kernels' own pieces are in
+// sm90.cuh.
 //
 // Layout contract, checked by the Python wrappers in ops/_kernels.py:
 //   q, k, v, o, dO   [B, S, H, D] contiguous (k and v carry H_kv heads)
 //   lse, delta       [B, H, S] fp32 contiguous
 //   H % H_kv == 0, 0 < D <= 128, D % 8 == 0, any S.
 //
-// Every kernel works on 64 x 64 tiles with 256 threads laid out 16 x 16:
+// Every SIMT kernel works on 64 x 64 tiles with 256 threads laid out 16 x 16:
 // thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of a
 // score tile, and columns tx + 16 j (j < DJ) of a head-dim row. Tiles are
 // staged in shared memory as fp32 with a row stride of D + 1 (odd), so the

@@ -1,28 +1,39 @@
 """The port's hand-written Hopper kernels: build, binding, wrappers, and the
 plain PyTorch version beside each kernel.
 
-Three CUDA C++ kernels replace the three Pallas kernels of
+Five CUDA C++ kernels replace the three Pallas kernels of
 ``horovod_tpu/ops/flash_attention.py``:
 
-==============  ========================  ==================================
-wrapper         source (``csrc/``)        replaces
-==============  ========================  ==================================
-``flash_fwd``   ``flash_fwd.cu``          ``_fwd_kernel`` (o and lse)
-``flash_dq``    ``flash_dq.cu``           ``_dq_kernel`` (dq)
-``flash_dkv``   ``flash_dkv.cu``          ``_dkv_kernel`` (dk, dv)
-==============  ========================  ==================================
+==================  ========================  ==============================
+kernel              source (``csrc/``)        replaces
+==================  ========================  ==============================
+``flash_fwd_sm90``  ``flash_fwd_sm90.cu``     ``_fwd_kernel`` (o and lse)
+``flash_dkv_sm90``  ``flash_dkv_sm90.cu``     ``_dkv_kernel`` (dk, dv)
+``flash_fwd``       ``flash_fwd.cu``          ``_fwd_kernel``
+``flash_dq``        ``flash_dq.cu``           ``_dq_kernel`` (dq)
+``flash_dkv``       ``flash_dkv.cu``          ``_dkv_kernel``
+==================  ========================  ==============================
+
+The ``*_sm90`` kernels run their products on the tensor cores (``wgmma``,
+tiles brought by TMA) and take bf16 with head_dim 64 or 128; the others do
+fp32 FMAs on the CUDA cores and take fp32 or bf16 with any head_dim up to
+128. ``_variant`` chooses between the two designs of fwd and dkv from the
+dtype and head_dim alone; a kernel that fails to build or launch raises.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface and loaded with ``ctypes``. The build runs at first use,
 all sources at once, into ``csrc/build/``; a library's name carries a hash of
-its sources and flags, so an edited source is rebuilt and a stale library is
-never loaded.
+its source, every header in ``csrc/`` and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. The TMA kernels reach
+``cuTensorMapEncodeTiled`` through the runtime's driver entry point, so no
+library links ``-lcuda``.
 
 Each wrapper takes tensors in the kernel's layout (``[B, S, H, D]``
 contiguous, lse and delta ``[B, H, S]`` fp32). On a CUDA tensor it launches
 its kernel on the current stream, or raises; on a CPU tensor it runs the
-plain version (``*_plain``), which the tests also use as the reference.
-``LAUNCHES`` counts kernel launches per wrapper and nothing else.
+plain version of the kernel it would launch (``*_plain``), which the tests
+also use as the reference. ``LAUNCHES`` counts kernel launches per kernel and
+nothing else.
 """
 
 from __future__ import annotations
@@ -39,8 +50,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-HEADER = "flash_attention.cuh"
-SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_dq": "flash_dq.cu",
+SOURCES = {"flash_fwd_sm90": "flash_fwd_sm90.cu",
+           "flash_dkv_sm90": "flash_dkv_sm90.cu",
+           "flash_fwd": "flash_fwd.cu", "flash_dq": "flash_dq.cu",
            "flash_dkv": "flash_dkv.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -72,8 +84,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (SOURCES[name], HEADER):
-        h.update((CSRC / part).read_bytes())
+    for path in [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}.{h.hexdigest()[:16]}.so"
 
@@ -118,14 +131,18 @@ def _lib(name: str):
             ptr = ctypes.c_void_p
             i32, f32 = ctypes.c_int, ctypes.c_float
             ints = [i32] * 5 + [f32, i32, i32, i32, ptr]  # B S H Hkv D scale causal dtypes stream
-            argtypes = {"flash_fwd": [ptr] * 5 + ints,
-                        "flash_dq": [ptr] * 7 + ints,
-                        "flash_dkv": [ptr] * 8 + ints}
+            fwd, dkv = [ptr] * 5 + ints, [ptr] * 8 + ints
+            argtypes = {"flash_fwd_sm90": fwd, "flash_dkv_sm90": dkv,
+                        "flash_fwd": fwd, "flash_dq": [ptr] * 7 + ints,
+                        "flash_dkv": dkv}
             for n, path in build().items():
                 lib = ctypes.CDLL(str(path))
                 fn = getattr(lib, f"hvt_{n}")
                 fn.argtypes = argtypes[n]
                 fn.restype = ctypes.c_int
+                if n == "flash_fwd_sm90":
+                    lib.hvt_wgmma_probe.argtypes = [ptr] * 5
+                    lib.hvt_wgmma_probe.restype = ctypes.c_int
                 lib.hvt_cuda_error_string.argtypes = [ctypes.c_int]
                 lib.hvt_cuda_error_string.restype = ctypes.c_char_p
                 _libs[n] = lib
@@ -238,12 +255,22 @@ def flash_dq_plain(q, k, v, dout, lse, delta, scale, causal):
     return dq.to(q.dtype).transpose(1, 2).contiguous()
 
 
-def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal):
+def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
+                    round_operands=False):
     """Plain version of ``flash_dkv``: dk, dv [B, S, H_kv, D] in k's dtype,
-    each K/V head's gradient summed over its query group."""
+    each K/V head's gradient summed over its query group.
+
+    ``round_operands=True`` is the plain version of ``flash_dkv_sm90``: the
+    operands of p^T dO and ds^T q are rounded to bf16 (dO is bf16 already
+    on that route), as the tensor cores take them. Without it, both products
+    take fp32 p and ds, as ``_dkv_kernel`` and ``flash_dkv`` do."""
     b, s, h, d = q.shape
     h_kv = k.shape[2]
+    if round_operands:
+        dout = dout.to(torch.bfloat16)
     qh, _, p, ds = _probs_and_ds(q, k, v, dout, lse, delta, scale, causal)
+    if round_operands:
+        p, ds = (x.to(torch.bfloat16).float() for x in (p, ds))
     dv = torch.matmul(p.transpose(-1, -2), _bhsd(dout))
     dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
 
@@ -258,15 +285,39 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal):
 # wrappers
 # --------------------------------------------------------------------------
 
-def flash_fwd(q, k, v, scale, causal, out_dtype):
+def _variant(dtype, d) -> str:
+    """Which design of fwd and dkv takes q/k/v of this dtype and head_dim:
+    "sm90" (tensor cores) for bf16 with D 64 or 128, else "simt"."""
+    return "sm90" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+
+
+def _kernel(base, q, variant):
+    """The kernel of ``base`` ("flash_fwd" or "flash_dkv") that takes q:
+    ``variant`` None chooses by ``_variant``; "sm90" or "simt" asks for one
+    design and raises if it does not take q."""
+    chosen = _variant(q.dtype, q.shape[-1])
+    if variant is not None:
+        if variant not in ("sm90", "simt"):
+            raise ValueError(f"variant must be None, 'sm90' or 'simt'; got "
+                             f"{variant!r}")
+        if variant == "sm90" and chosen != "sm90":
+            raise ValueError(f"the sm90 kernels take bf16 with head_dim 64 "
+                             f"or 128; got {q.dtype}, head_dim "
+                             f"{q.shape[-1]}")
+        chosen = variant
+    return base + "_sm90" if chosen == "sm90" else base
+
+
+def flash_fwd(q, k, v, scale, causal, out_dtype, variant=None):
     """Attention forward: (o [B, S, H, D] in ``out_dtype``, lse [B, H, S])."""
+    name = _kernel("flash_fwd", q, variant)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale, causal, out_dtype)
     _check(q, k, v, out_dtype)
     b, s, h, _ = q.shape
     o = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _run("flash_fwd", (q, k, v, o, lse), q, k, scale, causal, out_dtype)
+    _run(name, (q, k, v, o, lse), q, k, scale, causal, out_dtype)
     return o, lse
 
 
@@ -281,12 +332,41 @@ def flash_dq(q, k, v, dout, lse, delta, scale, causal):
     return dq
 
 
-def flash_dkv(q, k, v, dout, lse, delta, scale, causal):
-    """Key and value gradients: dk, dv [B, S, H_kv, D] in k's dtype."""
+def flash_dkv(q, k, v, dout, lse, delta, scale, causal, variant=None):
+    """Key and value gradients: dk, dv [B, S, H_kv, D] in k's dtype. On the
+    sm90 route p and ds are rounded to bf16 before their products, and an
+    fp32 dO is rounded to bf16 (see ``flash_dkv_plain``)."""
+    name = _kernel("flash_dkv", q, variant)
+    sm90 = name.endswith("_sm90")
     if q.device.type == "cpu":
-        return flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal)
+        return flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
+                               round_operands=sm90)
     _check(q, k, v, dout.dtype, dout, lse, delta)
+    if sm90:
+        dout = dout.to(torch.bfloat16)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _run("flash_dkv", (q, k, v, dout, lse, delta, dk, dv), q, k, scale,
-         causal, dout.dtype)
+    _run(name, (q, k, v, dout, lse, delta, dk, dv), q, k, scale, causal,
+         dout.dtype)
     return dk, dv
+
+
+def wgmma_probe(a, b):
+    """One 64 x 64 x 64 product on the tensor cores through the building
+    blocks of the sm90 kernels (TMA, wgmma descriptors, the register A
+    operand): returns (a @ b^T, bf16(a @ b^T) @ b) in fp32 for bf16 [64, 64]
+    CUDA tensors. A check for the card tests; not on any path."""
+    if a.shape != (64, 64) or b.shape != (64, 64) or a.device.type != "cuda" \
+            or a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise ValueError("wgmma_probe takes bf16 [64, 64] CUDA tensors")
+    a, b = a.contiguous(), b.contiguous()
+    c1 = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    c2 = torch.empty_like(c1)
+    lib = _lib("flash_fwd_sm90")
+    with torch.cuda.device(a.device):
+        rc = lib.hvt_wgmma_probe(a.data_ptr(), b.data_ptr(), c1.data_ptr(),
+                                 c2.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wgmma probe launch failed: "
+                           f"{lib.hvt_cuda_error_string(rc).decode()}")
+    return c1, c2

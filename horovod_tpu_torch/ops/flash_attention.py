@@ -7,8 +7,8 @@ The public surface follows ``horovod_tpu/ops/flash_attention.py``: BSHD
 tensors in and out, lse as fp32 ``[B, S, H]``, gradients through both o and
 lse (a lse cotangent folds into ``delta = rowsum(dO∘O) − dlse``), GQA served
 without repeating K/V, and ``ValueError`` on indivisible heads. Block sizes
-are the kernels' own (64 × 64 tiles, any sequence length), so the JAX
-function's ``block_q``/``block_k`` arguments have no counterpart here.
+are the kernels' own (any sequence length), so the JAX function's
+``block_q``/``block_k`` arguments have no counterpart here.
 """
 
 from __future__ import annotations

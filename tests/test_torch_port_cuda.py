@@ -7,7 +7,9 @@ repo's conftest imports JAX, so on such a machine run it as
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerances: fp32 1e-5 (the same fp32 arithmetic summed in another order);
-bf16 2e-2, about two bf16 ulps at the outputs' magnitude.
+bf16 2e-2, about two bf16 ulps at the outputs' magnitude. The sm90 dkv
+kernel is held to the plain version that rounds p and ds to bf16 where the
+tensor cores take them (``round_operands=True``).
 """
 
 import pytest
@@ -26,7 +28,12 @@ CASES = [
     (1, 300, 4, 1, 128, torch.bfloat16, True, torch.bfloat16),   # MQA, D 128
     (2, 130, 2, 2, 8, torch.float32, False, torch.float32),      # smallest D
     (2, 192, 4, 2, 64, torch.bfloat16, True, torch.float32),     # fp32 o
+    (2, 100, 4, 2, 64, torch.bfloat16, True, torch.bfloat16),    # ragged, GQA
 ]
+# every case on the SIMT kernels; the bf16 D 64/128 cases also on sm90
+VARIANT_CASES = [(c, "simt") for c in CASES] + [
+    (c, "sm90") for c in CASES
+    if _kernels._variant(c[5], c[4]) == "sm90"]
 
 
 @pytest.fixture()
@@ -47,13 +54,16 @@ def _inputs(case, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c[:5])))
-def test_kernels_match_plain_versions(cuda, case):
+@pytest.mark.parametrize("case,variant", VARIANT_CASES,
+                         ids=lambda c: "-".join(map(str, c[:5]))
+                         if isinstance(c, tuple) else c)
+def test_kernels_match_plain_versions(cuda, case, variant):
     q, k, v, do = _inputs(case, cuda)
     causal, out_dtype, tol = case[6], case[7], TOL[case[5]]
     scale = q.shape[-1] ** -0.5
     before = dict(_kernels.LAUNCHES)
-    o, lse = _kernels.flash_fwd(q, k, v, scale, causal, out_dtype)
+    o, lse = _kernels.flash_fwd(q, k, v, scale, causal, out_dtype,
+                                variant=variant)
     ro, rl = _kernels.flash_fwd_plain(q, k, v, scale, causal, out_dtype)
     assert o.dtype == out_dtype
     torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol)
@@ -63,13 +73,35 @@ def test_kernels_match_plain_versions(cuda, case):
     torch.testing.assert_close(_kernels.flash_dq(*args).float(),
                                _kernels.flash_dq_plain(*args).float(),
                                rtol=tol, atol=tol)
-    for got, want in zip(_kernels.flash_dkv(*args),
-                         _kernels.flash_dkv_plain(*args)):
+    sm90 = variant == "sm90"
+    for got, want in zip(_kernels.flash_dkv(*args, variant=variant),
+                         _kernels.flash_dkv_plain(*args,
+                                                  round_operands=sm90)):
         assert got.shape == k.shape
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+    suffix = "_sm90" if sm90 else ""
+    want_launches = {n: 0 for n in before}
+    want_launches.update({"flash_fwd" + suffix: 1, "flash_dq": 1,
+                          "flash_dkv" + suffix: 1})
     assert {n: _kernels.LAUNCHES[n] - before[n] for n in before} == \
-        {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+        want_launches
+
+
+@pytest.mark.cuda
+def test_single_wgmma_product_matches_matmul(cuda):
+    """The sm90 kernels' building blocks on one 64 x 64 x 64 product: TMA
+    into 128-byte-swizzled tiles, K-major and MN-major descriptors, and an
+    accumulator reused as the bf16 register A operand. bf16 products are
+    exact in fp32, so only the order of the fp32 sums differs."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a, b = (torch.randn(64, 64, generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    c1, c2 = _kernels.wgmma_probe(a, b)
+    torch.testing.assert_close(c1, a.float() @ b.float().T, rtol=1e-5,
+                               atol=1e-4)
+    torch.testing.assert_close(c2, c1.to(torch.bfloat16).float() @ b.float(),
+                               rtol=1e-5, atol=1e-3)
 
 
 @pytest.mark.cuda
