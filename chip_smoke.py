@@ -6,7 +6,7 @@
 Phases, each of which exits non-zero on a failure:
 
 1. device: require CUDA; print the card's name and power limit.
-2. build: compile the five flash-attention kernels from csrc/ with nvcc,
+2. build: compile the six flash-attention kernels from csrc/ with nvcc,
    one process per source, in parallel.
 3. kernels: hold every kernel against its plain PyTorch version, and the
    autograd Function built on them against autograd of
@@ -14,8 +14,11 @@ Phases, each of which exits non-zero on a failure:
    S 1024, D 64, bf16, causal), non-causal, GQA (H 12, H_kv 4), ragged
    (S 1000, D 32, fp32), bf16 ragged (S 1000, D 64), bf16 GQA at D 128
    (B 2, S 2048, H 8, H_kv 2) and bf16 D 32. bf16 at D 64 and 128 routes
-   fwd and dkv to the tensor-core (sm90) kernels, fp32 and D 32 to the SIMT
-   ones; at the main shape both designs run. At the main shape, time each
+   fwd, dq and dkv to the tensor-core (sm90) kernels, fp32 and D 32 to the
+   SIMT ones; at the main shape both designs run. The sm90 dq and dkv are
+   also held against the plain versions that keep their operands in fp32,
+   as the TPU kernels do, and a second launch of dq on the same inputs
+   must give the same bits. At the main shape, time each
    kernel, its plain version and the PyTorch library call that computes the
    same attention (scaled_dot_product_attention, timed only as a
    yardstick), beside the kernel's bound on an H100.
@@ -24,12 +27,12 @@ Phases, each of which exits non-zero on a failure:
    layers, d_model 768, 12 heads, d_ff 3072, seq 1024, bf16, flash
    attention) under DistributedOptimizer(AdamW(lr 1e-4, weight decay
    1e-4)): 2 warm-up and 5 timed steps on one seeded batch of 8 x 1024
-   tokens. Losses must be finite and fall; flash_fwd_sm90, flash_dq and
-   flash_dkv_sm90 must launch exactly 12 times a step and the SIMT
-   flash_fwd and flash_dkv never. The einsum-attention model from the same
-   seed, trained the same 7 steps, must give the same first and last loss
-   within 1e-2 (relative; about 2.5 bf16 epsilons): the last one catches a
-   wrong dk or dv.
+   tokens. Losses must be finite and fall; flash_fwd_sm90, flash_dq_sm90
+   and flash_dkv_sm90 must launch exactly 12 times a step and the SIMT
+   flash_fwd, flash_dq and flash_dkv never. The einsum-attention model from
+   the same seed, trained the same 7 steps, must give the same first and
+   last loss within 1e-2 (relative; about 2.5 bf16 epsilons): the last one
+   catches a wrong dq, dk or dv.
 5. profile: two more steps under torch.profiler; device time per step by
    kernel category, each flash kernel's time per launch inside the step,
    and the share of the window in which no kernel ran.
@@ -51,11 +54,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 CSRC = "horovod_tpu_torch/csrc/"
 SOURCE = {"flash_fwd_sm90": CSRC + "flash_fwd_sm90.cu",
+          "flash_dq_sm90": CSRC + "flash_dq_sm90.cu",
           "flash_dkv_sm90": CSRC + "flash_dkv_sm90.cu",
           "flash_fwd": CSRC + "flash_fwd.cu",
           "flash_dq": CSRC + "flash_dq.cu",
           "flash_dkv": CSRC + "flash_dkv.cu"}
 REPLACES = {"flash_fwd_sm90": "horovod_tpu/ops/flash_attention.py:94",
+            "flash_dq_sm90": "horovod_tpu/ops/flash_attention.py:156",
             "flash_dkv_sm90": "horovod_tpu/ops/flash_attention.py:210",
             "flash_fwd": "horovod_tpu/ops/flash_attention.py:94",
             "flash_dq": "horovod_tpu/ops/flash_attention.py:156",
@@ -78,6 +83,13 @@ TOL_PLAIN = {"float32": 1e-4, "bfloat16": 2e-2}
 # tolerance that holds was at most 0.010 over the bf16 cases (about one
 # bf16 ulp of dk and dv; PERF.md), so 2e-2 keeps a factor of two.
 TOL_DKV_FP32_OPERANDS = 2e-2
+# flash_dq_sm90 rounds ds (and an fp32 dO) to bf16 before ds k, where
+# flash_dq and the TPU kernel keep ds fp32. On the card the least tolerance
+# that holds against that fp32-operand plain version was at most 0.0069
+# over the bf16 cases (PERF.md), so 1.4e-2 keeps a factor of two.
+TOL_DQ_FP32_OPERANDS = 1.4e-2
+# what the sm90 kernels round to bf16, where the TPU kernels keep fp32
+ROUNDED = {"flash_dq_sm90": "dO and ds", "flash_dkv_sm90": "p and ds"}
 # the autograd Function vs autograd of the dense reference: in bf16 the
 # reference's autograd also rounds dp through the p cast, so allow more.
 TOL_AUTOGRAD = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -179,7 +191,7 @@ def check(tag, got, want, tol):
 def kernel_phase(case, K, ref_fn, timings):
     """Hold the kernels that take this shape against their plain versions
     and autograd of the reference; at the main shape run both designs of
-    fwd and dkv, and time every kernel."""
+    each kernel, and time every kernel."""
     import torch
     import torch.nn.functional as F
 
@@ -201,42 +213,45 @@ def kernel_phase(case, K, ref_fn, timings):
     ro, rlse = K.flash_fwd_plain(q, k, v, scale, causal, dtype)
     delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, rlse, delta, scale, causal)
-    rdk, rdv = K.flash_dkv_plain(*args)
+    fp32_operands = {"dq": K.flash_dq_plain(*args),
+                     **dict(zip(("dk", "dv"), K.flash_dkv_plain(*args)))}
     errs = {}
     for variant in variants:
-        fwd = K._kernel("flash_fwd", q, variant)
-        dkv = K._kernel("flash_dkv", q, variant)
+        sm90 = variant == "sm90"
+        fwd, dqn, dkv = (K._kernel(base, q, variant)
+                         for base in ("flash_fwd", "flash_dq", "flash_dkv"))
         o, lse = K.flash_fwd(q, k, v, scale, causal, dtype, variant=variant)
-        dk, dv = K.flash_dkv(*args, variant=variant)
+        got = {"dq": K.flash_dq(*args, variant=variant),
+               **dict(zip(("dk", "dv"), K.flash_dkv(*args, variant=variant)))}
         torch.cuda.synchronize()
         errs[fwd] = [check(f"{fwd} o", o, ro, tol),
                      check(f"{fwd} lse", lse, rlse, 1e-4)]
-        if dkv.endswith("_sm90"):
-            bdk, bdv = K.flash_dkv_plain(*args, round_operands=True)
-            errs[dkv] = [check(f"{dkv} dk", dk, bdk, tol),
-                         check(f"{dkv} dv", dv, bdv, tol)]
-            vs32 = [check(f"{dkv} dk vs fp32 operands", dk, rdk,
-                          TOL_DKV_FP32_OPERANDS),
-                    check(f"{dkv} dv vs fp32 operands", dv, rdv,
-                          TOL_DKV_FP32_OPERANDS)]
-            emit({"phase": "kernel", "kernel": dkv, "shape": shape,
-                  "vs": "plain version with fp32 p and ds operands",
+        if not torch.equal(K.flash_dq(*args, variant=variant), got["dq"]):
+            fail(f"{dqn}: a second launch on the same inputs gave other bits")
+        want = fp32_operands
+        if sm90:    # the plain versions that round where the kernels do
+            want = {"dq": K.flash_dq_plain(*args, round_operands=True),
+                    **dict(zip(("dk", "dv"), K.flash_dkv_plain(
+                        *args, round_operands=True)))}
+        for name, outs in ((dqn, ("dq",)), (dkv, ("dk", "dv"))):
+            errs[name] = [check(f"{name} {n}", got[n], want[n], tol)
+                          for n in outs]
+            if not sm90:
+                continue
+            tol32 = (TOL_DQ_FP32_OPERANDS if name == dqn
+                     else TOL_DKV_FP32_OPERANDS)
+            vs32 = [check(f"{name} {n} vs fp32 operands", got[n],
+                          fp32_operands[n], tol32) for n in outs]
+            emit({"phase": "kernel", "kernel": name, "shape": shape,
+                  "vs": f"plain version with fp32 {ROUNDED[name]} operands",
                   "max_abs_err": max(e[0] for e in vs32),
                   "max_rel_err": max(e[1] for e in vs32),
-                  "least_tol": max(e[2] for e in vs32),
-                  "tol": TOL_DKV_FP32_OPERANDS})
-        else:
-            errs[dkv] = [check(f"{dkv} dk", dk, rdk, tol),
-                         check(f"{dkv} dv", dv, rdv, tol)]
-        del o, lse, dk, dv
-    dq = K.flash_dq(*args)
-    torch.cuda.synchronize()
-    errs["flash_dq"] = [check("flash_dq", dq, K.flash_dq_plain(*args), tol)]
-    del dq
+                  "least_tol": max(e[2] for e in vs32), "tol": tol32})
+        del o, lse, got, want
     for name, found in errs.items():
         emit({"phase": "kernel", "kernel": name, "shape": shape,
-              "vs": "plain version" + (" with bf16 p and ds operands"
-                                       if name == "flash_dkv_sm90" else ""),
+              "vs": "plain version" + (f" with bf16 {ROUNDED[name]} operands"
+                                       if name in ROUNDED else ""),
               "max_abs_err": max(e[0] for e in found),
               "max_rel_err": max(e[1] for e in found),
               "least_tol": max(e[2] for e in found), "tol": tol})
@@ -282,8 +297,7 @@ def kernel_phase(case, K, ref_fn, timings):
     sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, doh,
                                                    retain_graph=True), 20)[0]
     del out
-    timed = {"flash_dq": (lambda: K.flash_dq(*args),
-                          lambda: K.flash_dq_plain(*args), sdpa_pair)}
+    timed = {}
     for variant in variants:
         sm90 = variant == "sm90"
         timed[K._kernel("flash_fwd", q, variant)] = (
@@ -291,6 +305,10 @@ def kernel_phase(case, K, ref_fn, timings):
                                            variant=vr),
             lambda: K.flash_fwd_plain(q, k, v, scale, causal, dtype),
             sdpa_fwd)
+        timed[K._kernel("flash_dq", q, variant)] = (
+            lambda vr=variant: K.flash_dq(*args, variant=vr),
+            lambda r=sm90: K.flash_dq_plain(*args, round_operands=r),
+            sdpa_pair)
         timed[K._kernel("flash_dkv", q, variant)] = (
             lambda vr=variant: K.flash_dkv(*args, variant=vr),
             lambda r=sm90: K.flash_dkv_plain(*args, round_operands=r),
@@ -333,10 +351,10 @@ def main_path(hvt, K):
 
     losses = res["loss"]
     per_step = cfg.n_layers
-    variant = K._variant(cfg.dtype, cfg.d_model // cfg.n_heads)
-    on_path = {"flash_fwd" + ("_sm90" if variant == "sm90" else ""),
-               "flash_dq",
-               "flash_dkv" + ("_sm90" if variant == "sm90" else "")}
+    suffix = "_sm90" if K._variant(cfg.dtype,
+                                   cfg.d_model // cfg.n_heads) == "sm90" else ""
+    on_path = {base + suffix for base in ("flash_fwd", "flash_dq",
+                                          "flash_dkv")}
     for name, n in launches.items():
         want = per_step * steps if name in on_path else 0
         if n != want:
@@ -378,8 +396,9 @@ def main_path(hvt, K):
     return launches, res["model"], res["optimizer"], cfg, batch, seq, step_s
 
 
-FLASH_KERNELS = ("flash_fwd_sm90", "flash_dkv_sm90", "flash_fwd", "flash_dq",
-                 "flash_dkv")   # the sm90 names first: they contain the others
+# the sm90 names first: _category matches by substring
+FLASH_KERNELS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90",
+                 "flash_fwd", "flash_dq", "flash_dkv")
 
 
 def _category(kernel_name):

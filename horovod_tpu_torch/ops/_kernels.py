@@ -1,23 +1,24 @@
 """The port's hand-written Hopper kernels: build, binding, wrappers, and the
 plain PyTorch version beside each kernel.
 
-Five CUDA C++ kernels replace the three Pallas kernels of
+Six CUDA C++ kernels replace the three Pallas kernels of
 ``horovod_tpu/ops/flash_attention.py``:
 
 ==================  ========================  ==============================
 kernel              source (``csrc/``)        replaces
 ==================  ========================  ==============================
 ``flash_fwd_sm90``  ``flash_fwd_sm90.cu``     ``_fwd_kernel`` (o and lse)
+``flash_dq_sm90``   ``flash_dq_sm90.cu``      ``_dq_kernel`` (dq)
 ``flash_dkv_sm90``  ``flash_dkv_sm90.cu``     ``_dkv_kernel`` (dk, dv)
 ``flash_fwd``       ``flash_fwd.cu``          ``_fwd_kernel``
-``flash_dq``        ``flash_dq.cu``           ``_dq_kernel`` (dq)
+``flash_dq``        ``flash_dq.cu``           ``_dq_kernel``
 ``flash_dkv``       ``flash_dkv.cu``          ``_dkv_kernel``
 ==================  ========================  ==============================
 
 The ``*_sm90`` kernels run their products on the tensor cores (``wgmma``,
 tiles brought by TMA) and take bf16 with head_dim 64 or 128; the others do
 fp32 FMAs on the CUDA cores and take fp32 or bf16 with any head_dim up to
-128. ``_variant`` chooses between the two designs of fwd and dkv from the
+128. ``_variant`` chooses between the two designs of each kernel from the
 dtype and head_dim alone; a kernel that fails to build or launch raises.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
@@ -51,6 +52,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = {"flash_fwd_sm90": "flash_fwd_sm90.cu",
+           "flash_dq_sm90": "flash_dq_sm90.cu",
            "flash_dkv_sm90": "flash_dkv_sm90.cu",
            "flash_fwd": "flash_fwd.cu", "flash_dq": "flash_dq.cu",
            "flash_dkv": "flash_dkv.cu"}
@@ -131,10 +133,10 @@ def _lib(name: str):
             ptr = ctypes.c_void_p
             i32, f32 = ctypes.c_int, ctypes.c_float
             ints = [i32] * 5 + [f32, i32, i32, i32, ptr]  # B S H Hkv D scale causal dtypes stream
-            fwd, dkv = [ptr] * 5 + ints, [ptr] * 8 + ints
-            argtypes = {"flash_fwd_sm90": fwd, "flash_dkv_sm90": dkv,
-                        "flash_fwd": fwd, "flash_dq": [ptr] * 7 + ints,
-                        "flash_dkv": dkv}
+            fwd, dq, dkv = ([ptr] * n + ints for n in (5, 7, 8))
+            argtypes = {"flash_fwd_sm90": fwd, "flash_dq_sm90": dq,
+                        "flash_dkv_sm90": dkv, "flash_fwd": fwd,
+                        "flash_dq": dq, "flash_dkv": dkv}
             for n, path in build().items():
                 lib = ctypes.CDLL(str(path))
                 fn = getattr(lib, f"hvt_{n}")
@@ -248,9 +250,23 @@ def _probs_and_ds(q, k, v, dout, lse, delta, scale, causal):
     return qh, kh, p, p * (dp - delta[..., None])
 
 
-def flash_dq_plain(q, k, v, dout, lse, delta, scale, causal):
-    """Plain version of ``flash_dq``: dq [B, S, H, D] in q's dtype."""
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def flash_dq_plain(q, k, v, dout, lse, delta, scale, causal,
+                   round_operands=False):
+    """Plain version of ``flash_dq``: dq [B, S, H, D] in q's dtype.
+
+    ``round_operands=True`` is the plain version of ``flash_dq_sm90``: dO
+    and the ds operand of ds k are rounded to bf16, as the tensor cores take
+    them. Without it, ds k takes fp32 ds, as ``_dq_kernel`` and
+    ``flash_dq`` do."""
+    if round_operands:
+        dout = dout.to(torch.bfloat16)
     _, kh, _, ds = _probs_and_ds(q, k, v, dout, lse, delta, scale, causal)
+    if round_operands:
+        ds = _bf16(ds)
     dq = torch.matmul(ds, kh) * scale
     return dq.to(q.dtype).transpose(1, 2).contiguous()
 
@@ -270,7 +286,7 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
         dout = dout.to(torch.bfloat16)
     qh, _, p, ds = _probs_and_ds(q, k, v, dout, lse, delta, scale, causal)
     if round_operands:
-        p, ds = (x.to(torch.bfloat16).float() for x in (p, ds))
+        p, ds = _bf16(p), _bf16(ds)
     dv = torch.matmul(p.transpose(-1, -2), _bhsd(dout))
     dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
 
@@ -286,15 +302,15 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
 # --------------------------------------------------------------------------
 
 def _variant(dtype, d) -> str:
-    """Which design of fwd and dkv takes q/k/v of this dtype and head_dim:
+    """Which design of each kernel takes q/k/v of this dtype and head_dim:
     "sm90" (tensor cores) for bf16 with D 64 or 128, else "simt"."""
     return "sm90" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
 
 
 def _kernel(base, q, variant):
-    """The kernel of ``base`` ("flash_fwd" or "flash_dkv") that takes q:
-    ``variant`` None chooses by ``_variant``; "sm90" or "simt" asks for one
-    design and raises if it does not take q."""
+    """The kernel of ``base`` ("flash_fwd", "flash_dq" or "flash_dkv") that
+    takes q: ``variant`` None chooses by ``_variant``; "sm90" or "simt" asks
+    for one design and raises if it does not take q."""
     chosen = _variant(q.dtype, q.shape[-1])
     if variant is not None:
         if variant not in ("sm90", "simt"):
@@ -321,13 +337,20 @@ def flash_fwd(q, k, v, scale, causal, out_dtype, variant=None):
     return o, lse
 
 
-def flash_dq(q, k, v, dout, lse, delta, scale, causal):
-    """Query gradient: dq [B, S, H, D] in q's dtype."""
+def flash_dq(q, k, v, dout, lse, delta, scale, causal, variant=None):
+    """Query gradient: dq [B, S, H, D] in q's dtype. On the sm90 route ds
+    is rounded to bf16 before ds k, and an fp32 dO is rounded to bf16 (see
+    ``flash_dq_plain``)."""
+    name = _kernel("flash_dq", q, variant)
+    sm90 = name.endswith("_sm90")
     if q.device.type == "cpu":
-        return flash_dq_plain(q, k, v, dout, lse, delta, scale, causal)
+        return flash_dq_plain(q, k, v, dout, lse, delta, scale, causal,
+                              round_operands=sm90)
     _check(q, k, v, dout.dtype, dout, lse, delta)
+    if sm90:
+        dout = dout.to(torch.bfloat16)
     dq = torch.empty_like(q)
-    _run("flash_dq", (q, k, v, dout, lse, delta, dq), q, k, scale, causal,
+    _run(name, (q, k, v, dout, lse, delta, dq), q, k, scale, causal,
          dout.dtype)
     return dq
 

@@ -7,9 +7,9 @@ repo's conftest imports JAX, so on such a machine run it as
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerances: fp32 1e-5 (the same fp32 arithmetic summed in another order);
-bf16 2e-2, about two bf16 ulps at the outputs' magnitude. The sm90 dkv
-kernel is held to the plain version that rounds p and ds to bf16 where the
-tensor cores take them (``round_operands=True``).
+bf16 2e-2, about two bf16 ulps at the outputs' magnitude. The sm90 dq and
+dkv kernels are held to the plain versions that round dO, p and ds to bf16
+where the tensor cores take them (``round_operands=True``).
 """
 
 import pytest
@@ -70,10 +70,13 @@ def test_kernels_match_plain_versions(cuda, case, variant):
     torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-5)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse, delta, scale, causal)
-    torch.testing.assert_close(_kernels.flash_dq(*args).float(),
-                               _kernels.flash_dq_plain(*args).float(),
-                               rtol=tol, atol=tol)
     sm90 = variant == "sm90"
+    dq = _kernels.flash_dq(*args, variant=variant)
+    assert dq.dtype == q.dtype
+    torch.testing.assert_close(
+        dq.float(),
+        _kernels.flash_dq_plain(*args, round_operands=sm90).float(),
+        rtol=tol, atol=tol)
     for got, want in zip(_kernels.flash_dkv(*args, variant=variant),
                          _kernels.flash_dkv_plain(*args,
                                                   round_operands=sm90)):
@@ -82,7 +85,7 @@ def test_kernels_match_plain_versions(cuda, case, variant):
                                    atol=tol)
     suffix = "_sm90" if sm90 else ""
     want_launches = {n: 0 for n in before}
-    want_launches.update({"flash_fwd" + suffix: 1, "flash_dq": 1,
+    want_launches.update({"flash_fwd" + suffix: 1, "flash_dq" + suffix: 1,
                           "flash_dkv" + suffix: 1})
     assert {n: _kernels.LAUNCHES[n] - before[n] for n in before} == \
         want_launches
