@@ -10,8 +10,9 @@ Phases, each of which exits non-zero on a failure:
    one process per source, in parallel.
 3. kernels: hold every kernel against its plain PyTorch version, and the
    autograd Function built on them against autograd of
-   flash_attention_reference, at seven shapes: the main path's (B 8, H 12,
-   S 1024, D 64, bf16, causal), non-causal, GQA (H 12, H_kv 4), ragged
+   flash_attention_reference, at eight shapes: the main path's (B 8, H 12,
+   S 1024, D 64, bf16, causal), the accumulation phase's micro-batch (the
+   same with B 4), non-causal, GQA (H 12, H_kv 4), ragged
    (S 1000, D 32, fp32), bf16 ragged (S 1000, D 64), bf16 GQA at D 128
    (B 2, S 2048, H 8, H_kv 2) and bf16 D 32. bf16 at D 64 and 128 routes
    fwd, dq and dkv to the tensor-core (sm90) kernels, fp32 and D 32 to the
@@ -35,8 +36,27 @@ Phases, each of which exits non-zero on a failure:
    catches a wrong dq, dk or dv.
 5. profile: two more steps under torch.profiler; device time per step by
    kernel category, each flash kernel's time per launch inside the step,
-   and the share of the window in which no kernel ran.
-6. summary: one JSON line listing the kernels, the nvidia-smi line, and
+   and the share of the window in which no kernel ran; then, for three
+   more steps, the host's time to issue a step and the card's time to
+   drain what is left after it.
+6. accumulation: the same GPT from the same seed, built through the entry
+   points (GPT, hvt.DistributedOptimizer(AdamW, backward_passes_per_step=2,
+   average_aggregated_gradients=True), train.make_train_step), takes rows
+   0-3 and 4-7 of the main path's batch as two micro-batches per update,
+   for 7 updates. The mean of the two micro-batch losses must equal the
+   main path's loss at updates 1 and 7 within 1e-2 (relative), and the
+   three sm90 kernels must launch 24 times an update, the SIMT ones never.
+   Update time (median of 5 after 2 warm-up updates), tokens/s, peak
+   memory, a profile of two updates, and the host's issue and the card's
+   drain time for three more.
+7. collectives: every collective of the port on CUDA tensors, fp32 and
+   bf16, in this one-process NCCL world (grouped allreduce, ragged
+   allgather, alltoall with splits, reducescatter, each *_async with poll
+   and synchronize, a process set, Adasum, hierarchical allreduce and
+   allgather, broadcast of the trained parameters and optimizer state,
+   allgather_object, sparse_allreduce_apply). Each result must equal its
+   world-of-one value exactly and stay on cuda:0 in the input's dtype.
+8. summary: one JSON line listing the kernels, the nvidia-smi line, and
    last the {"ok": true, ...} line.
 """
 
@@ -65,9 +85,14 @@ REPLACES = {"flash_fwd_sm90": "horovod_tpu/ops/flash_attention.py:94",
             "flash_fwd": "horovod_tpu/ops/flash_attention.py:94",
             "flash_dq": "horovod_tpu/ops/flash_attention.py:156",
             "flash_dkv": "horovod_tpu/ops/flash_attention.py:210"}
-# (B, S, H, H_kv, D, dtype name, causal); the first is the main path's
+# (B, S, H, H_kv, D, dtype name, causal); the first is the main path's,
+# the second the accumulation phase's (each update takes the main path's
+# batch as MICRO_BATCHES micro-batches)
 MAIN_SHAPE = (8, 1024, 12, 12, 64, "bfloat16", True)
+MICRO_BATCHES = 2
+MICRO_SHAPE = (MAIN_SHAPE[0] // MICRO_BATCHES, *MAIN_SHAPE[1:])
 CASES = [MAIN_SHAPE,
+         MICRO_SHAPE,
          (8, 1024, 12, 12, 64, "bfloat16", False),
          (8, 1024, 12, 4, 64, "bfloat16", True),
          (2, 1000, 4, 4, 32, "float32", True),
@@ -130,6 +155,41 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, host_s * 1e3 / iters
+
+
+def host_issue(run, calls=3):
+    """How the host and the card share ``calls`` calls of ``run()``, each
+    of which issues one step or update and ends in no sync of its own:
+    the host ms until ``run()`` returns, the ms the card still needs after
+    that, and the synchronizing calls that torch.cuda's sync debug mode
+    saw inside. Were the card behind the host, the queued kernels would
+    show as a long drain; a short one means the card kept pace, so the
+    call's time is the host's."""
+    import warnings
+
+    import torch
+
+    issue, drain, syncs = [], [], 0
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                run()
+                t1 = time.perf_counter()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        issue.append((t1 - t0) * 1e3)
+        drain.append((t2 - t1) * 1e3)
+        syncs += len(caught)
+    return {"host_issue_ms": issue, "drain_ms": drain,
+            "host_issue_ms_median": statistics.median(issue),
+            "drain_ms_median": statistics.median(drain),
+            "syncs_inside": syncs / calls}
 
 
 def bound(name, b, s, h, h_kv, d, dtype, causal):
@@ -341,7 +401,12 @@ def main_path(hvt, K):
 
     hvt.init()                  # a one-process NCCL world on cuda:0
     cfg = gpt_config("bench", use_flash=True, dtype=torch.bfloat16)
-    batch, seq, steps = 8, cfg.max_seq_len, STEPS_WARMUP + STEPS_TIMED
+    batch, seq, steps = (MAIN_SHAPE[0], cfg.max_seq_len,
+                         STEPS_WARMUP + STEPS_TIMED)
+    attn = (batch, seq, cfg.n_heads, cfg.n_kv_heads or cfg.n_heads,
+            cfg.d_model // cfg.n_heads, str(cfg.dtype).split(".")[1], True)
+    if attn != MAIN_SHAPE:      # the kernel phase checked MAIN_SHAPE
+        fail(f"main path: attention shape {attn} is not {MAIN_SHAPE}")
 
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -393,7 +458,8 @@ def main_path(hvt, K):
             fail(f"step {i + 1}: einsum loss {einsum['loss'][i]} vs flash "
                  f"loss {losses[i]}: rel diff {rels[i]:.3g} > {LOSS_RTOL}")
     del einsum
-    return launches, res["model"], res["optimizer"], cfg, batch, seq, step_s
+    return (launches, res["model"], res["optimizer"], cfg, batch, seq, step_s,
+            losses)
 
 
 # the sm90 names first: _category matches by substring
@@ -414,33 +480,27 @@ def _category(kernel_name):
     return "other"
 
 
-def profile_phase(model, optimizer, cfg, batch, seq, step_s, launches):
-    """Where a main-path step's device time goes: kernel time by category
-    under torch.profiler over PROFILE_STEPS steps. Profiling slows the
-    host, so the idle share is given twice: of the profiled window, and of
-    the unprofiled median step ``step_s`` from the main path phase."""
+def device_time(run, count, unit_s):
+    """Device time of ``count`` calls of ``run`` (each ends in a device
+    sync) under torch.profiler: busy ms per call, ms per call by kernel
+    category and by kernel name, and the idle share twice (of the
+    profiled window, and of the unprofiled median call ``unit_s``, since
+    profiling slows the host). None when the profiler saw no device
+    events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from horovod_tpu_torch.train import make_train_step, seeded_tokens
-
-    step = make_train_step(model, optimizer)
-    tokens = seeded_tokens(cfg, batch, seq, seed=0)
-    step(tokens)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_STEPS):
-            float(step(tokens))     # waits for the device, as train() does
+        for _ in range(count):
+            run()
     # device activity: kernels, copies and sets, but not the annotation
     # ranges (e.g. "Optimizer.step#AdamW.step") that overlap them
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
-        emit({"phase": "profile", "device_time": "not measured",
-              "why": "torch.profiler recorded no device events"})
-        return
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, spans[0][0]
     for a, b in spans:                       # union of kernel intervals
@@ -452,23 +512,201 @@ def profile_phase(model, optimizer, cfg, batch, seq, step_s, launches):
     for e in kernels:
         us = e.time_range.elapsed_us()
         cat = _category(e.name)
-        by_cat[cat] = by_cat.get(cat, 0.0) + us
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+        by_cat[cat] = by_cat.get(cat, 0.0) + us / 1e3 / count
+        by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / count
+    return {"busy_ms": busy / 1e3 / count, "window_ms": window / 1e3 / count,
+            "device_events_per_call": len(kernels) / count,
+            "idle_share_of_profiled_window": 1.0 - busy / window,
+            "idle_share_unprofiled": 1.0 - busy / 1e6 / count / unit_s,
+            "by_category": dict(sorted(by_cat.items())), "by_name": by_name}
+
+
+def profile_phase(model, optimizer, cfg, batch, seq, step_s, launches):
+    """Where a main-path step's device time goes: kernel time by category
+    over PROFILE_STEPS steps, and each flash kernel's time per launch."""
+    import torch
+
+    from horovod_tpu_torch.train import make_train_step, seeded_tokens
+
+    step = make_train_step(model, optimizer)
+    tokens = seeded_tokens(cfg, batch, seq, seed=0)
+    step(tokens)
+    torch.cuda.synchronize()
+    # each step waits for the device, as train() does
+    prof = device_time(lambda: float(step(tokens)), PROFILE_STEPS, step_s)
+    issue = host_issue(lambda: step(tokens))
+    if prof is None:
+        emit({"phase": "profile", "device_time": "not measured",
+              "why": "torch.profiler recorded no device events"})
+        return
+    by_cat = prof["by_category"]
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
     per_step = {n: launches[n] // (STEPS_WARMUP + STEPS_TIMED)
                 for n in FLASH_KERNELS}
     emit({"phase": "profile", "steps": PROFILE_STEPS,
           "in_step_ms_per_launch": {
-              n: by_cat[n] / 1e3 / PROFILE_STEPS / per_step[n]
+              n: by_cat[n] / per_step[n]
               for n in FLASH_KERNELS if per_step[n] and n in by_cat},
-          "device_ms_per_step": {c: t / 1e3 / PROFILE_STEPS
-                                 for c, t in sorted(by_cat.items())},
-          "busy_ms_per_step": busy / 1e3 / PROFILE_STEPS,
-          "window_ms_per_step": window / 1e3 / PROFILE_STEPS,
-          "idle_share_of_profiled_window": 1.0 - busy / window,
-          "idle_share_of_step": 1.0 - busy / 1e6 / PROFILE_STEPS / step_s,
-          "top_kernels_ms_per_step": [[n[:90], t / 1e3 / PROFILE_STEPS]
-                                      for n, t in top]})
+          "device_ms_per_step": by_cat,
+          "busy_ms_per_step": prof["busy_ms"],
+          "host_per_step": issue,
+          "device_events_per_step": prof["device_events_per_call"],
+          "window_ms_per_step": prof["window_ms"],
+          "idle_share_of_profiled_window":
+              prof["idle_share_of_profiled_window"],
+          "idle_share_of_step": prof["idle_share_unprofiled"],
+          "top_kernels_ms_per_step": [[n[:90], t] for n, t in top]})
+
+
+def accumulation_phase(hvt, K, main_losses):
+    """The main path's updates as two micro-batches each, through
+    backward_passes_per_step=2: the same gradients (the mean over two
+    halves of equal token counts), so the same losses. Returns the launch
+    counts and the trained model and optimizer."""
+    import torch
+
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.train import (gpt_config, make_train_step,
+                                         seeded_tokens)
+
+    cfg = gpt_config("bench", use_flash=True, dtype=torch.bfloat16)
+    batch, seq, rows = MAIN_SHAPE[0], cfg.max_seq_len, MICRO_SHAPE[0]
+    updates = STEPS_WARMUP + STEPS_TIMED
+    model = GPT(cfg, device=hvt.device(), seed=0)
+    optimizer = hvt.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        backward_passes_per_step=MICRO_BATCHES,
+        average_aggregated_gradients=True)
+    step = make_train_step(model, optimizer)
+    tokens = seeded_tokens(cfg, batch, seq, seed=0)
+    micro = [tokens[i:i + rows] for i in range(0, batch, rows)]
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    losses, times = [], []
+    for _ in range(updates):
+        t0 = time.perf_counter()
+        pair = [float(step(m)) for m in micro]     # each waits for the card
+        times.append(time.perf_counter() - t0)
+        losses.append(sum(pair) / len(pair))
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    per_update = MICRO_BATCHES * cfg.n_layers
+    on_path = {base + "_sm90" for base in ("flash_fwd", "flash_dq",
+                                           "flash_dkv")}
+    for name, n in launches.items():
+        want = per_update * updates if name in on_path else 0
+        if n != want:
+            fail(f"accumulation: {name} launched {n} times in {updates} "
+                 f"updates, expected {want // updates} an update")
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, main_losses)]
+    update_s = statistics.median(times[STEPS_WARMUP:])
+    prof = device_time(lambda: [float(step(m)) for m in micro],
+                       PROFILE_STEPS, update_s) or {"busy_ms": "not measured"}
+    issue = host_issue(lambda: [step(m) for m in micro])
+    emit({"phase": "accumulation", "config": "bench.py --model gpt --flash",
+          "micro_batches": [rows] * MICRO_BATCHES, "seq": seq,
+          "backward_passes_per_step": MICRO_BATCHES, "losses": losses,
+          "main_path_losses": main_losses, "rel_diff": rels,
+          "rtol": LOSS_RTOL, "update_s": times[STEPS_WARMUP:],
+          "update_ms_median": update_s * 1e3,
+          "tokens_per_s": batch * seq / update_s,
+          "max_memory_allocated_bytes": peak, "launches": launches,
+          "launches_per_update": per_update,
+          "profiled_updates": PROFILE_STEPS,
+          "host_per_update": issue,
+          **{k: v for k, v in prof.items() if k != "by_name"}})
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"accumulation: non-finite loss: {losses}")
+    for i in (0, updates - 1):
+        if rels[i] > LOSS_RTOL:
+            fail(f"accumulation: update {i + 1}: loss {losses[i]} vs main "
+                 f"path {main_losses[i]}: rel diff {rels[i]:.3g} > "
+                 f"{LOSS_RTOL}")
+    return launches, model, optimizer
+
+
+def collectives_phase(hvt, model, optimizer):
+    """Every collective on CUDA tensors in the one-process NCCL world, each
+    held exactly to its world-of-one value. Inputs hold small integers, so
+    fp32 and bf16 sums are exact."""
+    import torch
+
+    dev = hvt.device()
+    checked = []
+
+    def same(tag, got, want):
+        if not isinstance(want, (list, tuple)):
+            got, want = [got], [want]
+        if len(got) != len(want):
+            fail(f"collectives: {tag}: {len(got)} outputs, want {len(want)}")
+        for g, w in zip(got, want):
+            if g.device != w.device or g.dtype != w.dtype \
+                    or not torch.equal(g, w):
+                fail(f"collectives: {tag}: {g.dtype} on {g.device} "
+                     f"differs from the world-of-one value ({w.dtype})")
+        checked.append(tag)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, y = (torch.randint(-64, 64, shape, generator=gen, device=dev)
+                .to(dtype) for shape in ((8, 96), (5, 3)))
+        tag = str(dtype).split(".")[1]
+        same(f"grouped_allreduce {tag}", hvt.grouped_allreduce([x, y]),
+             [x, y])
+        same(f"allgather ragged {tag}", hvt.allgather(x[:3]), x[:3])
+        out, splits = hvt.alltoall(x, splits=[x.shape[0]])
+        same(f"alltoall splits {tag}", out, x)
+        if splits.tolist() != [x.shape[0]]:
+            fail(f"collectives: alltoall received splits {splits}")
+        same(f"reducescatter {tag}", hvt.reducescatter(x), x)
+        handles = {"allreduce_async": (hvt.allreduce_async(x), x),
+                   "grouped_allreduce_async": (
+                       hvt.grouped_allreduce_async([x, y]), [x, y]),
+                   "allgather_async": (hvt.allgather_async(x), x),
+                   "broadcast_async": (hvt.broadcast_async(x, 0), x),
+                   "alltoall_async": (hvt.alltoall_async(x), x)}
+        for name, (h, want) in handles.items():
+            if not isinstance(hvt.poll(h), bool):
+                fail(f"collectives: poll({name}) is not a bool")
+            got = hvt.synchronize(h)
+            same(f"{name} {tag}", got[0] if name == "alltoall_async"
+                 else got, want)
+            if not hvt.poll(h):
+                fail(f"collectives: {name} not done after synchronize")
+        ps = hvt.add_process_set([0])
+        same(f"allreduce over set [0] {tag}",
+             hvt.allreduce(x, process_set=ps), x)
+        hvt.remove_process_set(ps)
+        same(f"allreduce Adasum {tag}", hvt.allreduce(x, op=hvt.Adasum), x)
+        same(f"hierarchical_allreduce {tag}",
+             hvt.hierarchical_allreduce(x, average=True), x)
+        same(f"hierarchical_allgather {tag}", hvt.hierarchical_allgather(x),
+             x)
+        idx = torch.tensor([1, 1, 5], device=dev)
+        same(f"sparse_allreduce_apply {tag}",
+             hvt.sparse_allreduce_apply(x, idx, x[:3]),
+             x.clone().index_add_(0, idx, x[:3]))
+
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    hvt.broadcast_parameters(model.state_dict(), root_rank=0)
+    same("broadcast_parameters", list(model.state_dict().values()),
+         list(params.values()))
+    state = optimizer.state_dict()["state"]
+    before = [t.clone() for s in state.values() for t in s.values()]
+    hvt.broadcast_optimizer_state(optimizer, root_rank=0)
+    state = optimizer.state_dict()["state"]
+    same("broadcast_optimizer_state",
+         [t for s in state.values() for t in s.values()], before)
+    obj = {"rank": hvt.rank(), "losses": [1.5, 2.5]}
+    if hvt.allgather_object(obj) != [obj]:
+        fail("collectives: allgather_object")
+    checked.append("allgather_object")
+    torch.cuda.synchronize()
+    emit({"phase": "collectives", "world_size": hvt.size(),
+          "checked": checked, "seconds": time.perf_counter() - t0})
 
 
 def main():
@@ -505,13 +743,17 @@ def main():
         kernel_phase(case, K, flash_attention_reference, timings)
         torch.cuda.empty_cache()
 
-    launches, *trained = main_path(hvt, K)
+    launches, *trained, main_losses = main_path(hvt, K)
     profile_phase(*trained, launches)
+    del trained
+    acc_launches, model, optimizer = accumulation_phase(hvt, K, main_losses)
+    collectives_phase(hvt, model, optimizer)
     hvt.shutdown()
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],
+         "launches_accumulation": acc_launches[name],
          **timings[name]} for name in K.LAUNCHES]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

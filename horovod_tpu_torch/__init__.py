@@ -3,39 +3,65 @@
 A Horovod-style data-parallel training framework on ``torch.distributed``
 (one process per GPU, NCCL), whose attention kernels are hand-written for
 Hopper. The JAX package ``horovod_tpu`` is the reference this package is
-held against; nothing here imports it or JAX.
+held against; nothing here imports it or JAX. Names follow the JAX
+package's.
 
     import horovod_tpu_torch as hvt
 
     hvt.init()                                   # NCCL on cuda:{local_rank}
     opt = hvt.DistributedOptimizer(torch.optim.AdamW(model.parameters()))
+    hvt.broadcast_parameters(model.state_dict(), root_rank=0)
 """
 
 from horovod_tpu_torch.common.basics import (cross_rank, cross_size, device,
                                              init, is_initialized,
                                              local_rank, local_size, rank,
                                              shutdown, size)
-from horovod_tpu_torch.common.exceptions import HorovodInternalError
-from horovod_tpu_torch.common.process_sets import (ProcessSet,
-                                                   global_process_set)
-from horovod_tpu_torch.ops.collective_ops import (Adasum, Average, Max, Min,
-                                                  Product, ReduceOp, Sum,
-                                                  allreduce, allreduce_,
-                                                  barrier, broadcast,
-                                                  broadcast_)
+from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
+                                                 HorovodTimeoutError)
+from horovod_tpu_torch.common.process_sets import (
+    ProcessSet, add_process_set, global_process_set,
+    process_set_included_ranks, remove_process_set)
+from horovod_tpu_torch.ops.adasum import adasum_reduce, pairwise_adasum
+from horovod_tpu_torch.ops.collective_ops import (
+    Adasum, Average, Max, Min, Product, ReduceOp, Sum, allgather,
+    allgather_async, allreduce, allreduce_, allreduce_async, alltoall,
+    alltoall_async, barrier, broadcast, broadcast_, broadcast_async,
+    broadcast_async_, grouped_allgather, grouped_allreduce,
+    grouped_allreduce_async, grouped_reducescatter, poll, reducescatter,
+    synchronize)
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_attention_with_lse)
+from horovod_tpu_torch.ops.functions import (allgather_object,
+                                             broadcast_object,
+                                             broadcast_object_fn,
+                                             broadcast_optimizer_state,
+                                             broadcast_parameters)
+from horovod_tpu_torch.ops.hierarchical import (hierarchical_allgather,
+                                                hierarchical_allreduce)
+from horovod_tpu_torch.ops.sparse import (apply_sparse, sparse_allreduce,
+                                          sparse_allreduce_apply)
 from horovod_tpu_torch.optimizer import (DistributedOptimizer,
                                          PartialDistributedOptimizer)
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "local_size", "cross_rank", "cross_size", "device",
-    "HorovodInternalError",
-    "ProcessSet", "global_process_set",
+    "HorovodInternalError", "HorovodTimeoutError",
+    "ProcessSet", "global_process_set", "add_process_set",
+    "remove_process_set", "process_set_included_ranks",
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",
-    "allreduce", "allreduce_", "broadcast", "broadcast_", "barrier",
+    "allreduce", "allreduce_", "allreduce_async", "grouped_allreduce",
+    "grouped_allreduce_async", "allgather", "allgather_async",
+    "grouped_allgather", "broadcast", "broadcast_", "broadcast_async",
+    "broadcast_async_", "alltoall", "alltoall_async", "reducescatter",
+    "grouped_reducescatter", "barrier", "synchronize", "poll",
+    "adasum_reduce", "pairwise_adasum",
+    "hierarchical_allreduce", "hierarchical_allgather",
+    "allgather_object", "broadcast_object", "broadcast_object_fn",
+    "broadcast_parameters", "broadcast_optimizer_state",
+    "sparse_allreduce", "apply_sparse", "sparse_allreduce_apply",
     "Compression", "flash_attention", "flash_attention_with_lse",
     "DistributedOptimizer", "PartialDistributedOptimizer",
 ]

@@ -34,6 +34,11 @@ class _World:
         self.local_rank, self.local_size = local_rank, local_size
         self.cross_rank, self.cross_size = cross_rank, cross_size
         self.device = device
+        # registered process sets by id (common/process_sets.py) and the
+        # groups derived from the topology (ops/hierarchical.py)
+        self.process_sets = {}
+        self.next_process_set_id = 1
+        self.groups = {}
 
 
 def _env_int(name, default):
@@ -58,17 +63,24 @@ def init(comm=None, process_sets=None, device=None, timeout_s=300):
 
     ``device`` is ``None``/``"cuda"`` (NCCL on ``cuda:{local_rank}``) or
     ``"cpu"`` (gloo). ``comm`` is accepted for API parity and must be
-    ``None``: process placement belongs to the launcher. Process sets other
-    than the global one are not ported yet.
+    ``None``: process placement belongs to the launcher. ``process_sets``
+    (lists of ranks or ``ProcessSet`` objects) are registered in order
+    after the global set, as ``add_process_set`` does; every process
+    passes the same.
     """
-    global _state
     if comm not in (None, 0):
         raise ValueError("horovod_tpu_torch.init(comm=...) is not "
                          "supported: process placement is owned by the "
                          "launcher (hvtrun)")
-    if process_sets:
-        raise NotImplementedError("process sets other than the global one "
-                                  "are not ported yet")
+    _start(device, timeout_s)
+    from horovod_tpu_torch.common import process_sets as _ps
+
+    for ps in process_sets or ():
+        _ps.add_process_set(ps)
+
+
+def _start(device, timeout_s):
+    global _state
     with _lock:
         if _state is not None:
             return
@@ -99,14 +111,22 @@ def init(comm=None, process_sets=None, device=None, timeout_s=300):
                         _env_int("HVT_LOCAL_SIZE", 1),
                         _env_int("HVT_CROSS_RANK", 0),
                         _env_int("HVT_CROSS_SIZE", 1), dev)
+        from horovod_tpu_torch.common.process_sets import \
+            global_process_set
+
+        global_process_set.process_set_id = 0
+        _state.process_sets[0] = global_process_set
 
 
 def shutdown():
-    """Destroy the process group; a later ``init`` starts a new one."""
+    """Destroy the process group and every process set's group; a later
+    ``init`` starts a new world with only the global set."""
     global _state
     with _lock:
         if _state is None:
             return
+        for ps in _state.process_sets.values():
+            ps.process_set_id, ps._group = None, None
         dist.destroy_process_group()
         _state = None
 

@@ -32,7 +32,8 @@ def _torch_name(path):
     return ".".join(parts)
 
 
-def _flax_path(name):
+def flax_path(name):
+    """A ``state_dict`` name → its flax params path, as a list of keys."""
     parts = name.split(".")
     if parts[0] == "blocks":
         parts[0:2] = [_BLOCK + parts[1]]
@@ -61,7 +62,7 @@ def params_to_flax(state_dict) -> dict:
     """The port's ``state_dict`` → flax params tree of fp32 numpy arrays."""
     tree = {}
     for name, tensor in state_dict.items():
-        *parents, leaf = _flax_path(name)
+        *parents, leaf = flax_path(name)
         node = tree
         for p in parents:
             node = node.setdefault(p, {})

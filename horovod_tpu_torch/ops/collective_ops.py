@@ -1,24 +1,38 @@
-"""Collective operations on ``torch.distributed``: allreduce, broadcast,
-barrier (Horovod's ``torch/mpi_ops.py``; the JAX package's
-``ops/collective_ops.py``).
+"""Collective operations on ``torch.distributed`` (Horovod's
+``torch/mpi_ops.py``; the JAX package's ``ops/collective_ops.py``):
+allreduce, grouped allreduce, allgather, broadcast, alltoall,
+reducescatter, barrier, their ``*_async`` forms, and ``synchronize`` /
+``poll`` on the handles those return.
 
-Each call is one collective over the global process group: NCCL on the GPU,
-gloo on the CPU. Every rank must make the same calls in the same order. A
-collective that the backend fails (a peer lost, or one stalled past the
-process group's timeout) raises ``HorovodInternalError``, as Horovod's torch
-ops do; NCCL may instead abort the process, as its watchdog decides.
-Other collectives (allgather, alltoall, reducescatter, the ``*_async``
-forms) and process sets other than the global one are not ported yet.
+Each call is a collective over a process set (the global one by default):
+NCCL on the GPU, gloo on the CPU. Every member of the set makes the same
+calls in the same order, and a non-member's call raises ``ValueError``
+(``common/process_sets.py``). A collective that the backend fails (a peer
+lost, or one stalled past the process group's timeout) raises
+``HorovodInternalError``, as Horovod's torch ops do; NCCL may instead abort
+the process, as its watchdog decides.
+
+Async calls return a :class:`Handle` that wraps the backend's ``Work``
+objects and keeps the input and output buffers alive. ``synchronize`` does
+the post-processing (the Average division, trimming a ragged allgather,
+the grouped allreduce's decompression). On NCCL a finished ``Work`` only
+makes the current stream wait for the collective, so the result is ready
+for work queued on the current stream, as any PyTorch result is.
+Allgather and alltoall exchange their sizes before the data, so their
+``*_async`` forms return once the sizes are known.
 """
 
 from __future__ import annotations
 
+import time
+
+import torch
 import torch.distributed as dist
 
-from horovod_tpu_torch.common import basics
-from horovod_tpu_torch.common.exceptions import HorovodInternalError
-from horovod_tpu_torch.common.process_sets import (check_global,
-                                                   global_process_set)
+from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
+                                                 HorovodTimeoutError)
+from horovod_tpu_torch.common.process_sets import global_process_set
+from horovod_tpu_torch.ops.compression import Compression
 
 
 class ReduceOp:
@@ -41,6 +55,7 @@ Product = ReduceOp("Product")
 _DIST_OP = {Average: dist.ReduceOp.SUM, Sum: dist.ReduceOp.SUM,
             Min: dist.ReduceOp.MIN, Max: dist.ReduceOp.MAX,
             Product: dist.ReduceOp.PRODUCT}
+_MAX_DIMS = 8     # the shape exchange of a ragged allgather
 
 
 def _resolve_op(op, average):
@@ -49,64 +64,393 @@ def _resolve_op(op, average):
         raise ValueError("specify either op= or average=, not both")
     if op is None:
         return Average if average is None or average else Sum
-    if op is Adasum:
-        raise NotImplementedError("Adasum is not ported yet")
-    if op not in _DIST_OP:
+    if op is not Adasum and op not in _DIST_OP:
         raise ValueError(f"unknown reduce op {op}")
     return op
 
 
 def _collective(fn, *args, **kwargs):
     try:
-        fn(*args, **kwargs)
+        return fn(*args, **kwargs)
     except RuntimeError as e:
         raise HorovodInternalError(f"{fn.__name__} failed: {e}") from e
 
 
-def allreduce_(tensor, average=None, name=None, op=None,
-               prescale_factor=1.0, postscale_factor=1.0,
-               process_set=global_process_set):
-    """Reduce ``tensor`` across all processes in place and return it:
-    ``postscale · reduce_op(prescale · tensor)``, where Average is the sum
-    divided by ``size()``. ``name`` is accepted for API parity."""
+def _scale_(t, factor):
+    """``t *= factor`` in place. An integer tensor takes only an integral
+    factor: the product must fit its dtype."""
+    if factor == 1.0:
+        return t
+    if t.is_floating_point():
+        return t.mul_(factor)
+    if factor != int(factor):
+        raise TypeError(f"an integer tensor cannot be scaled in place by "
+                        f"{factor}")
+    return t.mul_(int(factor))
+
+
+def _average(t, n):
+    """Average's division after the sum: in place for a floating tensor;
+    an integer tensor gives the float mean, as the JAX package's pmean
+    does."""
+    return t.div_(n) if t.is_floating_point() else t / n
+
+
+class Handle:
+    """An async collective in flight. ``synchronize(handle)`` waits for it
+    and returns its result; ``poll(handle)`` says whether it is done."""
+
+    def __init__(self, works, finish):
+        self._works = list(works)     # the backend's Work objects
+        self._finish = finish         # result from the finished buffers
+        self._result = None
+
+    def done(self) -> bool:
+        return self._finish is None or all(w.is_completed()
+                                           for w in self._works)
+
+    def wait(self, timeout=None):
+        """Block until the collective completes and return its result.
+        With ``timeout`` (seconds), raise ``HorovodTimeoutError`` if it is
+        still pending then; the handle stays waitable."""
+        if self._finish is None:
+            return self._result
+        if timeout is not None:
+            deadline = time.monotonic() + timeout
+            while not self.done():
+                if time.monotonic() >= deadline:
+                    raise HorovodTimeoutError(
+                        f"collective still pending after {timeout} s")
+                time.sleep(1e-3)
+        for w in self._works:
+            _collective(w.wait)
+        self._result, self._finish, self._works = self._finish(), None, []
+        return self._result
+
+
+def _done(result) -> Handle:
+    h = Handle([], None)
+    h._result = result
+    return h
+
+
+def synchronize(handle, timeout=None):
+    """Wait for an async handle and return its output
+    (``torch/mpi_ops.py:823``). A backend failure raises
+    ``HorovodInternalError``; with ``timeout`` (seconds) a collective still
+    pending at the deadline raises ``HorovodTimeoutError`` and the handle
+    stays waitable."""
+    return handle.wait(timeout=timeout)
+
+
+def poll(handle) -> bool:
+    """True once the async op has completed (``torch/mpi_ops.py:807``);
+    never blocks."""
+    return handle.done()
+
+
+# --------------------------------------------------------------------------
+# allreduce
+# --------------------------------------------------------------------------
+
+def _allreduce_start(buf, op, prescale, postscale, process_set,
+                     segments=None):
+    """Reduce ``buf`` (owned by the caller, may be reduced in place) and
+    return a Handle whose result is the reduced tensor. Adasum combines
+    each of the flat ``segments`` (lengths; default the whole tensor) with
+    its own coefficients."""
+    group = process_set.group()
+    n = process_set.size()
+    _scale_(buf, prescale)
+    if op is Adasum:
+        from horovod_tpu_torch.ops.adasum import adasum_reduce_flat
+
+        out = adasum_reduce_flat(buf.reshape(-1), segments or [buf.numel()],
+                                 process_set).view(buf.shape)
+        return _done(_scale_(out, postscale))
+    work = _collective(dist.all_reduce, buf, op=_DIST_OP[op], group=group,
+                       async_op=True)
+
+    def finish():
+        out = _average(buf, n) if op is Average else buf
+        return _scale_(out, postscale)
+
+    return Handle([work], finish)
+
+
+def allreduce_async(tensor, average=None, name=None, op=None,
+                    prescale_factor=1.0, postscale_factor=1.0,
+                    process_set=global_process_set):
+    """Start :func:`allreduce`; returns a handle (``torch/mpi_ops.py:130``).
+    ``tensor`` is left as it was."""
     del name
-    op = _resolve_op(op, average)
-    check_global(process_set)
-    if prescale_factor != 1.0:
-        tensor.mul_(prescale_factor)
-    _collective(dist.all_reduce, tensor, op=_DIST_OP[op])
-    if op is Average:
-        tensor.div_(basics.size())
-    if postscale_factor != 1.0:
-        tensor.mul_(postscale_factor)
-    return tensor
+    return _allreduce_start(tensor.detach().clone(), _resolve_op(op, average),
+                            prescale_factor, postscale_factor, process_set)
 
 
 def allreduce(tensor, average=None, name=None, op=None,
               prescale_factor=1.0, postscale_factor=1.0,
               process_set=global_process_set):
-    """Out-of-place :func:`allreduce_`; ``tensor`` is left as it was."""
-    return allreduce_(tensor.detach().clone(), average=average, name=name,
-                      op=op, prescale_factor=prescale_factor,
-                      postscale_factor=postscale_factor,
-                      process_set=process_set)
+    """Reduce ``tensor`` across the set's processes:
+    ``postscale · reduce_op(prescale · tensor)``, where Average is the sum
+    divided by the set's size, and Adasum the scale-invariant combine of
+    ``ops/adasum.py``. An integer tensor under Average gives the float
+    mean. ``name`` is accepted for API parity."""
+    return synchronize(allreduce_async(
+        tensor, average=average, name=name, op=op,
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        process_set=process_set))
 
 
-def broadcast_(tensor, root_rank, name=None, process_set=global_process_set):
-    """Overwrite ``tensor`` on every process with root_rank's, in place."""
+def allreduce_(tensor, average=None, name=None, op=None,
+               prescale_factor=1.0, postscale_factor=1.0,
+               process_set=global_process_set):
+    """:func:`allreduce` in place; returns ``tensor``. An integer tensor
+    under Average raises ``TypeError``: it cannot hold the mean."""
     del name
-    check_global(process_set)
-    _collective(dist.broadcast, tensor, src=root_rank)
+    op = _resolve_op(op, average)
+    if op is Average and not tensor.is_floating_point():
+        raise TypeError(f"allreduce_ cannot average a {tensor.dtype} tensor "
+                        "in place; use allreduce, which returns the float "
+                        "mean")
+    out = synchronize(_allreduce_start(tensor, op, prescale_factor,
+                                       postscale_factor, process_set))
+    if out is not tensor:
+        tensor.copy_(out)
     return tensor
 
 
-def broadcast(tensor, root_rank, name=None, process_set=global_process_set):
+def grouped_allreduce_async(tensors, average=None, name=None, op=None,
+                            prescale_factor=1.0, postscale_factor=1.0,
+                            process_set=global_process_set,
+                            compression=Compression.none):
+    """Start :func:`grouped_allreduce`; returns a handle."""
+    del name
+    op = _resolve_op(op, average)
+    tensors = list(tensors)
+    wires = [compression.compress(t.detach()) for t in tensors]
+    buckets = {}        # (device, wire dtype) -> indices, in order
+    for i, (wire, _) in enumerate(wires):
+        buckets.setdefault((wire.device, wire.dtype), []).append(i)
+    parts = []
+    for idx in buckets.values():
+        flat = torch.cat([wires[i][0].reshape(-1) for i in idx])
+        parts.append((idx, _allreduce_start(
+            flat, op, prescale_factor, postscale_factor, process_set,
+            segments=[wires[i][0].numel() for i in idx])))
+
+    def finish():       # the parts' Work objects are already waited for
+        out = [None] * len(tensors)
+        for idx, h in parts:
+            flat, offset = h.wait(), 0
+            for i in idx:
+                wire, ctx = wires[i]
+                out[i] = compression.decompress(
+                    flat[offset:offset + wire.numel()].view(wire.shape), ctx)
+                offset += wire.numel()
+        return out
+
+    return Handle([w for _, h in parts for w in h._works], finish)
+
+
+def grouped_allreduce(tensors, average=None, name=None, op=None,
+                      prescale_factor=1.0, postscale_factor=1.0,
+                      process_set=global_process_set,
+                      compression=Compression.none):
+    """Reduce a list of tensors as one fused unit: one flat buffer and one
+    collective per (device, wire dtype) (Horovod's tensor fusion).
+    ``compression`` casts each tensor for the wire and back. Adasum's
+    coefficients stay per tensor. Returns the reduced tensors in order."""
+    return synchronize(grouped_allreduce_async(
+        tensors, average=average, name=name, op=op,
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        process_set=process_set, compression=compression))
+
+
+# --------------------------------------------------------------------------
+# allgather
+# --------------------------------------------------------------------------
+
+def allgather_async(tensor, name=None, process_set=global_process_set):
+    """Start :func:`allgather`. The shapes are exchanged before this
+    returns; the data moves asynchronously."""
+    del name
+    group = process_set.group()
+    n = process_set.size()
+    t = tensor.detach()
+    t = (t.reshape(1) if t.dim() == 0 else t).contiguous()
+    if t.dim() > _MAX_DIMS:
+        raise ValueError(f"allgather takes at most {_MAX_DIMS} dims")
+    shape = torch.tensor([t.dim(), *t.shape] + [0] * (_MAX_DIMS - t.dim()),
+                         dtype=torch.int64, device=t.device)
+    shapes = torch.empty(n * (1 + _MAX_DIMS), dtype=torch.int64,
+                         device=t.device)
+    _collective(dist.all_gather_into_tensor, shapes, shape, group=group)
+    shapes = shapes.view(n, 1 + _MAX_DIMS).tolist()
+    rows = [s[1] for s in shapes]
+    if any(s[0] != t.dim() or s[2:1 + t.dim()] != list(t.shape[1:])
+           for s in shapes):
+        raise ValueError(f"allgather needs the same dims after dim 0 on "
+                         f"every rank; got shapes "
+                         f"{[s[1:1 + s[0]] for s in shapes]}")
+    m = max(rows)
+    if m != t.shape[0]:        # pad to the largest, trim after
+        t = torch.cat([t, t.new_zeros((m - t.shape[0],) + t.shape[1:])])
+    out = t.new_empty((n * m,) + t.shape[1:])
+    work = _collective(dist.all_gather_into_tensor, out, t, group=group,
+                       async_op=True)
+
+    def finish():
+        if all(r == m for r in rows):
+            return out
+        return torch.cat([out[i * m:i * m + r] for i, r in enumerate(rows)])
+
+    return Handle([work], finish)
+
+
+def allgather(tensor, name=None, process_set=global_process_set):
+    """Concatenate ``tensor`` from the set's processes along dim 0, in rank
+    order (``torch/mpi_ops.py:502``). Dim 0 may differ per rank, as in the
+    engine's allgatherv; the other dims must match."""
+    return synchronize(allgather_async(tensor, name=name,
+                                       process_set=process_set))
+
+
+def grouped_allgather(tensors, name=None, process_set=global_process_set):
+    """:func:`allgather` of each tensor; returns the list."""
+    del name
+    handles = [allgather_async(t, process_set=process_set) for t in tensors]
+    return [synchronize(h) for h in handles]
+
+
+# --------------------------------------------------------------------------
+# broadcast
+# --------------------------------------------------------------------------
+
+def broadcast_async_(tensor, root_rank, name=None,
+                     process_set=global_process_set):
+    """Start :func:`broadcast_`; returns a handle whose result is
+    ``tensor``."""
+    del name
+    if root_rank not in process_set.global_ranks():
+        raise ValueError(f"root_rank {root_rank} is not in {process_set}")
+    group = process_set.group()
+    buf = tensor if tensor.is_contiguous() else tensor.contiguous()
+    work = _collective(dist.broadcast, buf, src=root_rank, group=group,
+                       async_op=True)
+
+    def finish():
+        if buf is not tensor:
+            tensor.copy_(buf)
+        return tensor
+
+    return Handle([work], finish)
+
+
+def broadcast_async(tensor, root_rank=0, name=None,
+                    process_set=global_process_set):
+    """Start :func:`broadcast`; returns a handle."""
+    return broadcast_async_(tensor.detach().clone(), root_rank, name=name,
+                            process_set=process_set)
+
+
+def broadcast_(tensor, root_rank, name=None, process_set=global_process_set):
+    """Overwrite ``tensor`` on every member with ``root_rank``'s, in place.
+    ``root_rank`` is a global rank and must be a member of the set."""
+    return synchronize(broadcast_async_(tensor, root_rank, name=name,
+                                        process_set=process_set))
+
+
+def broadcast(tensor, root_rank=0, name=None,
+              process_set=global_process_set):
     """Out-of-place :func:`broadcast_`."""
-    return broadcast_(tensor.detach().clone(), root_rank, name=name,
-                      process_set=process_set)
+    return synchronize(broadcast_async(tensor, root_rank, name=name,
+                                       process_set=process_set))
+
+
+# --------------------------------------------------------------------------
+# alltoall
+# --------------------------------------------------------------------------
+
+def alltoall_async(tensor, splits=None, name=None,
+                   process_set=global_process_set):
+    """Start :func:`alltoall`. The receive splits are exchanged before
+    this returns; the data moves asynchronously."""
+    del name
+    group = process_set.group()
+    n = process_set.size()
+    t = tensor.detach().contiguous()
+    if splits is None:
+        if t.shape[0] % n:
+            raise ValueError(
+                f"alltoall without splits requires dim 0 ({t.shape[0]}) "
+                f"divisible by the number of participants ({n})")
+        splits = [t.shape[0] // n] * n
+    else:
+        splits = [int(s) for s in (splits.tolist() if torch.is_tensor(splits)
+                                   else splits)]
+        if len(splits) != n or min(splits) < 0 or sum(splits) != t.shape[0]:
+            raise ValueError(
+                f"alltoall splits {splits} must be {n} non-negative counts "
+                f"that sum to dim 0 ({t.shape[0]})")
+    send = torch.tensor(splits, dtype=torch.int64, device=t.device)
+    recv = torch.empty_like(send)
+    _collective(dist.all_to_all_single, recv, send, group=group)
+    recv_splits = recv.tolist()
+    out = t.new_empty((sum(recv_splits),) + t.shape[1:])
+    work = _collective(dist.all_to_all_single, out, t,
+                       output_split_sizes=recv_splits,
+                       input_split_sizes=splits, group=group, async_op=True)
+    return Handle([work], lambda: (out, torch.tensor(recv_splits)))
+
+
+def alltoall(tensor, splits=None, name=None, process_set=global_process_set):
+    """Send ``splits[j]`` consecutive dim-0 rows of ``tensor`` to the set's
+    j-th member and concatenate what each member sent here, in rank order
+    (``torch/mpi_ops.py:710``). Without ``splits`` dim 0 is split evenly.
+    Returns ``(output, received_splits)``; the splits are a CPU int64
+    tensor, as the engine path returns them."""
+    return synchronize(alltoall_async(tensor, splits=splits, name=name,
+                                      process_set=process_set))
+
+
+# --------------------------------------------------------------------------
+# reducescatter
+# --------------------------------------------------------------------------
+
+def reducescatter(tensor, op=None, name=None, process_set=global_process_set,
+                  prescale_factor=1.0, postscale_factor=1.0):
+    """Reduce across the set and give the i-th member the i-th of ``size``
+    equal dim-0 slices of the result. Dim 0 must divide by the set's size.
+    Average divides by the set's size after the sum; pre/postscale as in
+    :func:`allreduce`. An integer tensor under Average gives the float
+    mean."""
+    del name
+    op = Average if op is None else op
+    if op not in _DIST_OP:
+        raise ValueError(f"reducescatter does not support {op}")
+    group = process_set.group()
+    n = process_set.size()
+    if tensor.dim() == 0 or tensor.shape[0] % n:
+        raise ValueError(f"reducescatter dim 0 of shape {tuple(tensor.shape)}"
+                         f" must divide by the set's size ({n})")
+    buf = _scale_(tensor.detach().clone().contiguous(), prescale_factor)
+    out = buf.new_empty((buf.shape[0] // n,) + buf.shape[1:])
+    _collective(dist.reduce_scatter_tensor, out, buf, op=_DIST_OP[op],
+                group=group)
+    out = _average(out, n) if op is Average else out
+    return _scale_(out, postscale_factor)
+
+
+def grouped_reducescatter(tensors, op=None, name=None,
+                          process_set=global_process_set):
+    """:func:`reducescatter` of each tensor; returns the list."""
+    del name
+    return [reducescatter(t, op=op, process_set=process_set)
+            for t in tensors]
 
 
 def barrier(process_set=global_process_set):
-    """Block until every process reaches this call."""
-    check_global(process_set)
-    _collective(dist.barrier)
+    """Block until every member of the set reaches this call."""
+    _collective(dist.barrier, group=process_set.group())
+

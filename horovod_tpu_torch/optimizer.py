@@ -1,4 +1,4 @@
-"""DistributedOptimizer: average gradients across processes before each
+"""DistributedOptimizer: combine gradients across processes before each
 update (Horovod's ``torch/optimizer.py``; the JAX package's
 ``horovod_tpu/jax/__init__.py:DistributedGradientTransformation``).
 
@@ -12,9 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from horovod_tpu_torch.common import basics
-from horovod_tpu_torch.common.process_sets import (check_global,
-                                                   global_process_set)
+from horovod_tpu_torch.common.process_sets import global_process_set
+from horovod_tpu_torch.models.convert import flax_path
 from horovod_tpu_torch.ops import collective_ops as C
 from horovod_tpu_torch.ops.compression import Compression
 
@@ -22,83 +21,142 @@ from horovod_tpu_torch.ops.compression import Compression
 class _DistributedOptimizer(torch.optim.Optimizer):
     """Methods grafted onto a subclass of the wrapped optimizer's class, so
     the result is still that optimizer (``isinstance``, schedulers,
-    ``state_dict``) with an allreduce in front of ``step``."""
+    ``state_dict``) with the gradient reduction in front of ``step``."""
 
-    def __init__(self, params, op, compression, prescale_factor,
-                 postscale_factor):
+    def __init__(self, params, reduce_kwargs, names, reduce_filter,
+                 backward_passes_per_step, average_aggregated_gradients):
         super(self.__class__, self).__init__(params)
-        self._hvt_op = op
-        self._hvt_compression = compression
-        self._hvt_prescale = prescale_factor
-        self._hvt_postscale = postscale_factor
+        self._hvt_reduce_kwargs = reduce_kwargs
+        self._hvt_names = names
+        self._hvt_filter = reduce_filter
+        self._hvt_passes_per_step = backward_passes_per_step
+        self._hvt_average_aggregated = average_aggregated_gradients
+        self._hvt_passes = 0
+        self._hvt_acc = {}      # param -> gradient sum of the held passes
+
+    def _hvt_reduced(self, p):
+        if self._hvt_filter is None:
+            return True
+        if p not in self._hvt_names:
+            raise ValueError("reduce_filter needs the name of every "
+                             "parameter: pass named_parameters=")
+        return self._hvt_filter(self._hvt_names[p])
 
     def synchronize(self):
-        """Allreduce every ``.grad`` in place: compress, one fused
-        allreduce per (device, wire dtype), decompress."""
-        buckets = {}
-        for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                wire, ctx = self._hvt_compression.compress(p.grad)
-                buckets.setdefault((wire.device, wire.dtype), []).append(
-                    (p, wire, ctx))
-        for entries in buckets.values():
-            flat = torch.cat([w.reshape(-1) for _, w, _ in entries])
-            C.allreduce_(flat, op=self._hvt_op,
-                         prescale_factor=self._hvt_prescale,
-                         postscale_factor=self._hvt_postscale)
-            offset = 0
-            for p, wire, ctx in entries:
-                n = wire.numel()
-                reduced = flat[offset:offset + n].view_as(wire)
-                p.grad.copy_(self._hvt_compression.decompress(reduced, ctx))
-                offset += n
+        """Reduce every ``.grad`` that the filter selects, in place: one
+        fused collective per (device, wire dtype) through
+        ``grouped_allreduce``."""
+        params = [p for group in self.param_groups for p in group["params"]
+                  if p.grad is not None and self._hvt_reduced(p)]
+        reduced = C.grouped_allreduce([p.grad for p in params],
+                                      **self._hvt_reduce_kwargs)
+        for p, g in zip(params, reduced):
+            p.grad.copy_(g)
 
     def step(self, closure=None):
+        """With ``backward_passes_per_step`` N, call this after every
+        backward pass: calls 1..N-1 add the gradients to an accumulator and
+        leave the parameters and the inner state untouched; call N reduces
+        the sum (divided by N with ``average_aggregated_gradients``), runs
+        the inner update and empties the accumulator. Each pass's
+        gradient is added to the accumulator and ``.grad`` is set to None,
+        so a pass is counted once whether or not the caller clears the
+        gradients between the passes of an update. The adds are foreach ops: a few launches a
+        pass, not one per parameter."""
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        if self._hvt_passes_per_step > 1:
+            self._hvt_passes += 1
+            acc = self._hvt_acc
+            params = [p for group in self.param_groups
+                      for p in group["params"] if p.grad is not None]
+            held = [p for p in params if p in acc]
+            if held:
+                torch._foreach_add_([acc[p] for p in held],
+                                    [p.grad for p in held])
+            fresh = [p for p in params if p not in acc]
+            if fresh:   # copies: the caller may still hold these tensors
+                copies = [torch.empty_like(p.grad) for p in fresh]
+                torch._foreach_copy_(copies, [p.grad for p in fresh])
+                acc.update(zip(fresh, copies))
+            for p in params:    # the accumulator holds each pass once
+                p.grad = None
+            if self._hvt_passes < self._hvt_passes_per_step:
+                return loss
+            if self._hvt_average_aggregated and acc:
+                torch._foreach_div_(list(acc.values()),
+                                    self._hvt_passes_per_step)
+            for p, g in acc.items():
+                p.grad = g
+            self._hvt_acc, self._hvt_passes = {}, 0
         self.synchronize()
-        return super(self.__class__, self).step(closure)
+        super(self.__class__, self).step()
+        return loss
 
 
-def DistributedOptimizer(optimizer, *, op=C.Average,
+def DistributedOptimizer(optimizer, named_parameters=None, *, op=C.Average,
                          compression=Compression.none,
                          prescale_factor=1.0, postscale_factor=1.0,
                          gradient_predivide_factor=1.0,
                          backward_passes_per_step=1,
+                         average_aggregated_gradients=False,
                          process_set=global_process_set,
                          reduce_filter=None):
-    """Wrap a ``torch.optim.Optimizer`` so that ``step()`` first allreduces
-    every gradient across processes with ``op`` (Average by default),
-    ``compression`` and pre/postscale factors, then runs the inner update.
+    """Wrap a ``torch.optim.Optimizer`` so that ``step()`` first reduces
+    every gradient over ``process_set`` with ``op`` (Average by default;
+    Adasum with per-tensor coefficients), ``compression`` and the
+    pre/postscale factors, then runs the inner update.
 
-    ``gradient_predivide_factor`` f splits Average's 1/size into a prescale
-    f/size and a postscale 1/f around a Sum, and requires op=Average.
-    ``backward_passes_per_step > 1``, ``reduce_filter`` and process sets
-    other than the global one are not ported yet.
+    - ``gradient_predivide_factor`` f splits Average's 1/size into a
+      prescale f/size and a postscale 1/f around a Sum (size of the set),
+      and requires op=Average.
+    - ``backward_passes_per_step`` and ``average_aggregated_gradients``: see
+      ``step``. The accumulator belongs to the optimizer, so it survives
+      ``zero_grad(set_to_none=True)``.
+    - ``reduce_filter(name) -> bool`` on the parameter's dotted name (from
+      ``named_parameters``): a parameter for which it returns False keeps
+      its local gradient.
+    - A process that is not a member of ``process_set`` gets
+      ``ValueError`` from ``step``.
     """
-    if backward_passes_per_step != 1:
-        raise NotImplementedError("backward_passes_per_step > 1 is not "
-                                  "ported yet")
-    if reduce_filter is not None:
-        raise NotImplementedError("reduce_filter is not ported yet")
-    check_global(process_set)
-    if op is C.Adasum:
-        raise NotImplementedError("Adasum is not ported yet")
+    if backward_passes_per_step < 1:
+        raise ValueError("backward_passes_per_step must be at least 1")
     if gradient_predivide_factor != 1.0:
         if op is not C.Average:
             raise ValueError("gradient_predivide_factor requires "
                              "op=Average")
         op = C.Sum
-        prescale_factor *= gradient_predivide_factor / basics.size()
+        prescale_factor *= gradient_predivide_factor / process_set.size()
         postscale_factor /= gradient_predivide_factor
+    names = {p: name for name, p in (named_parameters or ())}
+    if reduce_filter is not None and not names:
+        raise ValueError("reduce_filter needs named_parameters=")
     cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
                dict(_DistributedOptimizer.__dict__))
-    return cls(optimizer.param_groups, op, compression, prescale_factor,
-               postscale_factor)
+    return cls(optimizer.param_groups,
+               dict(op=op, compression=compression,
+                    prescale_factor=prescale_factor,
+                    postscale_factor=postscale_factor,
+                    process_set=process_set),
+               names, reduce_filter, backward_passes_per_step,
+               average_aggregated_gradients)
 
 
-def PartialDistributedOptimizer(optimizer, local_layers=(), **kwargs):
-    """Not ported yet: leaving named layers process-local needs
-    ``reduce_filter``."""
-    raise NotImplementedError("PartialDistributedOptimizer is not ported "
-                              "yet")
+def PartialDistributedOptimizer(optimizer, named_parameters, local_layers=(),
+                                **kwargs):
+    """:func:`DistributedOptimizer` that leaves local every parameter whose
+    name contains one of ``local_layers`` (the JAX package's
+    ``PartialDistributedGradientTransformation``). Names are matched in the
+    JAX package's form, the flax path that ``models/convert.py`` maps
+    (``blocks.0.attn.q`` is ``block_0/attn/q/kernel``), so the same
+    ``local_layers`` select the same tensors in both packages."""
+    layers = tuple(local_layers)
+
+    def reduce_filter(name):
+        path = "/".join(flax_path(name))
+        return not any(layer in path for layer in layers)
+
+    return DistributedOptimizer(optimizer, named_parameters,
+                                reduce_filter=reduce_filter, **kwargs)

@@ -53,6 +53,14 @@ for op, pre, post in cases:
                       postscale_factor=post)
     res["allreduce"].append(y.tolist())
 res["alias"] = hvt.allreduce(x, average=False).tolist()
+ints = torch.tensor([2 * r, 2 * r + 1], dtype=torch.int32)
+avg = hvt.allreduce(ints)
+res["int_average"] = [str(avg.dtype), avg.tolist()]
+try:
+    hvt.allreduce_(ints)
+    res["int_average_inplace"] = "no error"
+except TypeError as e:
+    res["int_average_inplace"] = type(e).__name__
 res["broadcast"] = hvt.broadcast(x, root_rank=1).tolist()
 hvt.barrier()
 entry["dtype"] = torch.float32
@@ -152,6 +160,22 @@ def test_allreduce_matches_jax_traced(gang, i):
                                    want[r], rtol=1e-6, atol=1e-6)
 
 
+def test_integer_average_gives_the_float_mean_as_jax_does(gang):
+    """int32 [0, 1, 2, 3] split over two ranks: the JAX traced allreduce
+    (Average) gives the float mean on each shard, and so does the port's
+    out-of-place allreduce; the in-place form cannot hold it and raises."""
+    results, _ = gang
+    ints = np.arange(4, dtype=np.int32)
+    want = _jax_allreduce(ints, "Average", 1.0, 1.0)
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(want, [1.0, 2.0, 1.0, 2.0])
+    for r in range(2):
+        dtype, got = results[r]["int_average"]
+        assert dtype == "torch.float32"
+        np.testing.assert_array_equal(got, want[2 * r:2 * r + 2])
+        assert results[r]["int_average_inplace"] == "TypeError"
+
+
 def test_lost_peer_raises_horovod_internal_error(gang):
     results, _ = gang
     assert results[0]["lost_peer"] == "HorovodInternalError"
@@ -205,16 +229,39 @@ def test_optimizer_options_in_a_world_of_one():
             hvt.DistributedOptimizer(torch.optim.SGD([w], lr=0.1),
                                      op=hvt.Sum,
                                      gradient_predivide_factor=2.0)
-        for kwargs in ({"backward_passes_per_step": 2},
-                       {"reduce_filter": lambda path: True},
-                       {"op": hvt.Adasum}):
-            with pytest.raises(NotImplementedError):
-                hvt.DistributedOptimizer(torch.optim.SGD([w], lr=0.1),
-                                         **kwargs)
-        with pytest.raises(NotImplementedError):
-            hvt.allreduce(torch.ones(2), op=hvt.Adasum)
-        with pytest.raises(NotImplementedError):
-            hvt.ProcessSet([0])
+        # backward_passes_per_step: the first pass only accumulates
+        opt = hvt.DistributedOptimizer(torch.optim.SGD([w], lr=0.1),
+                                       backward_passes_per_step=2)
+        for g in (1.0, 3.0):
+            w.grad = torch.full((2,), g)
+            opt.step()
+            if g == 1.0:
+                torch.testing.assert_close(w.detach(),
+                                           torch.tensor([1.0, 2.0]))
+        torch.testing.assert_close(w.detach(), torch.tensor([0.6, 1.6]))
+        # reduce_filter: a filtered-out parameter skips the collective
+        v = torch.nn.Parameter(torch.zeros(2))
+        opt = hvt.DistributedOptimizer(
+            torch.optim.SGD([w, v], lr=0.1), [("w", w), ("v", v)],
+            op=hvt.Sum, prescale_factor=2.0,
+            reduce_filter=lambda name: name != "v")
+        w.grad, v.grad = torch.ones(2), torch.ones(2)
+        opt.synchronize()
+        torch.testing.assert_close(w.grad, torch.full((2,), 2.0))
+        torch.testing.assert_close(v.grad, torch.ones(2))
+        # Adasum in a world of one returns the gradient unchanged
+        opt = hvt.DistributedOptimizer(torch.optim.SGD([w], lr=0.1),
+                                       op=hvt.Adasum)
+        w.grad = torch.tensor([0.25, -4.0])
+        opt.synchronize()
+        torch.testing.assert_close(w.grad, torch.tensor([0.25, -4.0]))
+        x = torch.tensor([1.5, -2.0])
+        torch.testing.assert_close(hvt.allreduce(x, op=hvt.Adasum), x)
+        ps = hvt.add_process_set([0])
+        assert ps.process_set_id == 1 and ps.included()
+        torch.testing.assert_close(hvt.allreduce(x, process_set=ps), x)
+        hvt.remove_process_set(ps)
+        assert ps.process_set_id is None
     finally:
         hvt.shutdown()
     with pytest.raises(ValueError, match="init"):

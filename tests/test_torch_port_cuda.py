@@ -1,7 +1,8 @@
 """horovod_tpu_torch's Hopper kernels on the card, held against their plain
 PyTorch versions. Every test here needs a CUDA device and skips without one.
 
-This file imports nothing of JAX, so it also runs where JAX is missing; the
+This file (and tests/torch_port_gang.py, which its NCCL gang test runs)
+imports nothing of JAX, so it also runs where JAX is missing; the
 repo's conftest imports JAX, so on such a machine run it as
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
@@ -222,4 +223,39 @@ def test_nccl_dp_step_equals_the_one_process_step(cuda, tmp_path):
                                rtol=1e-4, atol=1e-5)
     for name, want in one["model"].state_dict().items():
         torch.testing.assert_close(dp_state[name], want.cpu(), rtol=1e-3,
+                                   atol=1e-4, msg=name)
+
+
+@pytest.mark.cuda
+def test_nccl_collectives_and_accumulation_match_numpy(cuda, tmp_path):
+    """On n >= 2 cards (NCCL), the gang of tests/torch_port_gang.py: every
+    collective of the port held against numpy (fp32 rtol 1e-5, integers,
+    bf16 small integers and data movement exact), and its accumulation step
+    (two passes of one row per rank and update, averaged) against one
+    process on the whole batch, at the tolerances of
+    test_torch_port_train.py. Ranks are host-major with local size 2 when
+    n is even, so the hierarchical groups have two levels."""
+    import torch_port_gang as G
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models import GPTConfig
+    from horovod_tpu_torch.train import train
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    local = 2 if n % 2 == 0 else n
+    out = str(tmp_path / "gang")
+    results = G.run_gang(n, local, "cuda", out, timeout=600)
+    assert not G.mismatches(results, n, local)
+    try:
+        one = train(GPTConfig(**G.ENTRY, dtype=torch.float32),
+                    G.ACC_UPDATES, n * G.ACC_ROWS, G.ACC_SEQ, lr=1e-3)
+    finally:
+        basics.shutdown()
+    losses = torch.tensor([r["acc_losses"] for r in results]).mean((0, 2))
+    torch.testing.assert_close(losses, torch.tensor(one["loss"]),
+                               rtol=1e-4, atol=1e-5)
+    acc_state = torch.load(out + ".acc.pt")
+    for name, want in one["model"].state_dict().items():
+        torch.testing.assert_close(acc_state[name], want.cpu(), rtol=1e-3,
                                    atol=1e-4, msg=name)
