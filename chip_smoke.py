@@ -9,12 +9,14 @@ Phases, each of which exits non-zero on a failure:
 2. build: compile the six flash-attention kernels from csrc/ with nvcc,
    one process per source, in parallel.
 3. kernels: hold every kernel against its plain PyTorch version, and the
-   autograd Function built on them against autograd of
-   flash_attention_reference, at eight shapes: the main path's (B 8, H 12,
-   S 1024, D 64, bf16, causal), the accumulation phase's micro-batch (the
-   same with B 4), non-causal, GQA (H 12, H_kv 4), ragged
-   (S 1000, D 32, fp32), bf16 ragged (S 1000, D 64), bf16 GQA at D 128
-   (B 2, S 2048, H 8, H_kv 2) and bf16 D 32. bf16 at D 64 and 128 routes
+   autograd Function built on them (cotangents on o and on lse) against
+   autograd of flash_attention_reference, at eleven shapes: the main
+   path's (B 8, H 12, S 1024, D 64, bf16, causal), the accumulation
+   phase's micro-batch (the same with B 4), non-causal, GQA (H 12,
+   H_kv 4), ragged (S 1000, D 32, fp32), bf16 ragged (S 1000, D 64), bf16
+   GQA at D 128 (B 2, S 2048, H 8, H_kv 2), bf16 D 32, the ring's blocks
+   at sp 2 (S 512, causal and not, o in fp32) and Ulysses' local
+   attention at sp 2 (H 6). bf16 at D 64 and 128 routes
    fwd, dq and dkv to the tensor-core (sm90) kernels, fp32 and D 32 to the
    SIMT ones; at the main shape both designs run. The sm90 dq and dkv are
    also held against the plain versions that keep their operands in fp32,
@@ -56,8 +58,17 @@ Phases, each of which exits non-zero on a failure:
    allgather, broadcast of the trained parameters and optimizer state,
    allgather_object, sparse_allreduce_apply). Each result must equal its
    world-of-one value exactly and stay on cuda:0 in the input's dtype.
-8. summary: one JSON line listing the kernels, the nvidia-smi line, and
-   last the {"ok": true, ...} line.
+8. sequence: ring attention's block function (flash_ring_block of
+   horovod_tpu_torch/parallel/sequence.py), the arithmetic of each ring
+   step, on one card for every shard of an sp 2 and an sp 4 split of the
+   main shape, K/V blocks in ring order: o within 2e-2 and the gradients
+   of mean(o**2) within 5e-2 (relative to each gradient's largest
+   magnitude) of flash attention over the whole sequence and of the dense
+   reference; each sm90 kernel launches n(n+1)/2 times
+   for one forward and backward of n shards, the SIMT ones never.
+9. summary: one JSON line listing the kernels (launches on the main path,
+   the accumulation phase and the sequence phase), the nvidia-smi line,
+   and last the {"ok": true, ...} line.
 """
 
 import json
@@ -85,20 +96,31 @@ REPLACES = {"flash_fwd_sm90": "horovod_tpu/ops/flash_attention.py:94",
             "flash_fwd": "horovod_tpu/ops/flash_attention.py:94",
             "flash_dq": "horovod_tpu/ops/flash_attention.py:156",
             "flash_dkv": "horovod_tpu/ops/flash_attention.py:210"}
-# (B, S, H, H_kv, D, dtype name, causal); the first is the main path's,
-# the second the accumulation phase's (each update takes the main path's
-# batch as MICRO_BATCHES micro-batches)
-MAIN_SHAPE = (8, 1024, 12, 12, 64, "bfloat16", True)
+# (B, S, H, H_kv, D, dtype name, causal, o's dtype name); the first is the
+# main path's, the second the accumulation phase's (each update takes the
+# main path's batch as MICRO_BATCHES micro-batches)
+MAIN_SHAPE = (8, 1024, 12, 12, 64, "bfloat16", True, "bfloat16")
 MICRO_BATCHES = 2
 MICRO_SHAPE = (MAIN_SHAPE[0] // MICRO_BATCHES, *MAIN_SHAPE[1:])
+# the sequence-parallel paths at sp 2: a ring block of the main shape
+# (S / 2, causal on the diagonal, not causal below it; o in fp32 for the
+# logaddexp merge), and Ulysses' local attention (H / 2 heads)
+SP = 2
+RING_CASES = [(8, 1024 // SP, 12, 12, 64, "bfloat16", causal, "float32")
+              for causal in (True, False)]
+ULYSSES_CASE = (8, 1024, 12 // SP, 12 // SP, 64, "bfloat16", True,
+                "bfloat16")
 CASES = [MAIN_SHAPE,
          MICRO_SHAPE,
-         (8, 1024, 12, 12, 64, "bfloat16", False),
-         (8, 1024, 12, 4, 64, "bfloat16", True),
-         (2, 1000, 4, 4, 32, "float32", True),
-         (2, 1000, 4, 4, 64, "bfloat16", True),
-         (2, 2048, 8, 2, 128, "bfloat16", True),
-         (4, 1024, 8, 8, 32, "bfloat16", True)]
+         (8, 1024, 12, 12, 64, "bfloat16", False, "bfloat16"),
+         (8, 1024, 12, 4, 64, "bfloat16", True, "bfloat16"),
+         (2, 1000, 4, 4, 32, "float32", True, "float32"),
+         (2, 1000, 4, 4, 64, "bfloat16", True, "bfloat16"),
+         (2, 2048, 8, 2, 128, "bfloat16", True, "bfloat16"),
+         (4, 1024, 8, 8, 32, "bfloat16", True, "bfloat16"),
+         *RING_CASES, ULYSSES_CASE]
+# the sequence phase: ring blocks of the main shape at these sp layouts
+SEQUENCE_LAYOUTS = (2, 4)
 # kernel vs its plain version: the same arithmetic, summed in another
 # order; bf16 outputs may differ by about one bf16 ulp (2^-8 relative).
 TOL_PLAIN = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -192,18 +214,20 @@ def host_issue(run, calls=3):
             "syncs_inside": syncs / calls}
 
 
-def bound(name, b, s, h, h_kv, d, dtype, causal):
+def bound(name, b, s, h, h_kv, d, dtype, causal, out_dtype):
     """(bound_ms, bound_by) for one kernel's work at this shape: each input
-    read once, each output written once; FLOPs of the visible (q, k) pairs."""
+    read once, each output written once (o and dO in ``out_dtype``); FLOPs
+    of the visible (q, k) pairs."""
     item = 2 if dtype == "bfloat16" else 4
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     q_bytes, kv_bytes, vec = b * s * h * d * item, b * s * h_kv * d * item, \
         b * h * s * 4
+    o_bytes = q_bytes // item * (2 if out_dtype == "bfloat16" else 4)
     name = name.replace("_sm90", "")   # both designs do the same work
     flops = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}[name] * d * pairs
-    nbytes = {"flash_fwd": 2 * q_bytes + 2 * kv_bytes + vec,
-              "flash_dq": 3 * q_bytes + 2 * kv_bytes + 2 * vec,
-              "flash_dkv": 2 * q_bytes + 4 * kv_bytes + 2 * vec}[name]
+    nbytes = {"flash_fwd": q_bytes + o_bytes + 2 * kv_bytes + vec,
+              "flash_dq": 2 * q_bytes + o_bytes + 2 * kv_bytes + 2 * vec,
+              "flash_dkv": q_bytes + o_bytes + 4 * kv_bytes + 2 * vec}[name]
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
@@ -255,22 +279,23 @@ def kernel_phase(case, K, ref_fn, timings):
     import torch
     import torch.nn.functional as F
 
-    b, s, h, h_kv, d, dtype_name, causal = case
-    dtype = getattr(torch, dtype_name)
+    b, s, h, h_kv, d, dtype_name, causal, out_name = case
+    dtype, out_dtype = getattr(torch, dtype_name), getattr(torch, out_name)
     gen = torch.Generator(device="cuda").manual_seed(1234)
     q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda")
                .to(dtype) for n in (h, h_kv, h_kv))
-    do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(out_dtype)
+    dlse = torch.randn(b, s, h, generator=gen, device="cuda")
     scale = d ** -0.5
     tol = TOL_PLAIN[dtype_name]
     shape = {"B": b, "S": s, "H": h, "H_kv": h_kv, "D": d,
-             "dtype": dtype_name, "causal": causal}
+             "dtype": dtype_name, "causal": causal, "o": out_name}
     main = case == MAIN_SHAPE
     variants = ("sm90", "simt") if main else (K._variant(dtype, d),)
 
     # both designs get the same inputs: the backward starts from the plain
     # forward's o and lse
-    ro, rlse = K.flash_fwd_plain(q, k, v, scale, causal, dtype)
+    ro, rlse = K.flash_fwd_plain(q, k, v, scale, causal, out_dtype)
     delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, rlse, delta, scale, causal)
     fp32_operands = {"dq": K.flash_dq_plain(*args),
@@ -280,7 +305,8 @@ def kernel_phase(case, K, ref_fn, timings):
         sm90 = variant == "sm90"
         fwd, dqn, dkv = (K._kernel(base, q, variant)
                          for base in ("flash_fwd", "flash_dq", "flash_dkv"))
-        o, lse = K.flash_fwd(q, k, v, scale, causal, dtype, variant=variant)
+        o, lse = K.flash_fwd(q, k, v, scale, causal, out_dtype,
+                             variant=variant)
         got = {"dq": K.flash_dq(*args, variant=variant),
                **dict(zip(("dk", "dv"), K.flash_dkv(*args, variant=variant)))}
         torch.cuda.synchronize()
@@ -316,7 +342,9 @@ def kernel_phase(case, K, ref_fn, timings):
               "max_rel_err": max(e[1] for e in found),
               "least_tol": max(e[2] for e in found), "tol": tol})
 
-    # end to end through autograd: kernels vs autograd of the reference
+    # end to end through autograd, with cotangents on o and on lse (the
+    # ring's logaddexp merge differentiates through lse, so delta =
+    # rowsum(dO∘O) - dlse): kernels vs autograd of the reference
     from horovod_tpu_torch.ops.flash_attention import \
         flash_attention_with_lse
     tol_ag = TOL_AUTOGRAD[dtype_name]
@@ -324,15 +352,19 @@ def kernel_phase(case, K, ref_fn, timings):
     for label, fn in (("kernels", flash_attention_with_lse),
                       ("reference", ref_fn)):
         leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-        out, _ = fn(*leaves, causal=causal, scale=scale)
-        out.backward(do)
-        grads[label] = [out.detach()] + [x.grad for x in leaves]
-    ag = [check(f"autograd {n}", a, r, tol_ag) for n, a, r in
-          zip(("o", "dq", "dk", "dv"), grads["kernels"], grads["reference"])]
+        out, lse = fn(*leaves, causal=causal, scale=scale,
+                      out_dtype=out_dtype)
+        ((out.float() * do.float()).sum() + (lse * dlse).sum()).backward()
+        grads[label] = [out.detach(), lse.detach()] + [x.grad for x in leaves]
+    ag = [check(f"autograd {n}", a, r, 1e-4 if n == "lse" else tol_ag)
+          for n, a, r in zip(("o", "lse", "dq", "dk", "dv"),
+                             grads["kernels"], grads["reference"])]
     emit({"phase": "autograd", "shape": shape,
-          "vs": "autograd of flash_attention_reference",
+          "vs": "autograd of flash_attention_reference, cotangents on o "
+                "and lse",
           "max_abs_err": max(e[0] for e in ag),
-          "max_rel_err": max(e[1] for e in ag), "tol": tol_ag})
+          "max_rel_err": max(e[1] for e in ag),
+          "least_tol": max(e[2] for e in ag), "tol": tol_ag})
     del grads
 
     if not main:
@@ -361,9 +393,9 @@ def kernel_phase(case, K, ref_fn, timings):
     for variant in variants:
         sm90 = variant == "sm90"
         timed[K._kernel("flash_fwd", q, variant)] = (
-            lambda vr=variant: K.flash_fwd(q, k, v, scale, causal, dtype,
+            lambda vr=variant: K.flash_fwd(q, k, v, scale, causal, out_dtype,
                                            variant=vr),
-            lambda: K.flash_fwd_plain(q, k, v, scale, causal, dtype),
+            lambda: K.flash_fwd_plain(q, k, v, scale, causal, out_dtype),
             sdpa_fwd)
         timed[K._kernel("flash_dq", q, variant)] = (
             lambda vr=variant: K.flash_dq(*args, variant=vr),
@@ -375,7 +407,7 @@ def kernel_phase(case, K, ref_fn, timings):
             sdpa_pair)
     for name, (kern, plain, lib) in timed.items():
         bound_ms, bound_by = bound(name, b, s, h, h_kv, d, dtype_name,
-                                   causal)
+                                   causal, out_name)
         ms, host_ms = cuda_ms(kern, 20)
         timings[name] = {"max_abs_err": max(e[0] for e in errs[name]),
                          "ms": ms, "plain_ms": cuda_ms(plain, 5)[0],
@@ -403,8 +435,9 @@ def main_path(hvt, K):
     cfg = gpt_config("bench", use_flash=True, dtype=torch.bfloat16)
     batch, seq, steps = (MAIN_SHAPE[0], cfg.max_seq_len,
                          STEPS_WARMUP + STEPS_TIMED)
+    dtype_name = str(cfg.dtype).split(".")[1]
     attn = (batch, seq, cfg.n_heads, cfg.n_kv_heads or cfg.n_heads,
-            cfg.d_model // cfg.n_heads, str(cfg.dtype).split(".")[1], True)
+            cfg.d_model // cfg.n_heads, dtype_name, True, dtype_name)
     if attn != MAIN_SHAPE:      # the kernel phase checked MAIN_SHAPE
         fail(f"main path: attention shape {attn} is not {MAIN_SHAPE}")
 
@@ -709,6 +742,91 @@ def collectives_phase(hvt, model, optimizer):
           "checked": checked, "seconds": time.perf_counter() - t0})
 
 
+def sequence_phase(K, ref_fn):
+    """Ring attention's block function (parallel/sequence.flash_ring_block)
+    on one card: every shard of an sp-way split of the main shape takes the
+    K/V blocks in ring order, and the shards' o and the gradients of
+    mean(o**2) are held against flash attention over the whole sequence
+    and against the dense reference. A causal ring of n shards launches
+    each sm90 kernel n(n+1)/2 times (the masked blocks launch nothing) and
+    no SIMT kernel. Returns the launches summed over the layouts."""
+    import torch
+
+    from horovod_tpu_torch.ops.flash_attention import flash_attention
+    from horovod_tpu_torch.parallel.sequence import (block_kind,
+                                                     flash_ring_block,
+                                                     flash_ring_start)
+
+    b, s, h, h_kv, d, dtype_name, causal, _ = MAIN_SHAPE
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda")
+               .to(dtype) for n in (h, h_kv, h_kv))
+    scale = d ** -0.5
+
+    def run(attend):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        o = attend(*leaves)
+        (o.float() ** 2).mean().backward()
+        return [o.detach()] + [x.grad for x in leaves]
+
+    want = {"flash_attention": run(lambda *t: flash_attention(
+                *t, causal=causal, scale=scale)),
+            "reference": run(lambda *t: ref_fn(*t, causal=causal,
+                                               scale=scale)[0])}
+    total = {name: 0 for name in K.LAUNCHES}
+    for n in SEQUENCE_LAYOUTS:
+        shard = s // n
+
+        def ring(qf, kf, vf):
+            outs = []
+            for i in range(n):
+                qi = qf[:, i * shard:(i + 1) * shard]
+                o, lse = flash_ring_start(qi)
+                for step in range(n):
+                    j = (i - step) % n
+                    o, lse = flash_ring_block(
+                        qi, kf[:, j * shard:(j + 1) * shard],
+                        vf[:, j * shard:(j + 1) * shard], o, lse,
+                        block_kind(i, j, causal), scale)
+                outs.append(o.to(qf.dtype))
+            return torch.cat(outs, dim=1)
+
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = run(ring)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        blocks = n * (n + 1) // 2
+        for name, count in launches.items():
+            expect = blocks if name.endswith("_sm90") else 0
+            if count != expect:
+                fail(f"sequence sp {n}: {name} launched {count} times, "
+                     f"expected {expect}")
+            total[name] += count
+        # mean() makes the gradients about 1e-7: each is held relative to
+        # its largest magnitude
+        errs = {}
+        for label, ref in want.items():
+            found = {}
+            for t, g, r in zip(("o", "dq", "dk", "dv"), got, ref):
+                unit = 1.0 if t == "o" else float(r.float().abs().max())
+                e = check(f"sequence sp {n} {t} vs {label}", g / unit,
+                          r / unit, TOL_PLAIN[dtype_name] if t == "o"
+                          else TOL_AUTOGRAD[dtype_name])
+                found[t] = {"max_abs_err": e[0] * unit, "least_tol": e[2],
+                            "unit": unit}
+            errs[label] = found
+        emit({"phase": "sequence", "sp": n, "shard": [b, shard, h, d],
+              "dtype": dtype_name, "causal": causal, "launches": launches,
+              "blocks": blocks, "seconds_fwd_bwd": seconds,
+              "tol": {"o": TOL_PLAIN[dtype_name],
+                      "grads": TOL_AUTOGRAD[dtype_name]}, "vs": errs})
+    return total
+
+
 def main():
     import torch
 
@@ -749,11 +867,15 @@ def main():
     acc_launches, model, optimizer = accumulation_phase(hvt, K, main_losses)
     collectives_phase(hvt, model, optimizer)
     hvt.shutdown()
+    del model, optimizer
+    torch.cuda.empty_cache()
+    seq_launches = sequence_phase(K, flash_attention_reference)
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "launches_accumulation": acc_launches[name],
+         "launches_sequence": seq_launches[name],
          **timings[name]} for name in K.LAUNCHES]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,14 @@ head_dim)``, ``o`` ``(heads, head_dim, d_model)``, ``up``/``down``
     block_{i}/attn/q/kernel      ↔ blocks.{i}.attn.q
     block_{i}/ln1/scale          ↔ blocks.{i}.ln1.scale
     ln_f/scale                   ↔ ln_f.scale
+    router_block/router/kernel   ↔ router_block.router   (MoEMlp)
+    wi, wo                       ↔ wi, wo                (MoEMlp)
+    w, b (stacked stages)        ↔ w, b
+
+:func:`shard_state_dict` and :func:`gather_state_dict` compose with that
+mapping: a spec (``{name: tuple}``, one entry per dim, an axis name on a
+sharded dim; ``param_partition_spec``, ``moe_param_partition_spec``,
+``stage_partition_spec``) says which dims a mesh axis splits.
 """
 
 from __future__ import annotations
@@ -68,3 +76,37 @@ def params_to_flax(state_dict) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = tensor.detach().float().cpu().numpy()
     return tree
+
+
+def shard_state_dict(state_dict, specs, axis_sizes, coords) -> dict:
+    """This rank's shard of each tensor: along every dim whose spec names
+    an axis of ``axis_sizes`` (``{axis: size}``), the ``coords[axis]``-th
+    of ``size`` equal blocks. Names missing from ``specs`` stay whole."""
+    out = {}
+    for name, t in state_dict.items():
+        for dim, axis in enumerate(specs.get(name, ())):
+            n = axis_sizes.get(axis, 1)
+            if n == 1:
+                continue
+            if t.shape[dim] % n:
+                raise ValueError(f"{name}: dim {dim} of {tuple(t.shape)} "
+                                 f"does not split into {n} over {axis}")
+            t = t.chunk(n, dim=dim)[coords[axis]]
+        out[name] = t.detach().clone()
+    return out
+
+
+def gather_state_dict(shards, specs, axis) -> dict:
+    """The inverse of :func:`shard_state_dict` along one axis: ``shards``
+    are the state_dicts of the axis's ranks, in axis order; each tensor
+    whose spec names ``axis`` is concatenated along that dim, the others
+    are taken from the first shard."""
+    out = {}
+    for name, first in shards[0].items():
+        spec = specs.get(name, ())
+        if axis in spec:
+            out[name] = torch.cat([s[name] for s in shards],
+                                  dim=spec.index(axis))
+        else:
+            out[name] = first
+    return out

@@ -3,6 +3,9 @@
 
 A step is: GPT logits → shifted-target cross-entropy → backward →
 ``DistributedOptimizer(AdamW)`` (gradient allreduce, then the update).
+On a dp × sp × tp mesh, :func:`make_parallel_train_step` runs the same step
+with the batch split over dp, the sequence over sp (ring attention) and the
+model over tp (Megatron), and :func:`parallel_loss_fn` is its loss.
 """
 
 from __future__ import annotations
@@ -16,7 +19,9 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.models.transformer import GPT, GPTConfig
+from horovod_tpu_torch.ops import collective_ops as C
 from horovod_tpu_torch.optimizer import DistributedOptimizer
+from horovod_tpu_torch.parallel.primitives import reduce_from
 
 GPT_CONFIGS = {
     # __graft_entry__.py:_flagship — the entry() model
@@ -41,6 +46,74 @@ def loss_fn(model, tokens):
     targets[..., -1] = -100                      # ignored by cross_entropy
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            targets.reshape(-1), ignore_index=-100)
+
+
+def vocab_parallel_cross_entropy(logits, targets, process_set, first):
+    """Per-position cross-entropy from logits whose vocab is split over
+    ``process_set``: this rank's ``[..., V / n]`` slice holds vocab ids
+    ``first`` onwards. The max, the sum of exponentials and the target's
+    logit are each combined over the set, so no rank holds the whole
+    vocab. Positions whose target is -100 give 0."""
+    m = logits.detach().amax(dim=-1)
+    if process_set.size() > 1:
+        m = C.allreduce(m, op=C.Max, process_set=process_set)
+    sum_exp = reduce_from(torch.exp(logits - m[..., None]).sum(dim=-1),
+                          process_set)
+    local = targets - first
+    inside = (local >= 0) & (local < logits.shape[-1])
+    picked = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)
+                           [..., None])[..., 0] * inside
+    target_logit = reduce_from(picked, process_set)
+    return (torch.log(sum_exp) + m - target_logit) * (targets != -100)
+
+
+def parallel_loss_fn(model, tokens, mesh):
+    """This rank's share of the mean next-token cross-entropy of the
+    global batch ``tokens`` ``[B, S]`` (the same on every rank): rows split
+    over ``dp``, columns over ``sp``, vocab over ``tp``. Targets are made
+    from the whole rows, so the last token of a sequence shard is scored
+    against the first of the next. The shares sum to the loss over the dp ×
+    sp ranks: each is this rank's summed loss over B·(S-1)."""
+    b, s = tokens.shape
+    dp, sp = mesh.axis_size("dp"), mesh.axis_size("sp")
+    if b % dp or s % sp:
+        raise ValueError(f"tokens {tuple(tokens.shape)} do not split over "
+                         f"dp {dp} and sp {sp}")
+    targets = torch.roll(tokens, -1, dims=-1)
+    targets[..., -1] = -100
+    i, j = mesh.axis_index("dp") * (b // dp), mesh.axis_index("sp") * (s // sp)
+    rows, cols = slice(i, i + b // dp), slice(j, j + s // sp)
+    logits = model(tokens[rows, cols])
+    losses = vocab_parallel_cross_entropy(
+        logits, targets[rows, cols], mesh.process_set("tp"),
+        mesh.axis_index("tp") * logits.shape[-1])
+    return losses.sum() / (b * (s - 1))
+
+
+def make_parallel_train_step(model, optimizer, mesh):
+    """``step(tokens) -> loss`` on a dp × sp × tp mesh, for ``model`` built
+    on it (``GPT(cfg, mesh=mesh)``, ``cfg.ring_mesh=mesh`` when sp > 1)
+    and a plain torch ``optimizer`` over its parameters. ``tokens`` is the
+    global ``[B, S]`` batch, the same on every rank; the loss returned is
+    the global mean, on every rank.
+
+    Every parameter (or tp shard) is replicated over dp × sp, so the
+    optimizer is wrapped in ``DistributedOptimizer(op=Sum)`` over this
+    rank's dp × sp line: the sum of the ranks' gradients of their loss
+    shares is the gradient of the loss (a sum over sp of partial gradients
+    and a mean over dp). The wrapped optimizer is ``step.optimizer``."""
+    data = mesh.process_set(("dp", "sp"))
+    optimizer = DistributedOptimizer(optimizer, op=C.Sum, process_set=data)
+
+    def step(tokens):
+        optimizer.zero_grad(set_to_none=True)
+        share = parallel_loss_fn(model, tokens, mesh)
+        share.backward()
+        optimizer.step()
+        return C.allreduce(share.detach(), op=C.Sum, process_set=data)
+
+    step.optimizer = optimizer
+    return step
 
 
 def make_train_step(model, optimizer):

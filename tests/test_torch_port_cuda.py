@@ -259,3 +259,76 @@ def test_nccl_collectives_and_accumulation_match_numpy(cuda, tmp_path):
     for name, want in one["model"].state_dict().items():
         torch.testing.assert_close(acc_state[name], want.cpu(), rtol=1e-3,
                                    atol=1e-4, msg=name)
+
+
+LOSS_RTOL = 1e-2      # chip_smoke.py's: about 2.5 bf16 epsilons
+
+
+@pytest.mark.cuda
+def test_nccl_dryrun_and_full_width_sp_tp_step(cuda, tmp_path):
+    """On four cards (NCCL, two fake hosts of two cards), the gang of
+    tests/torch_port_parallel_gang.py runs ``dryrun_multichip`` at the
+    entry and bench configs (each asserts its own tolerances: the JAX
+    function's in fp32, the main path's 1e-2 on the bf16 losses), then seven
+    steps of the full-width GPT (bench.py --model gpt --flash) at dp 1 ×
+    sp 2 × tp 2 with ring flash attention, whose losses must be within
+    LOSS_RTOL of the one-card main path's from the same weights and
+    batch at steps 1 and 7, and Ulysses at sp 4 with the flash kernels
+    against flash attention of the whole sequence (o within 2e-2, the
+    gradients of sum(o**2) within 5e-2: chip_smoke.py's bf16 tolerances).
+    Prints per-card step time, peak memory, launches and a profile of two
+    steps as one JSON line (run with -s)."""
+    import json
+    import statistics
+    import subprocess
+
+    import torch_port_parallel_gang as PG
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.train import gpt_config, train
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    gang = PG.Gang("cuda", str(tmp_path / "par"), n=4, device="cuda",
+                   timeout=600)
+    results = gang.results()
+    try:
+        one = train(gpt_config("bench", use_flash=True), PG.FULL_STEPS,
+                    PG.FULL_BATCH, 1024, seed=0)
+    finally:
+        basics.shutdown()
+    summary = {"one_card": {"losses": one["loss"], "step_ms_median":
+                            statistics.median(one["step_s"][2:]) * 1e3},
+               "ranks": []}
+    for r in results:
+        full = r["full"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(full["losses"],
+                                                    one["loss"])]
+        assert rel[0] <= LOSS_RTOL and rel[-1] <= LOSS_RTOL, (
+            full["losses"], one["loss"])
+        # a causal ring of two shards: shard 0 attends one block a layer,
+        # shard 1 two; no SIMT kernel runs at bf16, D 64
+        blocks = 12 * (full["coords"]["sp"] + 1) * PG.FULL_STEPS
+        assert full["launches"] == {
+            "flash_fwd_sm90": blocks, "flash_dq_sm90": blocks,
+            "flash_dkv_sm90": blocks, "flash_fwd": 0, "flash_dq": 0,
+            "flash_dkv": 0}
+        need = r["ulysses_least_tol"]
+        assert need[0] <= 2e-2 and max(need[1:]) <= 5e-2, need
+        summary["ranks"].append({
+            "coords": full["coords"], "device": full["device"],
+            "losses": full["losses"], "rel_diff": rel,
+            "step_ms_median": statistics.median(full["step_s"][2:]) * 1e3,
+            "step_s": full["step_s"],
+            "max_memory_allocated_bytes": full["max_memory_allocated_bytes"],
+            "launches": full["launches"], "profile": full["profile"],
+            "ulysses_least_tol": need,
+            **{k: {f: r[k].get(f) for f in ("losses", "ref_losses",
+                                            "loss_max_abs_diff",
+                                            "param_max_abs_diff",
+                                            "seconds")}
+               for k in ("dryrun_entry", "dryrun_bench")}})
+    summary["nvidia_smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print("PARALLEL4 " + json.dumps(summary))

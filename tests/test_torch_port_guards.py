@@ -51,7 +51,12 @@ def test_imports_with_jax_and_triton_blocked():
             "'horovod_tpu'):\n"
             "    sys.modules[m] = None\n"
             "import horovod_tpu_torch, horovod_tpu_torch.train, "
-            "horovod_tpu_torch.models.convert, horovod_tpu_torch.ops._kernels\n"
+            "horovod_tpu_torch.models.convert, horovod_tpu_torch.ops._kernels, "
+            "horovod_tpu_torch.models.moe, horovod_tpu_torch.dryrun, "
+            "horovod_tpu_torch.parallel.mesh, "
+            "horovod_tpu_torch.parallel.primitives, "
+            "horovod_tpu_torch.parallel.sequence, "
+            "horovod_tpu_torch.parallel.pipeline\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

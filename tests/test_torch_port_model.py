@@ -94,8 +94,24 @@ def test_bf16_model_matches_fp32_within_bf16():
                                    atol=5e-2)
 
 
+class _Mesh:
+    """What GPT reads of a parallel.mesh.Mesh before it builds anything."""
+
+    def __init__(self, **shape):
+        self.shape = shape
+
+    def axis_size(self, axis):
+        return self.shape.get(axis, 1)
+
+
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ring"):
-        GPT(GPTConfig(**ENTRY, ring_mesh=object()), device="cpu")
+    """The options GPT refuses: ring_mesh (ported in slice 5) must be the
+    mesh the model is built on, a mesh that splits the sequence needs it,
+    and n_kv_heads must divide n_heads."""
+    with pytest.raises(ValueError, match="ring_mesh"):
+        GPT(GPTConfig(**ENTRY, ring_mesh=_Mesh(sp=2)), device="cpu",
+            mesh=_Mesh(sp=2))
+    with pytest.raises(ValueError, match="ring_mesh"):
+        GPT(GPTConfig(**ENTRY), device="cpu", mesh=_Mesh(sp=2))
     with pytest.raises(ValueError, match="divide"):
         GPT(GPTConfig(**ENTRY, n_kv_heads=3), device="cpu")
