@@ -66,7 +66,27 @@ Phases, each of which exits non-zero on a failure:
    magnitude) of flash attention over the whole sequence and of the dense
    reference; each sm90 kernel launches n(n+1)/2 times
    for one forward and backward of n shards, the SIMT ones never.
-9. summary: one JSON line listing the kernels (launches on the main path,
+9. bench: the port's benchmark harness (horovod_tpu_torch/bench.py, the
+   counterpart of bench.py --model gpt --flash) at full width: eager
+   steps, then the whole step captured once in a CUDA graph
+   (bench.capture_step) and replayed in blocks of BENCH_STEPS, each block
+   ending in a readback. Tokens/s and step time both ways, peak memory, the
+   card's bf16 matmul rate (bench.calibrate_matmul_tflops) and MFU. The
+   replayed losses must be finite, fall, and equal the eager ones from the
+   same weights within 1e-2 at steps 1 and 7; a profile of replayed steps
+   must show 12 kernels a step of each sm90 kernel and none of the SIMT
+   ones (a replay runs no Python, so the launch counters stay flat; they
+   must count 12 a step for the eager steps, the capture's warm-up steps
+   and the capture). Then
+   the same with --chunked-ce: peak memory, tokens/s, and losses within
+   1e-2 of the unchunked run's at steps 1 and 7.
+10. vision: bench.measure for ResNet-50 (batch 256, 224x224, bf16,
+   --bn-impl tpu, channels-last): img/s per card, peak memory, the loss
+   finite and falling, and a profile of two more steps; VGG16 (batch 64)
+   and InceptionV3 (batch 128, 299x299) two steps each, losses finite; and
+   the space-to-depth stem against the standard 7x7/2 stem from the same
+   weights on a ResNet-50 batch (fp32 within 1e-4, bf16 within 2e-2).
+11. summary: one JSON line listing the kernels (launches on the main path,
    the accumulation phase and the sequence phase), the nvidia-smi line,
    and last the {"ok": true, ...} line.
 """
@@ -141,6 +161,13 @@ ROUNDED = {"flash_dq_sm90": "dO and ds", "flash_dkv_sm90": "p and ds"}
 # reference's autograd also rounds dp through the p cast, so allow more.
 TOL_AUTOGRAD = {"float32": 1e-4, "bfloat16": 5e-2}
 STEPS_WARMUP, STEPS_TIMED = 2, 5
+# the bench phase: timed blocks of BENCH_STEPS steps after one warm-up
+# block; the losses compared are those of steps 1 and LOSS_STEPS
+BENCH_ITERS, BENCH_STEPS, LOSS_STEPS = 3, 8, 7
+# the vision phase: ResNet-50 blocks; VGG16 and InceptionV3 take one step a
+# block, one block after the warm-up one
+VISION_ITERS, VISION_STEPS = 2, 4
+TOL_STEM = {"float32": 1e-4, "bfloat16": 2e-2}
 PROFILE_STEPS, PROFILE_TOP = 2, 12
 LOSS_RTOL = 1e-2
 SLEEP_CYCLES = 100_000_000   # about 50 ms of the card's clock
@@ -507,6 +534,10 @@ def _category(kernel_name):
             return flash
     if "nccl" in name:
         return "nccl"
+    # cuDNN's convolutions, before matmul: their implicit-GEMM kernels' names
+    # also say gemm or xmma
+    if any(t in name for t in ("conv", "fprop", "dgrad", "wgrad")):
+        return "conv"
     if any(t in name for t in ("gemm", "xmma", "cutlass", "cublas",
                                "nvjet")):
         return "matmul"
@@ -541,14 +572,17 @@ def device_time(run, count, unit_s):
             busy += b - max(a, end)
             end = b
     window = spans[-1][1] - spans[0][0]
-    by_cat, by_name = {}, {}
+    by_cat, by_name, n_cat = {}, {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
         cat = _category(e.name)
         by_cat[cat] = by_cat.get(cat, 0.0) + us / 1e3 / count
         by_name[e.name] = by_name.get(e.name, 0.0) + us / 1e3 / count
+        n_cat[cat] = n_cat.get(cat, 0) + 1
     return {"busy_ms": busy / 1e3 / count, "window_ms": window / 1e3 / count,
             "device_events_per_call": len(kernels) / count,
+            "events_per_call_by_category": {k: v / count
+                                            for k, v in sorted(n_cat.items())},
             "idle_share_of_profiled_window": 1.0 - busy / window,
             "idle_share_unprofiled": 1.0 - busy / 1e6 / count / unit_s,
             "by_category": dict(sorted(by_cat.items())), "by_name": by_name}
@@ -827,6 +861,172 @@ def sequence_phase(K, ref_fn):
     return total
 
 
+def _losses_close(tag, got, want):
+    """Relative differences of the first LOSS_STEPS losses; fail unless
+    steps 1 and LOSS_STEPS are within LOSS_RTOL."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)][:LOSS_STEPS]
+    for i in (0, LOSS_STEPS - 1):
+        if rel[i] > LOSS_RTOL:
+            fail(f"{tag}: loss at step {i + 1} is {rel[i]:.3g} from the "
+                 f"reference's (rtol {LOSS_RTOL})")
+    return rel
+
+
+def bench_phase(K):
+    """The benchmark harness's GPT at full width (bench.py --model gpt
+    --flash), eager and replayed from a CUDA graph, then with the chunked
+    cross-entropy. Returns the launch counts outside the replays."""
+    import torch
+
+    from horovod_tpu_torch import bench
+
+    card = bench.card_info()
+    calib = bench.calibrate_matmul_tflops(torch.device("cuda"))
+    peak = bench.peak_bf16_tflops(card["kind"])
+    layers = bench.GPT_BENCH["n_layers"]
+    out, eager_losses = {"calib_tflops": calib, "peak_tflops": peak}, {}
+    K.reset_launches()
+    for chunked in (False, True):
+        name = "chunked_ce" if chunked else "gpt"
+        t0 = time.perf_counter()
+        res = bench.measure_gpt(MAIN_SHAPE[0], BENCH_ITERS, BENCH_STEPS,
+                                "bf16", MAIN_SHAPE[1], use_flash=True,
+                                chunked_ce=chunked)
+        row = {"seconds": time.perf_counter() - t0,
+               "flops_per_token": res["flops_per_item"]}
+        for way in ("eager", "replayed"):
+            r = res[way]
+            if r is None:
+                fail(f"bench {name}: no {way} run on one card")
+            losses = r["losses"]
+            if not all(math.isfinite(x) for x in losses) \
+                    or not losses[-1] < losses[0]:
+                fail(f"bench {name} {way}: losses not finite and falling: "
+                     f"{losses}")
+            tok_s = statistics.mean(r["rates"])
+            tflops = tok_s * res["flops_per_item"] / 1e12
+            row[way] = {"tokens_per_s": tok_s, "rates": r["rates"],
+                        "step_ms_median": r["step_ms_median"],
+                        "max_memory_allocated_bytes":
+                            r["max_memory_allocated_bytes"],
+                        "achieved_tflops": tflops,
+                        "mfu_vs_calib": tflops / calib,
+                        "mfu_vs_peak": tflops / peak if peak else None,
+                        "losses": losses[:LOSS_STEPS]}
+        eager_losses[chunked] = res["eager"]["losses"]
+        # both runs start from the seed-0 weights: the same steps
+        row["replayed_vs_eager_rel_diff"] = _losses_close(
+            f"bench {name} replayed", res["replayed"]["losses"],
+            res["eager"]["losses"])
+        # a replay runs no Python: count its kernels in a profile
+        replay = res["run"]
+        prof = device_time(lambda: float(replay()), PROFILE_STEPS,
+                           res["replayed"]["step_ms_median"] / 1e3)
+        if prof is None:
+            fail(f"bench {name}: the profiler saw no kernel of the replay")
+        per_step = prof["events_per_call_by_category"]
+        for kern in FLASH_KERNELS:
+            want = layers if kern.endswith("_sm90") else 0
+            if per_step.get(kern, 0) != want:
+                fail(f"bench {name}: {kern} ran {per_step.get(kern, 0)} "
+                     f"times a replayed step, expected {want}")
+        row["replayed_profile"] = {k: v for k, v in prof.items()
+                                   if k != "by_name"}
+        row["replayed_host"] = host_issue(replay)
+        out[name] = row
+        del res, replay
+        torch.cuda.empty_cache()
+    out["chunked_vs_unchunked_rel_diff"] = _losses_close(
+        "bench chunked cross-entropy", eager_losses[True],
+        eager_losses[False])
+    # outside the replays the wrappers ran for each run's eager steps, the
+    # capture's warm-up steps and the capture itself
+    launches = dict(K.LAUNCHES)
+    steps = 2 * ((BENCH_ITERS + 1) * BENCH_STEPS
+                 + bench.CAPTURE_WARMUP_STEPS + 1)
+    for kern, n in launches.items():
+        if n != (layers * steps if kern.endswith("_sm90") else 0):
+            fail(f"bench: {kern} launched {n} times outside the replays")
+    emit({"phase": "bench", "config": "bench.py --model gpt --flash "
+          "[--chunked-ce]", "batch": MAIN_SHAPE[0], "seq": MAIN_SHAPE[1],
+          "iters": BENCH_ITERS, "steps_per_iter": BENCH_STEPS,
+          "capture_warmup_steps": bench.CAPTURE_WARMUP_STEPS,
+          "nvidia_smi": card["nvidia_smi"], "rtol": LOSS_RTOL,
+          "launches_outside_replays": launches, **out})
+    return launches
+
+
+def vision_phase():
+    """The benchmark harness's vision path on one card: ResNet-50 timed,
+    VGG16 and InceptionV3 two steps each, and the space-to-depth stem held
+    to the standard stem."""
+    import torch
+
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.models.layers import Conv
+    from horovod_tpu_torch.models.resnet import SpaceToDepthStem
+
+    out = {}
+    for name, batch, iters, steps in (
+            ("resnet50", 256, VISION_ITERS, VISION_STEPS),
+            ("vgg16", 64, 1, 1), ("inception_v3", 128, 1, 1)):
+        t0 = time.perf_counter()
+        res = bench.measure(name, batch, iters, steps, "bf16",
+                            norm_impl="tpu")
+        r = res["eager"]
+        losses = r["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"vision {name}: non-finite loss {losses}")
+        if name == "resnet50" and not losses[-1] < losses[0]:
+            fail(f"vision {name}: loss did not fall: {losses}")
+        img_s = statistics.mean(r["rates"])
+        if name == "resnet50":      # where a step's device time goes
+            step = res["run"]
+            prof = device_time(lambda: float(step()), PROFILE_STEPS,
+                               r["step_ms_median"] / 1e3)
+            out["resnet50_profile"] = "not measured" if prof is None else {
+                **{k: v for k, v in prof.items() if k != "by_name"},
+                "top_kernels_ms_per_step": [
+                    [n[:90], t] for n, t in sorted(
+                        prof["by_name"].items(),
+                        key=lambda kv: -kv[1])[:PROFILE_TOP]]}
+            del step
+        out[name] = {"batch": batch, "image_size": res["image_size"],
+                     "seconds": time.perf_counter() - t0,
+                     "img_per_s": img_s, "rates": r["rates"],
+                     "step_ms_median": r["step_ms_median"],
+                     "max_memory_allocated_bytes":
+                         r["max_memory_allocated_bytes"],
+                     "achieved_tflops": img_s * res["flops_per_item"] / 1e12,
+                     "losses": losses, "n_params": res["n_params"]}
+        del res
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(256, 3, 224, 224, generator=gen).cuda()
+    stems = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        s2d = SpaceToDepthStem(3, 64, dtype=dtype, generator=gen).cuda()
+        plain = Conv(3, 64, (7, 7), (2, 2), ((3, 3), (3, 3)),
+                     dtype=dtype).cuda()
+        with torch.no_grad():
+            plain.weight.copy_(s2d.weight)
+            got, want = s2d(x), plain(x)
+        torch.cuda.synchronize()
+        dtype_name = str(dtype).split(".")[1]
+        err = check(f"space-to-depth stem {dtype_name}", got, want,
+                    TOL_STEM[dtype_name])
+        with torch.no_grad():
+            stems[dtype_name] = {
+                "max_abs_err": err[0], "least_tol": err[2],
+                "tol": TOL_STEM[dtype_name],
+                "s2d_ms": cuda_ms(lambda: s2d(x), 10)[0],
+                "standard_ms": cuda_ms(lambda: plain(x), 10)[0]}
+    emit({"phase": "vision", "bn_impl": "tpu", "dtype": "bf16",
+          "iters": VISION_ITERS, "steps_per_iter": VISION_STEPS,
+          **out, "space_to_depth_stem": stems})
+
+
 def main():
     import torch
 
@@ -870,12 +1070,19 @@ def main():
     del model, optimizer
     torch.cuda.empty_cache()
     seq_launches = sequence_phase(K, flash_attention_reference)
+    torch.cuda.empty_cache()
+    bench_launches = bench_phase(K)
+    hvt.shutdown()
+    torch.cuda.empty_cache()
+    vision_phase()
+    hvt.shutdown()
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "launches_accumulation": acc_launches[name],
          "launches_sequence": seq_launches[name],
+         "launches_bench_outside_replays": bench_launches[name],
          **timings[name]} for name in K.LAUNCHES]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,7 @@
-"""Carry GPT weights between the JAX package's flax params tree and the
-port's ``state_dict``.
+"""Carry weights between the JAX package's flax trees and the port's
+``state_dict``: the GPT's params, and the vision models' params and
+``batch_stats`` (:func:`vision_state_from_flax`,
+:func:`vision_state_to_flax`).
 
 The flax tree is taken as nested dicts of arrays (anything ``np.asarray``
 reads, so no JAX is needed here). Layouts are kept exactly: the port stores
@@ -19,6 +21,16 @@ head_dim)``, ``o`` ``(heads, head_dim, d_model)``, ``up``/``down``
 mapping: a spec (``{name: tuple}``, one entry per dim, an axis name on a
 sharded dim; ``param_partition_spec``, ``moe_param_partition_spec``,
 ``stage_partition_spec``) says which dims a mesh axis splits.
+
+The vision models (``models/resnet.py``, ``models/vision.py``) name their
+submodules as flax does, so a path maps to a name by joining it with dots;
+only the leaves and the layouts change::
+
+    .../kernel  (kh, kw, in, out)  ↔  .../weight  [out, in, kh, kw]   (conv)
+    .../kernel  (in, out)          ↔  .../weight  [out, in]           (dense)
+    .../scale                      ↔  .../weight                      (norm)
+    .../bias                       ↔  .../bias
+    batch_stats .../mean, var      ↔  .../running_mean, running_var
 """
 
 from __future__ import annotations
@@ -110,3 +122,56 @@ def gather_state_dict(shards, specs, axis) -> dict:
         else:
             out[name] = first
     return out
+
+
+_VISION_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                "var": "running_var"}
+
+
+def _leaves(tree, path=()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, path + (key,))
+        else:
+            yield path + (key,), np.array(value, dtype=np.float32)
+
+
+def vision_state_from_flax(params, batch_stats=None) -> dict:
+    """A vision model's flax ``params`` and ``batch_stats`` → the port's
+    ``state_dict`` (fp32 CPU tensors; a SyncBatchNorm's
+    ``num_batches_tracked`` is not among them)."""
+    out = {}
+    for tree in (params, batch_stats or {}):
+        for (*mods, leaf), value in _leaves(tree):
+            if leaf == "kernel":
+                value = (value.transpose(3, 2, 0, 1) if value.ndim == 4
+                         else value.T)
+                leaf = "weight"
+            else:
+                leaf = _VISION_LEAF[leaf]
+            out[".".join(mods + [leaf])] = torch.from_numpy(
+                np.ascontiguousarray(value))
+    return out
+
+
+def vision_state_to_flax(state_dict):
+    """The port's vision ``state_dict`` → (flax ``params``, ``batch_stats``)
+    trees of fp32 numpy arrays."""
+    trees = ({}, {})
+    back = {v: k for k, v in _VISION_LEAF.items()}
+    for name, tensor in state_dict.items():
+        *mods, leaf = name.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        value = tensor.detach().float().cpu().numpy()
+        if leaf == "weight" and value.ndim > 1:
+            value = (value.transpose(2, 3, 1, 0) if value.ndim == 4
+                     else value.T)
+            leaf = "kernel"
+        else:
+            leaf = back[leaf]
+        node = trees[leaf in ("mean", "var")]
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return trees

@@ -12,6 +12,17 @@ lost, or one stalled past the process group's timeout) raises
 ``HorovodInternalError``, as Horovod's torch ops do; NCCL may instead abort
 the process, as its watchdog decides.
 
+The synchronous out-of-place forms (:func:`allreduce`, :func:`allgather`,
+:func:`broadcast`, :func:`alltoall`, :func:`reducescatter`) are
+differentiable, as the torch binding's ``autograd.Function`` s are
+(``horovod_tpu/torch/mpi_ops.py``): the gradient of an allreduce is the
+allreduce of the cotangent with the same op and scales; of an allgather,
+this rank's rows of the summed cotangent; of a broadcast, the summed
+cotangent on the root and zeros elsewhere; of an alltoall, the alltoall of
+the cotangent back along the received splits; of a reducescatter, the
+allgather of the cotangent, scaled as the forward was. The in-place forms
+and the ``*_async`` handles are not differentiable.
+
 Async calls return a :class:`Handle` that wraps the backend's ``Work``
 objects and keeps the input and output buffers alive. ``synchronize`` does
 the post-processing (the Average division, trimming a ragged allgather,
@@ -29,6 +40,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
                                                  HorovodTimeoutError)
 from horovod_tpu_torch.common.process_sets import global_process_set
@@ -158,7 +170,11 @@ def _allreduce_start(buf, op, prescale, postscale, process_set,
     """Reduce ``buf`` (owned by the caller, may be reduced in place) and
     return a Handle whose result is the reduced tensor. Adasum combines
     each of the flat ``segments`` (lengths; default the whole tensor) with
-    its own coefficients."""
+    its own coefficients. Over a set of one process every op but Adasum is
+    the identity with the scales applied, so nothing is sent: the result is
+    ready at once, as the JAX package's single-process path is, and a
+    one-process step holds no collective (which a CUDA graph can then
+    capture)."""
     group = process_set.group()
     n = process_set.size()
     _scale_(buf, prescale)
@@ -168,14 +184,22 @@ def _allreduce_start(buf, op, prescale, postscale, process_set,
         out = adasum_reduce_flat(buf.reshape(-1), segments or [buf.numel()],
                                  process_set).view(buf.shape)
         return _done(_scale_(out, postscale))
-    work = _collective(dist.all_reduce, buf, op=_DIST_OP[op], group=group,
-                       async_op=True)
 
     def finish():
         out = _average(buf, n) if op is Average else buf
         return _scale_(out, postscale)
 
+    if n == 1:
+        return _done(finish())
+    work = _collective(dist.all_reduce, buf, op=_DIST_OP[op], group=group,
+                       async_op=True)
     return Handle([work], finish)
+
+
+def _own_copy(tensor):
+    """A contiguous copy that the collective may overwrite, out of the
+    autograd graph."""
+    return tensor.detach().clone(memory_format=torch.contiguous_format)
 
 
 def allreduce_async(tensor, average=None, name=None, op=None,
@@ -184,8 +208,24 @@ def allreduce_async(tensor, average=None, name=None, op=None,
     """Start :func:`allreduce`; returns a handle (``torch/mpi_ops.py:130``).
     ``tensor`` is left as it was."""
     del name
-    return _allreduce_start(tensor.detach().clone(), _resolve_op(op, average),
+    return _allreduce_start(_own_copy(tensor), _resolve_op(op, average),
                             prescale_factor, postscale_factor, process_set)
+
+
+class _Allreduce(torch.autograd.Function):
+    """The gradient is the allreduce of the cotangent with the same op and
+    scales (``horovod_tpu/torch/mpi_ops.py:112``)."""
+
+    @staticmethod
+    def forward(ctx, tensor, op, prescale, postscale, process_set):
+        ctx.args = (op, prescale, postscale, process_set)
+        return allreduce_async(tensor, op=op, prescale_factor=prescale,
+                               postscale_factor=postscale,
+                               process_set=process_set).wait()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_Allreduce.apply(grad, *ctx.args),) + (None,) * 4
 
 
 def allreduce(tensor, average=None, name=None, op=None,
@@ -195,11 +235,10 @@ def allreduce(tensor, average=None, name=None, op=None,
     ``postscale · reduce_op(prescale · tensor)``, where Average is the sum
     divided by the set's size, and Adasum the scale-invariant combine of
     ``ops/adasum.py``. An integer tensor under Average gives the float
-    mean. ``name`` is accepted for API parity."""
-    return synchronize(allreduce_async(
-        tensor, average=average, name=name, op=op,
-        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-        process_set=process_set))
+    mean. Differentiable. ``name`` is accepted for API parity."""
+    del name
+    return _Allreduce.apply(tensor, _resolve_op(op, average),
+                            prescale_factor, postscale_factor, process_set)
 
 
 def allreduce_(tensor, average=None, name=None, op=None,
@@ -271,10 +310,8 @@ def grouped_allreduce(tensors, average=None, name=None, op=None,
 # allgather
 # --------------------------------------------------------------------------
 
-def allgather_async(tensor, name=None, process_set=global_process_set):
-    """Start :func:`allgather`. The shapes are exchanged before this
-    returns; the data moves asynchronously."""
-    del name
+def _allgather_start(tensor, process_set):
+    """(Handle of the gathered tensor, every member's dim-0 rows)."""
     group = process_set.group()
     n = process_set.size()
     t = tensor.detach()
@@ -305,15 +342,41 @@ def allgather_async(tensor, name=None, process_set=global_process_set):
             return out
         return torch.cat([out[i * m:i * m + r] for i, r in enumerate(rows)])
 
-    return Handle([work], finish)
+    return Handle([work], finish), rows
+
+
+def allgather_async(tensor, name=None, process_set=global_process_set):
+    """Start :func:`allgather`. The shapes are exchanged before this
+    returns; the data moves asynchronously."""
+    del name
+    return _allgather_start(tensor, process_set)[0]
+
+
+class _Allgather(torch.autograd.Function):
+    """The gradient is this rank's rows of the cotangent summed over the
+    set (``horovod_tpu/torch/mpi_ops.py:225``)."""
+
+    @staticmethod
+    def forward(ctx, tensor, process_set):
+        handle, rows = _allgather_start(tensor, process_set)
+        ctx.shape, ctx.process_set, ctx.rows = tensor.shape, process_set, rows
+        return handle.wait()
+
+    @staticmethod
+    def backward(ctx, grad):
+        ps = ctx.process_set
+        total = _Allreduce.apply(grad, Sum, 1.0, 1.0, ps)
+        r = ps.rank_in_set(basics.rank())
+        mine = total.narrow(0, sum(ctx.rows[:r]), ctx.rows[r])
+        return mine.reshape(ctx.shape), None
 
 
 def allgather(tensor, name=None, process_set=global_process_set):
     """Concatenate ``tensor`` from the set's processes along dim 0, in rank
     order (``torch/mpi_ops.py:502``). Dim 0 may differ per rank, as in the
-    engine's allgatherv; the other dims must match."""
-    return synchronize(allgather_async(tensor, name=name,
-                                       process_set=process_set))
+    engine's allgatherv; the other dims must match. Differentiable."""
+    del name
+    return _Allgather.apply(tensor, process_set)
 
 
 def grouped_allgather(tensors, name=None, process_set=global_process_set):
@@ -350,8 +413,26 @@ def broadcast_async_(tensor, root_rank, name=None,
 def broadcast_async(tensor, root_rank=0, name=None,
                     process_set=global_process_set):
     """Start :func:`broadcast`; returns a handle."""
-    return broadcast_async_(tensor.detach().clone(), root_rank, name=name,
+    return broadcast_async_(_own_copy(tensor), root_rank, name=name,
                             process_set=process_set)
+
+
+class _Broadcast(torch.autograd.Function):
+    """The gradient is the cotangent summed over the set on the root and
+    zeros elsewhere (``horovod_tpu/torch/mpi_ops.py:297``)."""
+
+    @staticmethod
+    def forward(ctx, tensor, root_rank, process_set):
+        ctx.root_rank, ctx.process_set = root_rank, process_set
+        return broadcast_async(tensor, root_rank,
+                               process_set=process_set).wait()
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = _Allreduce.apply(grad, Sum, 1.0, 1.0, ctx.process_set)
+        if basics.rank() != ctx.root_rank:
+            total = torch.zeros_like(total)
+        return total, None, None
 
 
 def broadcast_(tensor, root_rank, name=None, process_set=global_process_set):
@@ -363,9 +444,9 @@ def broadcast_(tensor, root_rank, name=None, process_set=global_process_set):
 
 def broadcast(tensor, root_rank=0, name=None,
               process_set=global_process_set):
-    """Out-of-place :func:`broadcast_`."""
-    return synchronize(broadcast_async(tensor, root_rank, name=name,
-                                       process_set=process_set))
+    """Out-of-place :func:`broadcast_`. Differentiable."""
+    del name
+    return _Broadcast.apply(tensor, root_rank, process_set)
 
 
 # --------------------------------------------------------------------------
@@ -404,28 +485,41 @@ def alltoall_async(tensor, splits=None, name=None,
     return Handle([work], lambda: (out, torch.tensor(recv_splits)))
 
 
+class _Alltoall(torch.autograd.Function):
+    """The gradient is the alltoall of the cotangent back along the
+    received splits (``horovod_tpu/torch/mpi_ops.py:345``)."""
+
+    @staticmethod
+    def forward(ctx, tensor, splits, process_set):
+        out, recv_splits = alltoall_async(tensor, splits=splits,
+                                          process_set=process_set).wait()
+        ctx.recv_splits, ctx.process_set = recv_splits, process_set
+        ctx.mark_non_differentiable(recv_splits)
+        return out, recv_splits
+
+    @staticmethod
+    def backward(ctx, grad, _):
+        back, _ = _Alltoall.apply(grad, ctx.recv_splits, ctx.process_set)
+        return back, None, None
+
+
 def alltoall(tensor, splits=None, name=None, process_set=global_process_set):
     """Send ``splits[j]`` consecutive dim-0 rows of ``tensor`` to the set's
     j-th member and concatenate what each member sent here, in rank order
     (``torch/mpi_ops.py:710``). Without ``splits`` dim 0 is split evenly.
     Returns ``(output, received_splits)``; the splits are a CPU int64
-    tensor, as the engine path returns them."""
-    return synchronize(alltoall_async(tensor, splits=splits, name=name,
-                                      process_set=process_set))
+    tensor, as the engine path returns them. Differentiable in the
+    output."""
+    del name
+    return _Alltoall.apply(tensor, splits, process_set)
 
 
 # --------------------------------------------------------------------------
 # reducescatter
 # --------------------------------------------------------------------------
 
-def reducescatter(tensor, op=None, name=None, process_set=global_process_set,
-                  prescale_factor=1.0, postscale_factor=1.0):
-    """Reduce across the set and give the i-th member the i-th of ``size``
-    equal dim-0 slices of the result. Dim 0 must divide by the set's size.
-    Average divides by the set's size after the sum; pre/postscale as in
-    :func:`allreduce`. An integer tensor under Average gives the float
-    mean."""
-    del name
+def _reducescatter(tensor, op, process_set, prescale_factor,
+                   postscale_factor):
     op = Average if op is None else op
     if op not in _DIST_OP:
         raise ValueError(f"reducescatter does not support {op}")
@@ -434,12 +528,42 @@ def reducescatter(tensor, op=None, name=None, process_set=global_process_set,
     if tensor.dim() == 0 or tensor.shape[0] % n:
         raise ValueError(f"reducescatter dim 0 of shape {tuple(tensor.shape)}"
                          f" must divide by the set's size ({n})")
-    buf = _scale_(tensor.detach().clone().contiguous(), prescale_factor)
+    buf = _scale_(_own_copy(tensor), prescale_factor)
     out = buf.new_empty((buf.shape[0] // n,) + buf.shape[1:])
     _collective(dist.reduce_scatter_tensor, out, buf, op=_DIST_OP[op],
                 group=group)
     out = _average(out, n) if op is Average else out
     return _scale_(out, postscale_factor)
+
+
+class _Reducescatter(torch.autograd.Function):
+    """The gradient is the allgather of the cotangent, scaled as the
+    forward was: the pre- and postscale, and 1/size for Average
+    (``horovod_tpu/torch/mpi_ops.py:387``)."""
+
+    @staticmethod
+    def forward(ctx, tensor, op, process_set, prescale, postscale):
+        ctx.process_set = process_set
+        ctx.scale = prescale * postscale / (
+            process_set.size() if op in (None, Average) else 1)
+        return _reducescatter(tensor, op, process_set, prescale, postscale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_Allgather.apply(grad, ctx.process_set) * ctx.scale,
+                None, None, None, None)
+
+
+def reducescatter(tensor, op=None, name=None, process_set=global_process_set,
+                  prescale_factor=1.0, postscale_factor=1.0):
+    """Reduce across the set and give the i-th member the i-th of ``size``
+    equal dim-0 slices of the result. Dim 0 must divide by the set's size.
+    Average divides by the set's size after the sum; pre/postscale as in
+    :func:`allreduce`. An integer tensor under Average gives the float
+    mean. Differentiable."""
+    del name
+    return _Reducescatter.apply(tensor, op, process_set, prescale_factor,
+                                postscale_factor)
 
 
 def grouped_reducescatter(tensors, op=None, name=None,

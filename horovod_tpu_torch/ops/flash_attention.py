@@ -17,23 +17,24 @@ import torch
 
 from horovod_tpu_torch.ops import _kernels
 
-# The TPU package's "auto" crossover (2048) was measured on a TPU and does
-# not carry over. Until an H100 measurement sets a threshold, "auto" keeps
-# the einsum path at every length.
-FLASH_AUTO_THRESHOLD = None
+# "auto" uses the flash kernels above this length. The TPU package's
+# crossover (2048) was measured on a TPU and does not carry over. On an
+# H100 (python -m horovod_tpu_torch.bench --model gpt, batch 8, bf16, with
+# and without --flash) the flash step was faster at every length measured,
+# 256 to 4096; below 256 nothing was measured, so "auto" keeps the einsum
+# path there.
+FLASH_AUTO_THRESHOLD = 255
 
 
 def resolve_flash(use_flash, local_seq) -> bool:
-    """Resolve a ``use_flash`` policy ("auto" | bool) for a sequence length.
-    "auto" resolves to False until a threshold has been measured on the
-    card (``FLASH_AUTO_THRESHOLD``)."""
+    """Resolve a ``use_flash`` policy ("auto" | bool) for a sequence length:
+    "auto" is True above ``FLASH_AUTO_THRESHOLD``."""
     if isinstance(use_flash, str):
         if use_flash != "auto":
             raise ValueError(
                 f"use_flash must be True, False, or 'auto'; got "
                 f"{use_flash!r}")
-        return (FLASH_AUTO_THRESHOLD is not None
-                and local_seq > FLASH_AUTO_THRESHOLD)
+        return local_seq > FLASH_AUTO_THRESHOLD
     return bool(use_flash)
 
 

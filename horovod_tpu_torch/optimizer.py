@@ -5,10 +5,13 @@ update (Horovod's ``torch/optimizer.py``; the JAX package's
 Under pjit the JAX step runs with ``axis_name=None`` because XLA's autodiff
 of a batch-sharded loss inserts the gradient psum itself. PyTorch inserts
 nothing, so ``step()`` reduces every gradient explicitly, even in a world of
-one process: on the GPU the main path then always goes through NCCL.
+one process (where the reduction sends nothing: ``collective_ops``).
 """
 
 from __future__ import annotations
+
+import contextlib
+import warnings
 
 import torch
 
@@ -33,6 +36,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._hvt_average_aggregated = average_aggregated_gradients
         self._hvt_passes = 0
         self._hvt_acc = {}      # param -> gradient sum of the held passes
+        self._hvt_should_sync = True    # False inside skip_synchronize()
+        self._hvt_synchronized = False  # synchronize() ran since step()
 
     def _hvt_reduced(self, p):
         if self._hvt_filter is None:
@@ -45,13 +50,34 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def synchronize(self):
         """Reduce every ``.grad`` that the filter selects, in place: one
         fused collective per (device, wire dtype) through
-        ``grouped_allreduce``."""
+        ``grouped_allreduce``. Over more than one process a selected
+        parameter without a gradient (unused by this rank's pass) takes part
+        with zeros, as the torch binding's does
+        (``horovod_tpu/torch/optimizer.py:175-181``), so every rank fuses
+        buffers of one size and the ranks step alike."""
         params = [p for group in self.param_groups for p in group["params"]
-                  if p.grad is not None and self._hvt_reduced(p)]
+                  if self._hvt_reduced(p)]
+        if self._hvt_reduce_kwargs["process_set"].size() > 1:
+            for p in params:
+                if p.grad is None and p.requires_grad:
+                    p.grad = torch.zeros_like(p)
+        params = [p for p in params if p.grad is not None]
         reduced = C.grouped_allreduce([p.grad for p in params],
                                       **self._hvt_reduce_kwargs)
         for p, g in zip(params, reduced):
             p.grad.copy_(g)
+        self._hvt_synchronized = True
+
+    @contextlib.contextmanager
+    def skip_synchronize(self):
+        """``step()`` inside this block does not reduce: for Horovod's
+        recipe of ``synchronize()``, then gradient clipping, then
+        ``with opt.skip_synchronize(): opt.step()``."""
+        self._hvt_should_sync = False
+        try:
+            yield
+        finally:
+            self._hvt_should_sync = True
 
     def step(self, closure=None):
         """With ``backward_passes_per_step`` N, call this after every
@@ -91,7 +117,13 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             for p, g in acc.items():
                 p.grad = g
             self._hvt_acc, self._hvt_passes = {}, 0
-        self.synchronize()
+        if self._hvt_should_sync:
+            if self._hvt_synchronized:
+                warnings.warn("optimizer.step() after synchronize() reduces "
+                              "the gradients a second time; call step() "
+                              "inside skip_synchronize()")
+            self.synchronize()
+        self._hvt_synchronized = False
         super(self.__class__, self).step()
         return loss
 
@@ -120,6 +152,8 @@ def DistributedOptimizer(optimizer, named_parameters=None, *, op=C.Average,
       its local gradient.
     - A process that is not a member of ``process_set`` gets
       ``ValueError`` from ``step``.
+    - ``synchronize()`` reduces now; ``step()`` inside
+      ``skip_synchronize()`` then updates without reducing again.
     """
     if backward_passes_per_step < 1:
         raise ValueError("backward_passes_per_step must be at least 1")

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.models.transformer import GPT, GPTConfig
 from horovod_tpu_torch.ops import collective_ops as C
+from horovod_tpu_torch.ops.losses import softmax_cross_entropy_fused
 from horovod_tpu_torch.optimizer import DistributedOptimizer
 from horovod_tpu_torch.parallel.primitives import reduce_from
 
@@ -38,11 +39,17 @@ def gpt_config(name, **overrides) -> GPTConfig:
     return dataclasses.replace(GPTConfig(**GPT_CONFIGS[name]), **overrides)
 
 
-def loss_fn(model, tokens):
+def loss_fn(model, tokens, chunked_ce=False):
     """Mean next-token cross-entropy over positions 0..S-2 (the last
-    position has no target), from fp32 logits."""
-    logits = model(tokens)
+    position has no target), from fp32 logits; with ``chunked_ce`` from the
+    hidden states through ``softmax_cross_entropy_fused``, which never
+    holds the whole logits (``bench.py --chunked-ce``)."""
     targets = torch.roll(tokens, -1, dims=-1)
+    if chunked_ce:
+        hidden = model(tokens, return_hidden=True)
+        return softmax_cross_entropy_fused(hidden[:, :-1], model.embedding,
+                                           targets[:, :-1])
+    logits = model(tokens)
     targets[..., -1] = -100                      # ignored by cross_entropy
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            targets.reshape(-1), ignore_index=-100)
@@ -116,12 +123,12 @@ def make_parallel_train_step(model, optimizer, mesh):
     return step
 
 
-def make_train_step(model, optimizer):
+def make_train_step(model, optimizer, chunked_ce=False):
     """``step(tokens) -> loss`` (a 0-d tensor on the model's device)."""
 
     def step(tokens):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, tokens)
+        loss = loss_fn(model, tokens, chunked_ce)
         loss.backward()
         optimizer.step()
         return loss.detach()

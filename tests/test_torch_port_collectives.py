@@ -3,7 +3,12 @@
 A 2-process gloo gang, started through the hvtrun identity env (HVT_*),
 is held against the JAX package's traced allreduce under shard_map on 2 CPU
 devices with the same per-rank inputs, and a 2-rank data-parallel step on
-half-batches against the 1-process full-batch step.
+half-batches against the 1-process full-batch step. The same gang checks
+the gradients of allreduce and allgather against numpy, that a rank with an
+unused parameter still steps (its zeros take part in the reduction), and
+that synchronize() then step() inside skip_synchronize() reduces once; in a
+world of one, the gradients of all five out-of-place collectives are held
+against jax.grad of the JAX package's traced ops.
 """
 
 import json
@@ -34,7 +39,7 @@ CASES = [("Average", 1.0, 1.0), ("Sum", 1.0, 1.0), ("Min", 1.0, 1.0),
 DP_STEPS, DP_BATCH = 2, 2          # per rank; the baseline takes 2 × 2 rows
 
 WORKER = r"""
-import json, os, sys
+import json, os, sys, warnings
 import numpy as np
 import torch
 import horovod_tpu_torch as hvt
@@ -62,6 +67,40 @@ try:
 except TypeError as e:
     res["int_average_inplace"] = type(e).__name__
 res["broadcast"] = hvt.broadcast(x, root_rank=1).tolist()
+# gradients through the collectives: Average with a prescale, and a ragged
+# allgather (rank r gives r + 1 rows)
+w = torch.arange(15, dtype=torch.float32).reshape(3, 5) + r
+xg = x.clone().requires_grad_()
+(hvt.allreduce(xg, op=hvt.Average, prescale_factor=3.0) * w).sum().backward()
+res["grad_allreduce"] = xg.grad.tolist()
+xg = x[:r + 1].clone().requires_grad_()
+gathered = hvt.allgather(xg)
+(gathered * torch.arange(gathered.numel(), dtype=torch.float32)
+ .reshape(gathered.shape) * (r + 1)).sum().backward()
+res["grad_allgather"] = xg.grad.tolist()
+# rank 1 leaves b unused: its zeros take part in the fused reduction
+a, b = torch.nn.Parameter(torch.ones(3)), torch.nn.Parameter(torch.ones(2))
+opt = hvt.DistributedOptimizer(torch.optim.SGD([a, b], lr=0.5))
+loss = (a * (r + 1)).sum() + ((b * 2).sum() if r == 0 else 0)
+loss.backward()
+opt.step()
+res["unused"] = [a.tolist(), b.tolist()]
+# synchronize(), then step() inside skip_synchronize(): one reduction; a
+# plain step() after synchronize() warns and reduces again
+res["skip_sync"] = []
+for skip in (True, False):
+    v = torch.nn.Parameter(torch.ones(1))
+    opt = hvt.DistributedOptimizer(torch.optim.SGD([v], lr=1.0), op=hvt.Sum)
+    v.grad = torch.full((1,), float(r + 1))
+    opt.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if skip:
+            with opt.skip_synchronize():
+                opt.step()
+        else:
+            opt.step()
+    res["skip_sync"].append([v.item(), len(caught)])
 hvt.barrier()
 entry["dtype"] = torch.float32
 cfg = GPTConfig(**entry)
@@ -176,6 +215,43 @@ def test_integer_average_gives_the_float_mean_as_jax_does(gang):
         assert results[r]["int_average_inplace"] == "TypeError"
 
 
+def test_collective_gradients_match_numpy(gang):
+    """allreduce (Average, prescale 3): each rank's gradient is 3/2 of the
+    sum of the ranks' cotangents. allgather of 1 and 2 rows: rank r's rows
+    of the cotangents summed over ranks ((1 + 2) times the row weights)."""
+    results, _ = gang
+    x = np.random.RandomState(7).normal(size=(2, 3, 5)).astype(np.float32)
+    w = np.arange(15, dtype=np.float32).reshape(3, 5)
+    rows = np.arange(15, dtype=np.float32).reshape(3, 5)
+    for r in range(2):
+        np.testing.assert_allclose(results[r]["grad_allreduce"],
+                                   1.5 * (2 * w + 1), rtol=1e-6)
+        mine = rows[r:2 * r + 1] if r else rows[:1]
+        np.testing.assert_allclose(results[r]["grad_allgather"], 3 * mine,
+                                   rtol=1e-6)
+        assert np.asarray(results[r]["grad_allgather"]).shape == \
+            x[r, :r + 1].shape
+
+
+def test_unused_parameter_steps_on_every_rank(gang):
+    """Rank 1 never uses b: it reduces zeros for it, so both ranks fuse
+    buffers of one size and step b by the average (2 + 0) / 2."""
+    results, _ = gang
+    for r in range(2):
+        a, b = results[r]["unused"]
+        np.testing.assert_allclose(a, [1 - 0.5 * 1.5] * 3, rtol=1e-6)
+        np.testing.assert_allclose(b, [1 - 0.5 * 1.0] * 2, rtol=1e-6)
+
+
+def test_skip_synchronize_reduces_once(gang):
+    """op=Sum, SGD lr 1, gradients 1 and 2: one reduction moves the
+    parameter 1 → -2; without skip_synchronize() step() reduces the summed
+    gradient again (1 → -5) and warns, as the torch binding does."""
+    results, _ = gang
+    for r in range(2):
+        assert results[r]["skip_sync"] == [[-2.0, 0], [-5.0, 1]]
+
+
 def test_lost_peer_raises_horovod_internal_error(gang):
     results, _ = gang
     assert results[0]["lost_peer"] == "HorovodInternalError"
@@ -266,3 +342,35 @@ def test_optimizer_options_in_a_world_of_one():
         hvt.shutdown()
     with pytest.raises(ValueError, match="init"):
         hvt.size()
+
+
+PORT_CALLS = {"allreduce": lambda x: hvt.allreduce(x),
+              "allgather": lambda x: hvt.allgather(x),
+              "broadcast": lambda x: hvt.broadcast(x, root_rank=0),
+              "alltoall": lambda x: hvt.alltoall(x)[0],
+              "reducescatter": lambda x: hvt.reducescatter(x)}
+JAX_CALLS = {"allreduce": lambda t: jhvt.allreduce(t, axis_name="x"),
+             "allgather": lambda t: jhvt.allgather(t, axis_name="x"),
+             "broadcast": lambda t: jhvt.broadcast(t, 0, axis_name="x"),
+             "alltoall": lambda t: jhvt.alltoall(t, axis_name="x"),
+             "reducescatter": lambda t: jhvt.reducescatter(t, axis_name="x")}
+
+
+@pytest.mark.parametrize("op", sorted(PORT_CALLS))
+def test_collective_gradient_in_a_world_of_one_matches_jax(op):
+    """x = arange(4): the gradient of (op(x) * arange(4)).sum() is
+    [0, 1, 2, 3] under jax.grad of the JAX package's traced op on a
+    one-device mesh, and in the port's world of one process (exact)."""
+    mesh = Mesh(np.array(jax.devices()[:1]), ("x",))
+    fn = jax.shard_map(JAX_CALLS[op], mesh=mesh, in_specs=P("x"),
+                       out_specs=P("x"))
+    want = np.asarray(jax.grad(lambda t: (fn(t) * jnp.arange(4.0)).sum())(
+        jnp.arange(4.0)))
+    np.testing.assert_array_equal(want, np.arange(4.0))
+    hvt.init(device="cpu")
+    try:
+        x = torch.arange(4.0, requires_grad=True)
+        (PORT_CALLS[op](x) * torch.arange(4.0)).sum().backward()
+    finally:
+        hvt.shutdown()
+    np.testing.assert_array_equal(x.grad.numpy(), want)

@@ -13,6 +13,7 @@ dkv kernels are held to the plain versions that round dO, p and ds to bf16
 where the tensor cores take them (``round_operands=True``).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -162,34 +163,11 @@ def run_dp_gang(n, device, steps, batch, out):
     return (per-rank results, rank 0's final state_dict)."""
     import json
     import os
-    import socket
-    import subprocess
     import sys
 
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    procs = []
-    for r in range(n):
-        env = dict(os.environ, PYTHONPATH=repo, HVT_PROCESS_ID=str(r),
-                   HVT_NUM_PROCESSES=str(n), HVT_LOCAL_PROCESS_ID=str(r),
-                   HVT_LOCAL_SIZE=str(n), HVT_CROSS_RANK="0",
-                   HVT_CROSS_SIZE="1",
-                   HVT_COORDINATOR_ADDR=f"127.0.0.1:{port}")
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", DP_WORKER,
-             json.dumps([device, steps, batch, out])], env=env, cwd=repo,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    try:
-        logs = [p.communicate(timeout=300)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log
+    _wait_gang(_start_gang(n, [sys.executable, "-c", DP_WORKER,
+                               json.dumps([device, steps, batch, out])],
+                           "dp", os.path.dirname(out)), timeout=300)
     results = []
     for r in range(n):
         with open(f"{out}.{r}.json") as f:
@@ -332,3 +310,221 @@ def test_nccl_dryrun_and_full_width_sp_tp_step(cuda, tmp_path):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     print("PARALLEL4 " + json.dumps(summary))
+
+
+def _start_gang(n, argv, tag, out_dir):
+    """Start ``n`` processes of ``argv`` (one per card, NCCL) through the
+    hvtrun identity env, each writing its output to a log file; return the
+    (process, log path) pairs."""
+    import os
+    import socket
+    import subprocess
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, PYTHONPATH=repo, HVT_PROCESS_ID=str(r),
+                   HVT_NUM_PROCESSES=str(n), HVT_LOCAL_PROCESS_ID=str(r),
+                   HVT_LOCAL_SIZE=str(n), HVT_CROSS_RANK="0",
+                   HVT_CROSS_SIZE="1",
+                   HVT_COORDINATOR_ADDR=f"127.0.0.1:{port}")
+        log = os.path.join(out_dir, f"{tag}.{r}.log")
+        with open(log, "w") as f:
+            procs.append((subprocess.Popen(argv, env=env, cwd=repo,
+                                           stdout=f,
+                                           stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def _wait_gang(procs, timeout):
+    """Wait for every process; fail with its log if one failed. Returns
+    each rank's output."""
+    import subprocess
+
+    logs = []
+    try:
+        for p, log in procs:
+            try:
+                p.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                pass
+            with open(log) as f:
+                logs.append(f.read())
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (p, _), log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    return logs
+
+
+SCALING_CARDS = (1, 2, 4)
+
+
+@pytest.mark.cuda
+def test_nccl_resnet50_scaling_efficiency(cuda, tmp_path):
+    """The benchmark harness (python -m horovod_tpu_torch.bench --model
+    resnet50: batch 256 a card, 224x224, bf16, TpuBatchNorm over the world)
+    on 1, 2 and 4 cards, one process a card: img/s per card and the
+    scaling efficiency against one card, BASELINE.md's metric of record.
+    Every record must be a measurement (not suspect) of finite losses.
+    Prints one SCALING4 JSON line (run with -s)."""
+    import json
+    import subprocess
+    import sys
+
+    if torch.cuda.device_count() < max(SCALING_CARDS):
+        pytest.skip(f"needs {max(SCALING_CARDS)} CUDA devices")
+    argv = [sys.executable, "-m", "horovod_tpu_torch.bench", "--model",
+            "resnet50", "--num-iters", "3", "--num-batches-per-iter", "4"]
+    records = {}
+    for n in SCALING_CARDS:
+        logs = _wait_gang(_start_gang(n, argv, f"resnet50x{n}",
+                                      str(tmp_path)), timeout=600)
+        record = json.loads([line for line in logs[0].splitlines()
+                             if line.startswith('{"metric"')][-1])
+        assert record["config"]["chips"] == n and not record["suspect"]
+        assert all(np.isfinite(record["eager"]["losses"]))
+        records[n] = record
+    one = records[1]["value"]
+    summary = {"img_per_s_per_card": {n: r["value"]
+                                      for n, r in records.items()},
+               "efficiency": {n: r["value"] / one
+                              for n, r in records.items()},
+               "step_ms_median": {n: r["eager"]["step_ms_median"]
+                                  for n, r in records.items()},
+               "max_memory_allocated_bytes": {
+                   n: r["eager"]["max_memory_allocated_bytes"]
+                   for n, r in records.items()},
+               "mfu_vs_peak": {n: r["mfu_vs_peak"]
+                               for n, r in records.items()},
+               "calib_tflops": {n: r["calib_tflops"]
+                                for n, r in records.items()},
+               "losses": {n: r["eager"]["losses"]
+                          for n, r in records.items()},
+               "nvidia_smi": subprocess.run(
+                   ["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"], capture_output=True,
+                   text=True, timeout=60).stdout.strip().splitlines()}
+    print("SCALING4 " + json.dumps(summary))
+
+
+SYNC_BN_SHAPE = (8, 16, 14, 14)
+SYNC_BN_WORKER = r"""
+import json, sys
+import numpy as np
+import torch
+import horovod_tpu_torch as hvt
+from horovod_tpu_torch.models.normalization import TpuBatchNorm
+from horovod_tpu_torch.sync_batch_norm import SyncBatchNorm
+
+shape, out = json.loads(sys.argv[1])
+hvt.init()
+r, n = hvt.rank(), hvt.size()
+rs = np.random.RandomState(21)
+x_all = (rs.normal(size=shape) * 2 + 1).astype(np.float32)
+w_all = rs.normal(size=shape).astype(np.float32)
+rows = slice(r * shape[0] // n, (r + 1) * shape[0] // n)
+res = {}
+for name in ("sync", "tpu"):
+    bn = (SyncBatchNorm(shape[1]) if name == "sync" else
+          TpuBatchNorm(shape[1], process_set=hvt.global_process_set)).cuda()
+    x = torch.from_numpy(x_all[rows]).cuda().requires_grad_()
+    y = bn(x)
+    (y * torch.from_numpy(w_all[rows]).cuda()).sum().backward()
+    res[name] = {"y": y.tolist(), "dx": x.grad.tolist(),
+                 "dweight": bn.weight.grad.tolist(),
+                 "dbias": bn.bias.grad.tolist(),
+                 "running_mean": bn.running_mean.tolist(),
+                 "running_var": bn.running_var.tolist()}
+with open(f"{out}.{r}.json", "w") as f:
+    json.dump(res, f)
+hvt.shutdown()
+"""
+
+
+def _batch_norm_np(x, w, momentum, unbiased, eps=1e-5):
+    """Training batch norm over dim 1 in float64 numpy, with scale 1 and
+    bias 0, from running stats (0, 1): (y, dx, dweight, dbias,
+    running_mean, running_var) for the cotangent ``w``; ``momentum`` is
+    the weight of the batch, the running variance unbiased or not."""
+    x, w = x.astype(np.float64), w.astype(np.float64)
+    axes = (0, 2, 3)
+    count = x.size // x.shape[1]
+    mean = x.mean(axes, keepdims=True)
+    var = x.var(axes, keepdims=True)
+    xhat = (x - mean) / np.sqrt(var + eps)
+    dx = ((w - w.mean(axes, keepdims=True)
+           - xhat * (w * xhat).mean(axes, keepdims=True))
+          / np.sqrt(var + eps))
+    batch_var = var.ravel() * (count / (count - 1) if unbiased else 1.0)
+    return (xhat, dx, (w * xhat).sum(axes), w.sum(axes),
+            momentum * mean.ravel(),
+            (1 - momentum) + momentum * batch_var)
+
+
+@pytest.mark.cuda
+def test_nccl_synced_batch_norm_equals_one_card(cuda, tmp_path):
+    """SyncBatchNorm and TpuBatchNorm over the world on every card (NCCL):
+    each card's output and input gradient are its rows of the whole
+    batch's, the cards' weight and bias gradients sum to the whole batch's,
+    and the running statistics are the whole batch's, against float64
+    numpy; so are one card's over the whole batch. fp32 on the card, tol
+    1e-4."""
+    import json
+    import sys
+
+    from horovod_tpu_torch.models.normalization import TpuBatchNorm
+    from horovod_tpu_torch.sync_batch_norm import SyncBatchNorm
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    out = str(tmp_path / "syncbn")
+    _wait_gang(_start_gang(n, [sys.executable, "-c", SYNC_BN_WORKER,
+                               json.dumps([SYNC_BN_SHAPE, out])], "syncbn",
+                           str(tmp_path)), timeout=300)
+    rs = np.random.RandomState(21)
+    x_all = (rs.normal(size=SYNC_BN_SHAPE) * 2 + 1).astype(np.float32)
+    w_all = rs.normal(size=SYNC_BN_SHAPE).astype(np.float32)
+    want = {"sync": _batch_norm_np(x_all, w_all, 0.1, unbiased=True),
+            "tpu": _batch_norm_np(x_all, w_all, 0.1, unbiased=False)}
+    keys = ("y", "dx", "dweight", "dbias", "running_mean", "running_var")
+    tol = dict(rtol=1e-4, atol=1e-4)
+    shard = SYNC_BN_SHAPE[0] // n
+    dsum = {name: [0.0, 0.0] for name in want}
+    for r in range(n):
+        with open(f"{out}.{r}.json") as f:
+            got = json.load(f)
+        rows = slice(r * shard, (r + 1) * shard)
+        for name, ref in want.items():
+            for key, w in zip(keys, ref):
+                if key in ("y", "dx"):
+                    w = w[rows]
+                if key in ("dweight", "dbias"):
+                    dsum[name][key == "dbias"] += np.asarray(got[name][key])
+                    continue
+                np.testing.assert_allclose(got[name][key], w,
+                                           err_msg=f"{name} {key} rank {r}",
+                                           **tol)
+    for name, ref in want.items():
+        np.testing.assert_allclose(dsum[name][0], ref[2], **tol)
+        np.testing.assert_allclose(dsum[name][1], ref[3], **tol)
+    # one card, the whole batch (a world of one: local statistics)
+    for name, ref in want.items():
+        bn = (SyncBatchNorm(SYNC_BN_SHAPE[1]) if name == "sync"
+              else TpuBatchNorm(SYNC_BN_SHAPE[1])).to(cuda)
+        x = torch.from_numpy(x_all).to(cuda).requires_grad_()
+        y = bn(x)
+        (y * torch.from_numpy(w_all).to(cuda)).sum().backward()
+        for key, got, w in zip(keys, (y, x.grad, bn.weight.grad,
+                                      bn.bias.grad, bn.running_mean,
+                                      bn.running_var), ref):
+            np.testing.assert_allclose(got.detach().cpu().numpy(), w,
+                                       err_msg=f"one card {name} {key}",
+                                       **tol)
