@@ -86,16 +86,40 @@ Phases, each of which exits non-zero on a failure:
    and InceptionV3 (batch 128, 299x299) two steps each, losses finite; and
    the space-to-depth stem against the standard 7x7/2 stem from the same
    weights on a ResNet-50 batch (fp32 within 1e-4, bf16 within 2e-2).
-11. summary: one JSON line listing the kernels (launches on the main path,
-   the accumulation phase and the sequence phase), the nvidia-smi line,
-   and last the {"ok": true, ...} line.
+11. checkpoint: the main path's GPT and optimizer, built through the entry
+   points (GPT, hvt.DistributedOptimizer(AdamW), train.make_train_step),
+   take 3 eager steps; hvt.checkpoint.CheckpointManager(max_to_keep=2)
+   saves model, optimizer and step asynchronously at step 3 while 3 more
+   steps run, then waits. A fresh model and optimizer from another seed
+   restore_latest and take 3 steps: their losses must equal the unbroken
+   steps 4-6 bit for bit. The host ms that save blocks, the ms of wait and
+   of restore, the bytes on disk, the peak device memory during the save;
+   each sm90 kernel must launch 12 times a step (36 over the restored
+   steps) and the SIMT ones never.
+12. fsdp: the same GPT under parallel.fsdp.shard_module on a mesh of one
+   rank (fsdp 1: an FSDP2 unit per block, and the root with the tied
+   embedding) and a plain AdamW, 7 steps:
+   losses within 1e-2 of the main path's at steps 1 and 7, 12 launches a
+   step of each sm90 kernel, none SIMT; step time and peak memory.
+13. launch: python -m horovod_tpu_torch.runner.launch -np 1 runs
+   tests/torch_port_launch_worker.py, which takes 2 steps of the main
+   path's GPT on cuda:0 through train.train; it must exit 0, see the
+   launcher's HVT_* identity, report losses within 1e-2 of the main path's
+   first two and 24 launches of each sm90 kernel, none SIMT.
+14. summary: one JSON line listing the kernels (launches on the main path,
+   the accumulation, sequence, checkpoint, fsdp and launch phases), the
+   nvidia-smi line, and last the {"ok": true, ...} line.
 """
 
 import json
 import math
+import os
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time the card could
@@ -171,6 +195,11 @@ TOL_STEM = {"float32": 1e-4, "bfloat16": 2e-2}
 PROFILE_STEPS, PROFILE_TOP = 2, 12
 LOSS_RTOL = 1e-2
 SLEEP_CYCLES = 100_000_000   # about 50 ms of the card's clock
+# bench.py's GPT has 12 layers: a step launches each flash kernel 12 times
+MAIN_LAYERS = 12
+# the checkpoint phase: save at this step, then as many more
+CKPT_AT = 3
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def fail(msg):
@@ -465,8 +494,9 @@ def main_path(hvt, K):
     dtype_name = str(cfg.dtype).split(".")[1]
     attn = (batch, seq, cfg.n_heads, cfg.n_kv_heads or cfg.n_heads,
             cfg.d_model // cfg.n_heads, dtype_name, True, dtype_name)
-    if attn != MAIN_SHAPE:      # the kernel phase checked MAIN_SHAPE
-        fail(f"main path: attention shape {attn} is not {MAIN_SHAPE}")
+    if attn != MAIN_SHAPE or cfg.n_layers != MAIN_LAYERS:
+        fail(f"main path: attention shape {attn} is not {MAIN_SHAPE} or "
+             f"{cfg.n_layers} layers are not {MAIN_LAYERS}")
 
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -739,8 +769,7 @@ def collectives_phase(hvt, model, optimizer):
             if not isinstance(hvt.poll(h), bool):
                 fail(f"collectives: poll({name}) is not a bool")
             got = hvt.synchronize(h)
-            same(f"{name} {tag}", got[0] if name == "alltoall_async"
-                 else got, want)
+            same(f"{name} {tag}", got, want)
             if not hvt.poll(h):
                 fail(f"collectives: {name} not done after synchronize")
         ps = hvt.add_process_set([0])
@@ -1027,6 +1056,209 @@ def vision_phase():
           **out, "space_to_depth_stem": stems})
 
 
+def _sm90_only(tag, launches, steps, per_step):
+    """Fail unless each sm90 kernel launched ``per_step`` times a step and
+    no SIMT kernel ran."""
+    for name, n in launches.items():
+        want = per_step * steps if name.endswith("_sm90") else 0
+        if n != want:
+            fail(f"{tag}: {name} launched {n} times in {steps} steps, "
+                 f"expected {want}")
+
+
+def _du(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def checkpoint_phase(hvt, K):
+    """Save the training state asynchronously at step CKPT_AT, train on,
+    restore it into a fresh model and optimizer and take the same steps
+    again: the same losses bit for bit. Eager steps: the async save's copy
+    must not overlap a graph replaying into the parameters. Returns the
+    launch counts of the phase and of the restored steps."""
+    import torch
+
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.train import (gpt_config, make_train_step,
+                                         seeded_tokens)
+
+    cfg = gpt_config("bench", use_flash=True, dtype=torch.bfloat16)
+    tokens = seeded_tokens(cfg, MAIN_SHAPE[0], cfg.max_seq_len, seed=0)
+
+    def fresh(seed):
+        model = GPT(cfg, device=hvt.device(), seed=seed)
+        opt = hvt.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=1e-4, weight_decay=1e-4))
+        return model, opt, make_train_step(model, opt)
+
+    workdir = tempfile.mkdtemp(prefix="hvt_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        model, opt, step = fresh(0)
+        unbroken = [float(step(tokens)) for _ in range(CKPT_AT)]
+        mgr = hvt.checkpoint.CheckpointManager(workdir, max_to_keep=2)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        saved = mgr.save(CKPT_AT, {"model": model, "optim": opt,
+                                   "step": CKPT_AT})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        peak_save = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        unbroken += [float(step(tokens)) for _ in range(CKPT_AT)]
+        steps_during_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        mgr.wait()
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        on_disk = _du(os.path.join(workdir, str(CKPT_AT)))
+        n_params = sum(p.numel() for p in model.parameters())
+        del model, opt, step
+        torch.cuda.empty_cache()
+
+        model, opt, step = fresh(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = mgr.restore_latest({"model": model, "optim": opt,
+                                    "step": 0})
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        # the phase's count so far, then the restored steps' own window
+        before_restored = dict(K.LAUNCHES)
+        K.reset_launches()
+        resumed = [float(step(tokens)) for _ in range(CKPT_AT)]
+        restored = dict(K.LAUNCHES)
+        launches = {n: before_restored[n] + restored[n] for n in restored}
+        mgr.close()
+        del model, opt, step
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit({"phase": "checkpoint", "config": "bench.py --model gpt --flash",
+          "saved": saved, "restored_step": state["step"],
+          "unbroken_losses": unbroken, "resumed_losses": resumed,
+          "save_blocking_ms": save_ms, "wait_ms": wait_ms,
+          "steps_while_saving_ms": steps_during_ms,
+          "restore_ms": restore_ms, "bytes_on_disk": on_disk,
+          "n_params": n_params,
+          "memory_allocated_before_save_bytes": before,
+          "max_memory_allocated_during_save_bytes": peak_save,
+          "launches": launches, "launches_restored_steps": restored})
+    if not saved or state["step"] != CKPT_AT:
+        fail(f"checkpoint: saved {saved}, restored step {state['step']}")
+    if resumed != unbroken[CKPT_AT:]:
+        fail(f"checkpoint: resumed losses {resumed} are not the unbroken "
+             f"run's {unbroken[CKPT_AT:]}")
+    _sm90_only("checkpoint", launches, 3 * CKPT_AT, MAIN_LAYERS)
+    _sm90_only("checkpoint restored steps", restored, CKPT_AT, MAIN_LAYERS)
+    return launches, restored
+
+
+def fsdp_phase(hvt, K, main_losses):
+    """The main path's GPT sharded by shard_module on a mesh of one rank,
+    with a plain AdamW (its gradients are FSDP's to reduce)."""
+    import torch
+
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.parallel.fsdp import shard_module
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+    from horovod_tpu_torch.train import (gpt_config, make_train_step,
+                                         seeded_tokens)
+
+    cfg = gpt_config("bench", use_flash=True, dtype=torch.bfloat16)
+    steps = STEPS_WARMUP + STEPS_TIMED
+    tokens = seeded_tokens(cfg, MAIN_SHAPE[0], cfg.max_seq_len, seed=0)
+    model = shard_module(GPT(cfg, device=hvt.device(), seed=0),
+                         make_parallel_mesh(fsdp=1))
+    sharded = sum(hasattr(p, "to_local") for p in model.parameters())
+    step = make_train_step(model, torch.optim.AdamW(
+        model.parameters(), lr=1e-4, weight_decay=1e-4))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(tokens)))         # waits for the card
+        times.append(time.perf_counter() - t0)
+    launches = dict(K.LAUNCHES)
+    step_s = statistics.median(times[STEPS_WARMUP:])
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, main_losses)]
+    emit({"phase": "fsdp", "config": "bench.py --model gpt --flash",
+          "mesh": {"fsdp": 1}, "sharded_params": sharded,
+          "params": sum(1 for _ in model.parameters()), "losses": losses,
+          "main_path_losses": main_losses, "rel_diff": rels,
+          "rtol": LOSS_RTOL, "step_s": times[STEPS_WARMUP:],
+          "step_ms_median": step_s * 1e3,
+          "tokens_per_s": MAIN_SHAPE[0] * cfg.max_seq_len / step_s,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches})
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"fsdp: non-finite loss {losses}")
+    for i in (0, steps - 1):
+        if rels[i] > LOSS_RTOL:
+            fail(f"fsdp: step {i + 1}: loss {losses[i]} vs main path "
+                 f"{main_losses[i]}: rel diff {rels[i]:.3g} > {LOSS_RTOL}")
+    _sm90_only("fsdp", launches, steps, MAIN_LAYERS)
+    del model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def launch_phase(main_losses):
+    """The port's launcher starts one worker on cuda:0 that takes 2 steps
+    of the main path; it must see the launcher's identity and give the main
+    path's first two losses. Returns the worker's launch counts."""
+    import torch
+
+    out_dir = tempfile.mkdtemp(prefix="hvt_launch_")
+    out = os.path.join(out_dir, "res")
+    steps = 2
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+           "1", "--master-port", str(port), sys.executable,
+           os.path.join(REPO, "tests", "torch_port_launch_worker.py"), "gpt",
+           out, json.dumps({"device": "cuda", "config": "bench",
+                            "steps": steps, "batch": MAIN_SHAPE[0],
+                            "seq": MAIN_SHAPE[1]})]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600, env=dict(os.environ,
+                                                    PYTHONPATH=REPO))
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"launch: the launcher exited {proc.returncode}:\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        res = torch.load(out + ".0.pt", weights_only=False)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    env = res["env"]
+    emit({"phase": "launch", "command": "python -m "
+          "horovod_tpu_torch.runner.launch -np 1 python "
+          "tests/torch_port_launch_worker.py gpt ...", "seconds": seconds,
+          "identity": env, "device": res["device"], "losses": res["losses"],
+          "main_path_losses": main_losses[:steps],
+          "launches": res["launches"]})
+    want = {"HVT_PROCESS_ID": "0", "HVT_NUM_PROCESSES": "1",
+            "HVT_LOCAL_PROCESS_ID": "0", "HVT_LOCAL_SIZE": "1",
+            "HVT_CROSS_RANK": "0", "HVT_CROSS_SIZE": "1"}
+    if any(env.get(k) != v for k, v in want.items()) \
+            or env.get("HVT_COORDINATOR_ADDR") != f"127.0.0.1:{port}" \
+            or res["device"] != "cuda:0":
+        fail(f"launch: the worker saw identity {env} on {res['device']}")
+    rels = [abs(a - b) / abs(b) for a, b in zip(res["losses"], main_losses)]
+    if len(rels) != steps or max(rels) > LOSS_RTOL:
+        fail(f"launch: losses {res['losses']} are not within {LOSS_RTOL} "
+             f"of the main path's {main_losses[:steps]}")
+    _sm90_only("launch", res["launches"], steps, MAIN_LAYERS)
+    return res["launches"]
+
+
 def main():
     import torch
 
@@ -1066,8 +1298,11 @@ def main():
     del trained
     acc_launches, model, optimizer = accumulation_phase(hvt, K, main_losses)
     collectives_phase(hvt, model, optimizer)
-    hvt.shutdown()
     del model, optimizer
+    torch.cuda.empty_cache()
+    ckpt_launches, restored_launches = checkpoint_phase(hvt, K)
+    fsdp_launches = fsdp_phase(hvt, K, main_losses)
+    hvt.shutdown()
     torch.cuda.empty_cache()
     seq_launches = sequence_phase(K, flash_attention_reference)
     torch.cuda.empty_cache()
@@ -1076,6 +1311,8 @@ def main():
     torch.cuda.empty_cache()
     vision_phase()
     hvt.shutdown()
+    torch.cuda.empty_cache()
+    launch_launches = launch_phase(main_losses)
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -1083,6 +1320,10 @@ def main():
          "launches_accumulation": acc_launches[name],
          "launches_sequence": seq_launches[name],
          "launches_bench_outside_replays": bench_launches[name],
+         "launches_checkpoint": ckpt_launches[name],
+         "launches_checkpoint_restored_steps": restored_launches[name],
+         "launches_fsdp": fsdp_launches[name],
+         "launches_launch": launch_launches[name],
          **timings[name]} for name in K.LAUNCHES]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -169,3 +169,72 @@ def cross_size() -> int:
 def device() -> torch.device:
     """The device this process's collectives run on."""
     return _world().device
+
+
+def process_rank() -> int:
+    """This process's index: :func:`rank`, since one process drives one
+    GPU (in the JAX package a process drives a host's chips)."""
+    return rank()
+
+
+def process_size() -> int:
+    """The number of processes: :func:`size`."""
+    return size()
+
+
+def is_homogeneous() -> bool:
+    """True when every host runs the same number of processes: an
+    allgather of each process's ``local_size``, so every process calls
+    it."""
+    from horovod_tpu_torch.ops.collective_ops import allgather
+
+    sizes = allgather(torch.tensor([local_size()], device=device()))
+    return len(set(sizes.tolist())) == 1
+
+
+# What this build can do (Horovod's ``basics.py:216-258``): the data plane is
+# torch.distributed, NCCL on the GPU and gloo on the CPU.
+
+def nccl_built() -> bool:
+    return dist.is_nccl_available()
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def gloo_enabled() -> bool:
+    return gloo_built()
+
+
+def mpi_built() -> bool:
+    return dist.is_mpi_available()
+
+
+def mpi_enabled() -> bool:
+    """MPI is never the port's controller: processes join on a TCP store."""
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    return False
+
+
+def cuda_built() -> bool:
+    return torch.version.cuda is not None
+
+
+def rocm_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def xla_built() -> bool:
+    return False

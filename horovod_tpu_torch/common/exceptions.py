@@ -12,3 +12,14 @@ class HorovodTimeoutError(TimeoutError):
     """``synchronize(handle, timeout=...)`` reached its deadline with the
     collective still pending. The collective keeps running and the handle
     stays waitable: a timeout does not mean the gang failed."""
+
+
+class HostsUpdatedInterrupt(RuntimeError):
+    """Raised at a commit point when elastic training has told this
+    worker that the set of hosts changed (Horovod's
+    ``common/exceptions.py:26``). With ``skip_sync`` the worker that saw the
+    update needs no re-sync of its state: it is current."""
+
+    def __init__(self, skip_sync=False):
+        super().__init__("Hosts updated; re-initialization required")
+        self.skip_sync = skip_sync

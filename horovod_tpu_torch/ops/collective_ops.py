@@ -1,8 +1,8 @@
 """Collective operations on ``torch.distributed`` (Horovod's
 ``torch/mpi_ops.py``; the JAX package's ``ops/collective_ops.py``):
 allreduce, grouped allreduce, allgather, broadcast, alltoall,
-reducescatter, barrier, their ``*_async`` forms, and ``synchronize`` /
-``poll`` on the handles those return.
+reducescatter, barrier, their in-place and ``*_async`` forms, and
+``synchronize`` / ``poll`` on the handles those return.
 
 Each call is a collective over a process set (the global one by default):
 NCCL on the GPU, gloo on the CPU. Every member of the set makes the same
@@ -246,17 +246,43 @@ def allreduce_(tensor, average=None, name=None, op=None,
                process_set=global_process_set):
     """:func:`allreduce` in place; returns ``tensor``. An integer tensor
     under Average raises ``TypeError``: it cannot hold the mean."""
+    return synchronize(allreduce_async_(
+        tensor, average=average, name=name, op=op,
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        process_set=process_set))
+
+
+def allreduce_async_(tensor, average=None, name=None, op=None,
+                     prescale_factor=1.0, postscale_factor=1.0,
+                     process_set=global_process_set):
+    """Start :func:`allreduce_`; returns a handle whose result is
+    ``tensor``, reduced in place (``torch/mpi_ops.py:96``)."""
     del name
-    op = _resolve_op(op, average)
+    op = _check_in_place(tensor, _resolve_op(op, average))
+    buf = tensor if tensor.is_contiguous() else tensor.contiguous()
+    h = _allreduce_start(buf, op, prescale_factor, postscale_factor,
+                         process_set)
+    return _then(h, lambda out: _copy_into(tensor, out))
+
+
+def _check_in_place(tensor, op):
     if op is Average and not tensor.is_floating_point():
-        raise TypeError(f"allreduce_ cannot average a {tensor.dtype} tensor "
-                        "in place; use allreduce, which returns the float "
-                        "mean")
-    out = synchronize(_allreduce_start(tensor, op, prescale_factor,
-                                       postscale_factor, process_set))
+        raise TypeError(f"an in-place allreduce cannot average a "
+                        f"{tensor.dtype} tensor; use allreduce, which "
+                        "returns the float mean")
+    return op
+
+
+def _copy_into(tensor, out):
     if out is not tensor:
         tensor.copy_(out)
     return tensor
+
+
+def _then(handle, fn):
+    """A handle on the same collective whose result is ``fn`` of
+    ``handle``'s."""
+    return Handle(handle._works, lambda: fn(handle.wait()))
 
 
 def grouped_allreduce_async(tensors, average=None, name=None, op=None,
@@ -301,6 +327,37 @@ def grouped_allreduce(tensors, average=None, name=None, op=None,
     ``compression`` casts each tensor for the wire and back. Adasum's
     coefficients stay per tensor. Returns the reduced tensors in order."""
     return synchronize(grouped_allreduce_async(
+        tensors, average=average, name=name, op=op,
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        process_set=process_set, compression=compression))
+
+
+def grouped_allreduce_async_(tensors, average=None, name=None, op=None,
+                             prescale_factor=1.0, postscale_factor=1.0,
+                             process_set=global_process_set,
+                             compression=Compression.none):
+    """Start :func:`grouped_allreduce_`; returns a handle whose result is
+    ``tensors``, each reduced in place (``torch/mpi_ops.py:181``)."""
+    tensors = list(tensors)
+    op = _resolve_op(op, average)
+    for t in tensors:
+        _check_in_place(t, op)
+    h = grouped_allreduce_async(
+        tensors, name=name, op=op, prescale_factor=prescale_factor,
+        postscale_factor=postscale_factor, process_set=process_set,
+        compression=compression)
+    return _then(h, lambda outs: [_copy_into(t, o)
+                                  for t, o in zip(tensors, outs)])
+
+
+def grouped_allreduce_(tensors, average=None, name=None, op=None,
+                       prescale_factor=1.0, postscale_factor=1.0,
+                       process_set=global_process_set,
+                       compression=Compression.none):
+    """:func:`grouped_allreduce` in place; returns ``tensors``. An integer
+    tensor under Average raises ``TypeError``, as :func:`allreduce_`
+    does."""
+    return synchronize(grouped_allreduce_async_(
         tensors, average=average, name=name, op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
         process_set=process_set, compression=compression))
@@ -379,11 +436,20 @@ def allgather(tensor, name=None, process_set=global_process_set):
     return _Allgather.apply(tensor, process_set)
 
 
-def grouped_allgather(tensors, name=None, process_set=global_process_set):
-    """:func:`allgather` of each tensor; returns the list."""
+def grouped_allgather_async(tensors, name=None,
+                            process_set=global_process_set):
+    """Start :func:`grouped_allgather`; returns a handle whose result is
+    the list (``torch/mpi_ops.py:254``)."""
     del name
     handles = [allgather_async(t, process_set=process_set) for t in tensors]
-    return [synchronize(h) for h in handles]
+    return Handle([w for h in handles for w in h._works],
+                  lambda: [h.wait() for h in handles])
+
+
+def grouped_allgather(tensors, name=None, process_set=global_process_set):
+    """:func:`allgather` of each tensor; returns the list."""
+    return synchronize(grouped_allgather_async(tensors, name=name,
+                                               process_set=process_set))
 
 
 # --------------------------------------------------------------------------
@@ -453,11 +519,9 @@ def broadcast(tensor, root_rank=0, name=None,
 # alltoall
 # --------------------------------------------------------------------------
 
-def alltoall_async(tensor, splits=None, name=None,
-                   process_set=global_process_set):
-    """Start :func:`alltoall`. The receive splits are exchanged before
-    this returns; the data moves asynchronously."""
-    del name
+def _alltoall_start(tensor, splits, process_set):
+    """A handle whose result is ``(output, received_splits)``, whatever
+    ``splits`` is."""
     group = process_set.group()
     n = process_set.size()
     t = tensor.detach().contiguous()
@@ -485,14 +549,24 @@ def alltoall_async(tensor, splits=None, name=None,
     return Handle([work], lambda: (out, torch.tensor(recv_splits)))
 
 
+def alltoall_async(tensor, splits=None, name=None,
+                   process_set=global_process_set):
+    """Start :func:`alltoall`; its result follows :func:`alltoall`'s rule
+    (the output alone without ``splits``). The receive splits are
+    exchanged before this returns; the data moves asynchronously."""
+    del name
+    h = _alltoall_start(tensor, splits, process_set)
+    return h if splits is not None else _then(h, lambda pair: pair[0])
+
+
 class _Alltoall(torch.autograd.Function):
     """The gradient is the alltoall of the cotangent back along the
     received splits (``horovod_tpu/torch/mpi_ops.py:345``)."""
 
     @staticmethod
     def forward(ctx, tensor, splits, process_set):
-        out, recv_splits = alltoall_async(tensor, splits=splits,
-                                          process_set=process_set).wait()
+        out, recv_splits = _alltoall_start(tensor, splits,
+                                           process_set).wait()
         ctx.recv_splits, ctx.process_set = recv_splits, process_set
         ctx.mark_non_differentiable(recv_splits)
         return out, recv_splits
@@ -506,20 +580,22 @@ class _Alltoall(torch.autograd.Function):
 def alltoall(tensor, splits=None, name=None, process_set=global_process_set):
     """Send ``splits[j]`` consecutive dim-0 rows of ``tensor`` to the set's
     j-th member and concatenate what each member sent here, in rank order
-    (``torch/mpi_ops.py:710``). Without ``splits`` dim 0 is split evenly.
-    Returns ``(output, received_splits)``; the splits are a CPU int64
-    tensor, as the engine path returns them. Differentiable in the
+    (``torch/mpi_ops.py:710``). Without ``splits`` dim 0 is split evenly
+    and the output alone is returned; with ``splits``, ``(output,
+    received_splits)``, the splits a CPU int64 tensor: the torch binding's
+    rule (``horovod_tpu/torch/mpi_ops.py:366-372``). Differentiable in the
     output."""
     del name
-    return _Alltoall.apply(tensor, splits, process_set)
+    out, recv_splits = _Alltoall.apply(tensor, splits, process_set)
+    return out if splits is None else (out, recv_splits)
 
 
 # --------------------------------------------------------------------------
 # reducescatter
 # --------------------------------------------------------------------------
 
-def _reducescatter(tensor, op, process_set, prescale_factor,
-                   postscale_factor):
+def _reducescatter_start(tensor, op, process_set, prescale_factor,
+                         postscale_factor):
     op = Average if op is None else op
     if op not in _DIST_OP:
         raise ValueError(f"reducescatter does not support {op}")
@@ -530,10 +606,26 @@ def _reducescatter(tensor, op, process_set, prescale_factor,
                          f" must divide by the set's size ({n})")
     buf = _scale_(_own_copy(tensor), prescale_factor)
     out = buf.new_empty((buf.shape[0] // n,) + buf.shape[1:])
-    _collective(dist.reduce_scatter_tensor, out, buf, op=_DIST_OP[op],
-                group=group)
-    out = _average(out, n) if op is Average else out
-    return _scale_(out, postscale_factor)
+    work = _collective(dist.reduce_scatter_tensor, out, buf,
+                       op=_DIST_OP[op], group=group, async_op=True)
+
+    def finish():
+        return _scale_(_average(out, n) if op is Average else out,
+                       postscale_factor)
+
+    h = Handle([work], finish)
+    h._input = buf      # alive until the collective completes
+    return h
+
+
+def reducescatter_async(tensor, op=None, name=None,
+                        process_set=global_process_set,
+                        prescale_factor=1.0, postscale_factor=1.0):
+    """Start :func:`reducescatter`; returns a handle
+    (``torch/mpi_ops.py:375``)."""
+    del name
+    return _reducescatter_start(tensor, op, process_set, prescale_factor,
+                                postscale_factor)
 
 
 class _Reducescatter(torch.autograd.Function):
@@ -546,7 +638,8 @@ class _Reducescatter(torch.autograd.Function):
         ctx.process_set = process_set
         ctx.scale = prescale * postscale / (
             process_set.size() if op in (None, Average) else 1)
-        return _reducescatter(tensor, op, process_set, prescale, postscale)
+        return _reducescatter_start(tensor, op, process_set, prescale,
+                                    postscale).wait()
 
     @staticmethod
     def backward(ctx, grad):

@@ -85,6 +85,17 @@ def broadcast_parameters(params, root_rank=0,
         C.synchronize(h)
 
 
+def broadcast_variables(variables, root_rank=0,
+                        process_set=C.global_process_set):
+    """The JAX package's alias of :func:`broadcast_parameters`
+    (``horovod_tpu/ops/functions.py:109``): overwrite ``variables`` (a state
+    dict or ``(name, tensor)`` pairs) in place with ``root_rank``'s and
+    return them, as the JAX function returns the broadcast tree."""
+    broadcast_parameters(variables, root_rank=root_rank,
+                         process_set=process_set)
+    return variables
+
+
 class _Leaf(NamedTuple):
     """A tensor of a state dict, as its structure is sent to other ranks."""
 

@@ -27,13 +27,15 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     ``state_dict``) with the gradient reduction in front of ``step``."""
 
     def __init__(self, params, reduce_kwargs, names, reduce_filter,
-                 backward_passes_per_step, average_aggregated_gradients):
+                 backward_passes_per_step, average_aggregated_gradients,
+                 num_groups):
         super(self.__class__, self).__init__(params)
         self._hvt_reduce_kwargs = reduce_kwargs
         self._hvt_names = names
         self._hvt_filter = reduce_filter
         self._hvt_passes_per_step = backward_passes_per_step
         self._hvt_average_aggregated = average_aggregated_gradients
+        self._hvt_num_groups = num_groups
         self._hvt_passes = 0
         self._hvt_acc = {}      # param -> gradient sum of the held passes
         self._hvt_should_sync = True    # False inside skip_synchronize()
@@ -50,7 +52,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def synchronize(self):
         """Reduce every ``.grad`` that the filter selects, in place: one
         fused collective per (device, wire dtype) through
-        ``grouped_allreduce``. Over more than one process a selected
+        ``grouped_allreduce``, or with ``num_groups`` N one such call for
+        each of N near-equal runs of the parameters in order (the torch
+        binding's ``split_list``). Over more than one process a selected
         parameter without a gradient (unused by this rank's pass) takes part
         with zeros, as the torch binding's does
         (``horovod_tpu/torch/optimizer.py:175-181``), so every rank fuses
@@ -62,10 +66,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 if p.grad is None and p.requires_grad:
                     p.grad = torch.zeros_like(p)
         params = [p for p in params if p.grad is not None]
-        reduced = C.grouped_allreduce([p.grad for p in params],
-                                      **self._hvt_reduce_kwargs)
-        for p, g in zip(params, reduced):
-            p.grad.copy_(g)
+        for group in _split_list(params, self._hvt_num_groups or 1):
+            C.grouped_allreduce_([p.grad for p in group],
+                                 **self._hvt_reduce_kwargs)
         self._hvt_synchronized = True
 
     @contextlib.contextmanager
@@ -128,6 +131,19 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         return loss
 
 
+def _split_list(xs, num_parts):
+    """At most ``num_parts`` near-equal contiguous non-empty runs of ``xs``,
+    the longer first (``horovod_tpu/common/util.py:6``)."""
+    num_parts = min(num_parts, len(xs))
+    if not num_parts:
+        return []
+    base, extra = divmod(len(xs), num_parts)
+    bounds = [0]
+    for i in range(num_parts):
+        bounds.append(bounds[-1] + base + (i < extra))
+    return [xs[a:b] for a, b in zip(bounds, bounds[1:])]
+
+
 def DistributedOptimizer(optimizer, named_parameters=None, *, op=C.Average,
                          compression=Compression.none,
                          prescale_factor=1.0, postscale_factor=1.0,
@@ -135,7 +151,7 @@ def DistributedOptimizer(optimizer, named_parameters=None, *, op=C.Average,
                          backward_passes_per_step=1,
                          average_aggregated_gradients=False,
                          process_set=global_process_set,
-                         reduce_filter=None):
+                         reduce_filter=None, num_groups=0):
     """Wrap a ``torch.optim.Optimizer`` so that ``step()`` first reduces
     every gradient over ``process_set`` with ``op`` (Average by default;
     Adasum with per-tensor coefficients), ``compression`` and the
@@ -152,8 +168,15 @@ def DistributedOptimizer(optimizer, named_parameters=None, *, op=C.Average,
       its local gradient.
     - A process that is not a member of ``process_set`` gets
       ``ValueError`` from ``step``.
+    - ``num_groups`` N > 0 reduces the gradients in N grouped
+      collectives over near-equal runs of the parameters in order, as the
+      torch binding groups them; 0 fuses them all into one.
     - ``synchronize()`` reduces now; ``step()`` inside
       ``skip_synchronize()`` then updates without reducing again.
+    - A module sharded by ``parallel.fsdp.shard_module`` reduces its own
+      gradients: its parameters raise ``ValueError`` here, since a second
+      reduction over the same ranks would be wrong. Take a plain
+      optimizer for it.
     """
     if backward_passes_per_step < 1:
         raise ValueError("backward_passes_per_step must be at least 1")
@@ -164,6 +187,14 @@ def DistributedOptimizer(optimizer, named_parameters=None, *, op=C.Average,
         op = C.Sum
         prescale_factor *= gradient_predivide_factor / process_set.size()
         postscale_factor /= gradient_predivide_factor
+    if num_groups < 0:
+        raise ValueError("num_groups must be at least 0")
+    if any(getattr(p, "_hvt_fsdp", False) for group in optimizer.param_groups
+           for p in group["params"]):
+        raise ValueError(
+            "these parameters belong to a module sharded by shard_module, "
+            "which already reduces their gradients; use the plain "
+            "optimizer")
     names = {p: name for name, p in (named_parameters or ())}
     if reduce_filter is not None and not names:
         raise ValueError("reduce_filter needs named_parameters=")
@@ -175,7 +206,7 @@ def DistributedOptimizer(optimizer, named_parameters=None, *, op=C.Average,
                     postscale_factor=postscale_factor,
                     process_set=process_set),
                names, reduce_filter, backward_passes_per_step,
-               average_aggregated_gradients)
+               average_aggregated_gradients, num_groups)
 
 
 def PartialDistributedOptimizer(optimizer, named_parameters, local_layers=(),

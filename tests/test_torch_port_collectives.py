@@ -347,7 +347,7 @@ def test_optimizer_options_in_a_world_of_one():
 PORT_CALLS = {"allreduce": lambda x: hvt.allreduce(x),
               "allgather": lambda x: hvt.allgather(x),
               "broadcast": lambda x: hvt.broadcast(x, root_rank=0),
-              "alltoall": lambda x: hvt.alltoall(x)[0],
+              "alltoall": lambda x: hvt.alltoall(x),
               "reducescatter": lambda x: hvt.reducescatter(x)}
 JAX_CALLS = {"allreduce": lambda t: jhvt.allreduce(t, axis_name="x"),
              "allgather": lambda t: jhvt.allgather(t, axis_name="x"),

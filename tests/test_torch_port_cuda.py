@@ -528,3 +528,148 @@ def test_nccl_synced_batch_norm_equals_one_card(cuda, tmp_path):
             np.testing.assert_allclose(got.detach().cpu().numpy(), w,
                                        err_msg=f"one card {name} {key}",
                                        **tol)
+
+
+FSDP_CARDS, FSDP_STEPS, FSDP_SAVE_AT, FSDP_BATCH = 4, 7, 3, 8
+
+
+def _global_batch_one_card(steps, batch, cards):
+    """The bench GPT trained on one card on the global batch of ``cards``
+    ranks' ``batch`` rows each (``seeded_tokens`` from seed 0, the rows
+    the ranks take): each step's loss, each rank's rows' loss on the
+    weights before each step, step seconds and peak memory."""
+    import time
+
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.train import (gpt_config, loss_fn,
+                                         make_train_step, seeded_tokens)
+
+    cfg = gpt_config("bench", use_flash=True)
+    basics.init(device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        model = GPT(cfg, device=basics.device(), seed=0)
+        step = make_train_step(model, torch.optim.AdamW(
+            model.parameters(), lr=1e-4, weight_decay=1e-4))
+        tokens = seeded_tokens(cfg, batch * cards, cfg.max_seq_len, seed=0)
+        out = {"losses": [], "rank_rows_losses": [], "step_s": []}
+        for _ in range(steps):
+            with torch.no_grad():
+                out["rank_rows_losses"].append(
+                    [float(loss_fn(model, tokens[r * batch:(r + 1) * batch]))
+                     for r in range(cards)])
+            t0 = time.perf_counter()
+            out["losses"].append(float(step(tokens)))
+            out["step_s"].append(time.perf_counter() - t0)
+    finally:
+        basics.shutdown()
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+@pytest.mark.cuda
+def test_nccl_fsdp_sharded_steps_and_checkpoint(cuda, tmp_path):
+    """The full-width GPT (bench.py --model gpt --flash) under
+    ``shard_module`` on four cards, launched by the port's launcher
+    (``-np 4``, tests/torch_port_launch_worker.py), each card on its own
+    batch of 8 rows of a seeded global batch of 32: seven steps at fsdp 4
+    and at dp 2 × fsdp 2, held at steps 1 and 7 against one card trained
+    on the global batch: each card's loss within LOSS_RTOL of its rows'
+    loss there, and the cards' mean within LOSS_RTOL of its loss. One card
+    trained on rank 0's rows alone must miss rank 0's reference at step 7
+    by more than LOSS_RTOL, so a reduction that drops ranks shows. At
+    fsdp 4 an async sharded checkpoint at step 3, restored by a new launch
+    of four processes whose steps 4-6 equal the unbroken run's bit for
+    bit. Every step launches each sm90 kernel 12 times and no SIMT kernel.
+    Prints one FSDP4 JSON line: per card step time, peak memory, parameter
+    bytes and the checkpoint's timings, beside one card's at batch 8 and at
+    the global batch (run with -s)."""
+    import json
+    import statistics
+    import subprocess
+
+    import torch_port_launch_worker as LW
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.train import gpt_config, train
+
+    if torch.cuda.device_count() < FSDP_CARDS:
+        pytest.skip(f"needs {FSDP_CARDS} CUDA devices")
+    base = dict(device="cuda", config="bench", batch=FSDP_BATCH,
+                timeout_s=300)
+    ckpt = str(tmp_path / "ckpt")
+    runs = {}
+    for name, args in (
+            ("fsdp4", dict(layout={"fsdp": 4}, steps=FSDP_STEPS,
+                           save_at=FSDP_SAVE_AT, dir=ckpt)),
+            ("fsdp4_resumed", dict(layout={"fsdp": 4},
+                                   steps=FSDP_STEPS - FSDP_SAVE_AT - 1,
+                                   resume=True, dir=ckpt)),
+            ("dp2_fsdp2", dict(layout={"dp": 2, "fsdp": 2},
+                               steps=FSDP_STEPS,
+                               dir=str(tmp_path / "unused")))):
+        runs[name] = LW.Launch(FSDP_CARDS, "fsdp_gpt", str(tmp_path / name),
+                               {**base, **args}, timeout=900).results()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # rank 0's rows alone: the first FSDP_BATCH rows of the global batch
+        one = train(gpt_config("bench", use_flash=True), FSDP_STEPS,
+                    FSDP_BATCH, 1024, seed=0)
+    finally:
+        basics.shutdown()
+    one_peak = torch.cuda.max_memory_allocated()
+    del one["model"], one["optimizer"]
+    ref = _global_batch_one_card(FSDP_STEPS, FSDP_BATCH, FSDP_CARDS)
+    rows_alone_gap = (abs(one["loss"][-1] - ref["rank_rows_losses"][-1][0])
+                      / ref["rank_rows_losses"][-1][0])
+    summary = {"one_card": {"losses": one["loss"],
+                            "step_ms_median": statistics.median(
+                                one["step_s"][2:]) * 1e3,
+                            "max_memory_allocated_bytes": one_peak},
+               "global_batch_one_card": {
+                   **ref, "step_ms_median": statistics.median(
+                       ref["step_s"][2:]) * 1e3},
+               "rank0_rows_alone_step7_rel_gap": rows_alone_gap}
+    failures = []
+    sims = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    for name, results in runs.items():
+        steps = len(results[0]["losses"])
+        rows = []
+        for r, res in enumerate(results):
+            assert res["launches"] == {
+                **{k + "_sm90": 12 * steps for k in sims}, **sims}, name
+            if name == "fsdp4_resumed":
+                assert res["restored_step"] == FSDP_SAVE_AT
+                want = runs["fsdp4"][r]["losses"][FSDP_SAVE_AT:
+                                                  FSDP_SAVE_AT + steps]
+                assert res["losses"] == want, (res["losses"], want)
+            else:
+                for k in (0, steps - 1):
+                    want = ref["rank_rows_losses"][k][r]
+                    if abs(res["losses"][k] - want) > LOSS_RTOL * want:
+                        failures.append((name, r, k, res["losses"][k], want))
+            rows.append({k: res.get(k) for k in (
+                "coords", "device", "losses", "n_params",
+                "local_param_bytes", "max_memory_allocated_bytes",
+                "save_blocking_ms", "wait_ms", "restore_ms", "launches")})
+            rows[-1]["step_ms_median"] = statistics.median(
+                res["step_s"][min(2, steps - 1):]) * 1e3
+            rows[-1]["step_s"] = res["step_s"]
+        rows[0]["profile"] = results[0]["profile"]
+        summary[name] = rows
+        if name != "fsdp4_resumed":
+            for k in (0, steps - 1):
+                mean = statistics.mean(res["losses"][k] for res in results)
+                want = ref["losses"][k]
+                if abs(mean - want) > LOSS_RTOL * want:
+                    failures.append((name, "mean", k, mean, want))
+    summary["checkpoint_bytes_on_disk"] = sum(
+        p.stat().st_size for p in (tmp_path / "ckpt").rglob("*")
+        if p.is_file())
+    summary["nvidia_smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print("FSDP4 " + json.dumps(summary))
+    assert not failures, failures
+    assert rows_alone_gap > LOSS_RTOL, summary["global_batch_one_card"]

@@ -56,7 +56,10 @@ def test_imports_with_jax_and_triton_blocked():
             "horovod_tpu_torch.parallel.mesh, "
             "horovod_tpu_torch.parallel.primitives, "
             "horovod_tpu_torch.parallel.sequence, "
-            "horovod_tpu_torch.parallel.pipeline\n"
+            "horovod_tpu_torch.parallel.pipeline, "
+            "horovod_tpu_torch.parallel.fsdp, horovod_tpu_torch.checkpoint, "
+            "horovod_tpu_torch.callbacks, horovod_tpu_torch.runner.launch, "
+            "horovod_tpu_torch.runner.config_parser\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

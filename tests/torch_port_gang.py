@@ -199,7 +199,7 @@ res["allgather_ragged"] = enc(hvt.allgather(rag[:r + 1]))
 res["allgather_int"] = enc(hvt.allgather(D["z"][:r + 1]))
 res["allgather_bf16"] = enc(hvt.allgather(D["ints"][:r + 1].bfloat16()))
 res["grouped_allgather"] = enc(hvt.grouped_allgather([x, rag[:r + 1]]))
-res["alltoall"] = enc(hvt.alltoall(x)[0])
+res["alltoall"] = enc(hvt.alltoall(x))
 got, recv = hvt.alltoall(a2a[:sum(G.splits(n, r))], splits=G.splits(n, r))
 res["alltoall_splits"], res["alltoall_recv_splits"] = enc(got), recv.tolist()
 res["reducescatter_avg"] = enc(hvt.reducescatter(x))
