@@ -106,9 +106,27 @@ Phases, each of which exits non-zero on a failure:
    path's GPT on cuda:0 through train.train; it must exit 0, see the
    launcher's HVT_* identity, report losses within 1e-2 of the main path's
    first two and 24 launches of each sm90 kernel, none SIMT.
-14. summary: one JSON line listing the kernels (launches on the main path,
-   the accumulation, sequence, checkpoint, fsdp and launch phases), the
-   nvidia-smi line, and last the {"ok": true, ...} line.
+14. elastic: the main path's GPT, built through the entry points, trains
+   under @hvt.elastic.run with hvt.elastic.TorchState(model=...,
+   optimizer=DistributedOptimizer(AdamW), batch=0), committing after every
+   step: 7 steps unbroken, then 7 from the same seed with
+   HorovodInternalError raised once after step 5's backward, before its
+   commit. The loop must restore commit 4, reset (shutdown, then init on
+   cuda:0), sync and resume; steps 5-7 must give the unbroken run's losses
+   bit for bit, and all seven must be within 1e-2 of the main path's. Commit
+   ms, the device bytes the snapshot holds and a commit adds at its peak,
+   restore ms, the recovery's phases (restore, rendezvous, reinit,
+   rebuild), and 12 launches a step of each sm90 kernel, none SIMT.
+15. elastic launch: python -m horovod_tpu_torch.runner.launch -np 1
+   --min-np 1 --host-discovery-script ... runs
+   tests/torch_port_elastic_worker.py (the same GPT on cuda:0, rows from an
+   ElasticSampler), which sends itself one SIGTERM after commit 2: it must
+   raise HostsUpdatedInterrupt at commit 3, re-rendezvous into round 2 on
+   cuda:0 and finish every row of the epoch exactly once; the rounds and
+   the seconds to the worker's result.
+16. summary: one JSON line listing the kernels (launches on the main path,
+   the accumulation, sequence, checkpoint, fsdp, launch and elastic
+   phases), the nvidia-smi line, and last the {"ok": true, ...} line.
 """
 
 import json
@@ -199,6 +217,11 @@ SLEEP_CYCLES = 100_000_000   # about 50 ms of the card's clock
 MAIN_LAYERS = 12
 # the checkpoint phase: save at this step, then as many more
 CKPT_AT = 3
+# the elastic phase: steps of each run, and the step whose commit fails
+ELASTIC_STEPS, ELASTIC_FAIL_AT = 7, 5
+# the elastic launch: rows of the epoch (ELASTIC_LAUNCH_STEPS batches of
+# MAIN_SHAPE[0] rows) and the commit after which the worker is preempted
+ELASTIC_LAUNCH_STEPS, ELASTIC_SIGTERM_AFTER = 6, 2
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1259,6 +1282,196 @@ def launch_phase(main_losses):
     return res["launches"]
 
 
+def _cuda_bytes(tree):
+    """Bytes of the CUDA tensors in a nest of dicts, lists and tuples."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size() if tree.is_cuda else 0
+    if isinstance(tree, dict):
+        return sum(_cuda_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_cuda_bytes(v) for v in tree)
+    return 0
+
+
+def elastic_phase(hvt, K, main_losses):
+    """The main path's GPT under @hvt.elastic.run with TorchState, a commit
+    after every step: an unbroken run, then one whose step ELASTIC_FAIL_AT
+    raises HorovodInternalError after its backward, before its commit. The
+    loop restores the last commit, resets (shutdown and init on cuda:0),
+    syncs and resumes; the resumed steps repeat the unbroken run's losses
+    bit for bit. Returns the launch counts of both runs."""
+    import importlib
+
+    import torch
+
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.train import (gpt_config, make_train_step,
+                                         seeded_tokens)
+
+    erun = importlib.import_module("horovod_tpu_torch.elastic.run")
+    hvt.init()                  # a one-process NCCL world on cuda:0
+    cfg = gpt_config("bench", use_flash=True, dtype=torch.bfloat16)
+    tokens = seeded_tokens(cfg, MAIN_SHAPE[0], cfg.max_seq_len, seed=0)
+
+    def run(fail_at):
+        model = GPT(cfg, device=hvt.device(), seed=0)
+        opt = hvt.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=1e-4, weight_decay=1e-4))
+        step = make_train_step(model, opt)
+        rec = {"losses": {}, "commit_ms": [], "restore_ms": [],
+               "devices": [], "failed_loss": None}
+
+        class TimedState(hvt.elastic.TorchState):
+            def restore(self):
+                t0 = time.perf_counter()
+                super().restore()
+                torch.cuda.synchronize()
+                rec["restore_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["restored_batch"] = self.batch
+
+        state = TimedState(model=model, optimizer=opt, batch=0)
+
+        @hvt.elastic.run
+        def train(state):
+            rec["devices"].append(str(hvt.device()))
+            while state.batch < ELASTIC_STEPS:
+                loss = float(step(tokens))          # waits for the card
+                if state.batch + 1 == fail_at and \
+                        rec["failed_loss"] is None:
+                    rec["failed_loss"] = loss
+                    raise hvt.HorovodInternalError(
+                        f"injected after step {fail_at}'s backward")
+                state.batch += 1
+                rec["losses"][state.batch] = loss
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                state.commit()
+                rec["commit_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["commit_peak_adds_bytes"] = \
+                    torch.cuda.max_memory_allocated() - base
+            return state.batch
+
+        t0 = time.perf_counter()
+        n_recoveries = len(erun.recoveries)
+        train(state)
+        rec["seconds"] = time.perf_counter() - t0
+        rec["recoveries"] = erun.recoveries[n_recoveries:]
+        rec["snapshot_bytes"] = sum(_cuda_bytes(h._saved_state)
+                                    for h in state._handlers.values())
+        rec["losses"] = [rec["losses"][i + 1] for i in range(ELASTIC_STEPS)]
+        del model, opt, step, state
+        torch.cuda.empty_cache()
+        return rec
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    unbroken = run(fail_at=None)
+    broken = run(fail_at=ELASTIC_FAIL_AT)
+    launches = dict(K.LAUNCHES)
+    rec = broken["recoveries"]
+    phases = rec[0]["phases"] if rec else {}
+    rels = [abs(a - b) / abs(b) for a, b in zip(broken["losses"],
+                                                 main_losses)]
+    emit({"phase": "elastic", "config": "bench.py --model gpt --flash",
+          "state": "TorchState(model, DistributedOptimizer(AdamW), batch)",
+          "fail_at": ELASTIC_FAIL_AT, "unbroken_losses": unbroken["losses"],
+          "resumed_losses": broken["losses"],
+          "failed_attempt_loss": broken["failed_loss"],
+          "main_path_losses": main_losses[:ELASTIC_STEPS],
+          "rel_diff_vs_main_path": rels, "rtol": LOSS_RTOL,
+          "commit_ms": unbroken["commit_ms"],
+          "commit_ms_median": statistics.median(unbroken["commit_ms"]),
+          "snapshot_device_bytes": unbroken["snapshot_bytes"],
+          "commit_peak_adds_bytes": unbroken["commit_peak_adds_bytes"],
+          "restore_ms": broken["restore_ms"],
+          "restored_batch": broken.get("restored_batch"),
+          "recovery": rec, "reset_ms": 1e3 * sum(
+              phases.get(p, 0) for p in ("shutdown", "rendezvous",
+                                         "reinit")),
+          "sync_ms": 1e3 * phases.get("rebuild", 0),
+          "devices": broken["devices"],
+          "seconds": {"unbroken": unbroken["seconds"],
+                      "broken": broken["seconds"]},
+          "launches": launches})
+    if broken["losses"][ELASTIC_FAIL_AT - 1:] != \
+            unbroken["losses"][ELASTIC_FAIL_AT - 1:]:
+        fail(f"elastic: resumed losses {broken['losses']} are not the "
+             f"unbroken run's {unbroken['losses']} from step "
+             f"{ELASTIC_FAIL_AT}")
+    if max(rels) > LOSS_RTOL or not all(math.isfinite(x)
+                                        for x in broken["losses"]):
+        fail(f"elastic: losses {broken['losses']} are not within "
+             f"{LOSS_RTOL} of the main path's")
+    if len(rec) != 1 or rec[0]["trigger"] != "failure" or set(phases) != {
+            "abort", "restore", "shutdown", "rendezvous", "reinit",
+            "rebuild"} \
+            or broken.get("restored_batch") != ELASTIC_FAIL_AT - 1:
+        fail(f"elastic: the recovery {rec} did not restore commit "
+             f"{ELASTIC_FAIL_AT - 1}, reset and sync")
+    if set(broken["devices"]) != {"cuda:0"} or len(broken["devices"]) != 2:
+        fail(f"elastic: the loop ran on {broken['devices']}")
+    # 7 unbroken steps, then 4 + the failed one + 3 resumed
+    _sm90_only("elastic", launches, 2 * ELASTIC_STEPS + 1, MAIN_LAYERS)
+    return launches
+
+
+def elastic_launch_phase():
+    """The elastic launcher's one-card job: a SIGTERM after commit
+    ELASTIC_SIGTERM_AFTER becomes HostsUpdatedInterrupt at the next commit,
+    the worker re-rendezvouses into round 2 and finishes the epoch. Returns
+    the worker's launch counts."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_port_elastic_worker as EW
+
+    out_dir = tempfile.mkdtemp(prefix="hvt_elastic_")
+    rows = ELASTIC_LAUNCH_STEPS * MAIN_SHAPE[0]
+    try:
+        job = EW.ElasticLaunch(1, os.path.join(out_dir, "res"), {
+            "device": "cuda", "config": "bench", "rows": rows,
+            "batch": MAIN_SHAPE[0], "timeout_s": 300,
+            "sigterm_after_commit": ELASTIC_SIGTERM_AFTER},
+            min_np=1, timeout=300)
+        try:
+            lives, rounds, seconds = job.results()
+        except AssertionError as e:
+            fail(f"elastic launch: the job failed: {str(e)[-4000:]}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    a = EW.analyze(lives, rounds)
+    life = lives[0]
+    kinds = [e["kind"] for e in life["events"]]
+    updated = [e for e in life["events"] if e["kind"] == "hosts_updated"]
+    emit({"phase": "elastic_launch", "command": "python -m "
+          "horovod_tpu_torch.runner.launch -np 1 --min-np 1 "
+          "--host-discovery-script ... python "
+          "tests/torch_port_elastic_worker.py ...",
+          "seconds": seconds, "rounds": rounds,
+          "worker_start_to_first_entry_s": [
+              e["t"] for e in life["events"] if e["kind"] == "enter"][0]
+          - life["t_start"], "events": kinds,
+          "recoveries": life["recoveries"], "devices": a["devices"],
+          "losses": life["losses"], "launches": life["launches"],
+          "max_memory_allocated_bytes":
+              life.get("max_memory_allocated_bytes")})
+    counts = a["committed_counts"]
+    if len(lives) != 1 or [r["size"] for r in rounds] != [1, 1] \
+            or not updated \
+            or updated[0]["commit"] != ELASTIC_SIGTERM_AFTER + 1:
+        fail(f"elastic launch: expected one worker, rounds of one and a "
+             f"host update at commit {ELASTIC_SIGTERM_AFTER + 1}; got "
+             f"{len(lives)} lives, rounds {rounds}, events {kinds}")
+    if sorted(counts) != list(range(rows)) or set(counts.values()) != {1} \
+            or a["devices"] != ["cuda:0"] or not a["losses_finite"]:
+        fail(f"elastic launch: rows {counts}, devices {a['devices']}")
+    _sm90_only("elastic launch", life["launches"], ELASTIC_LAUNCH_STEPS,
+               MAIN_LAYERS)
+    return life["launches"]
+
+
 def main():
     import torch
 
@@ -1313,6 +1526,10 @@ def main():
     hvt.shutdown()
     torch.cuda.empty_cache()
     launch_launches = launch_phase(main_losses)
+    elastic_launches = elastic_phase(hvt, K, main_losses)
+    hvt.shutdown()
+    torch.cuda.empty_cache()
+    elastic_launch_launches = elastic_launch_phase()
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -1324,6 +1541,8 @@ def main():
          "launches_checkpoint_restored_steps": restored_launches[name],
          "launches_fsdp": fsdp_launches[name],
          "launches_launch": launch_launches[name],
+         "launches_elastic": elastic_launches[name],
+         "launches_elastic_launch": elastic_launch_launches[name],
          **timings[name]} for name in K.LAUNCHES]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -14,7 +14,9 @@ package's.
 
 Launch a job with ``python -m horovod_tpu_torch.runner.launch -np N
 python train.py``; shard a model with ``parallel.fsdp.shard_module``; save
-and resume with ``hvt.checkpoint.CheckpointManager``.
+and resume with ``hvt.checkpoint.CheckpointManager``; survive a lost card
+with ``@hvt.elastic.run`` and ``hvt.elastic.TorchState``, launched with
+``--min-np``.
 """
 
 from horovod_tpu_torch import callbacks, checkpoint
@@ -55,6 +57,7 @@ from horovod_tpu_torch.ops.sparse import (apply_sparse, sparse_allreduce,
 from horovod_tpu_torch.optimizer import (DistributedOptimizer,
                                          PartialDistributedOptimizer)
 from horovod_tpu_torch.sync_batch_norm import SyncBatchNorm
+from horovod_tpu_torch import elastic  # noqa: E402  (needs the above)
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
@@ -82,5 +85,5 @@ __all__ = [
     "sparse_allreduce", "apply_sparse", "sparse_allreduce_apply",
     "Compression", "flash_attention", "flash_attention_with_lse",
     "DistributedOptimizer", "PartialDistributedOptimizer", "SyncBatchNorm",
-    "callbacks", "checkpoint",
+    "callbacks", "checkpoint", "elastic",
 ]

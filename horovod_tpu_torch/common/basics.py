@@ -12,6 +12,13 @@ every chip of its host and ``size`` counts chips.
 joins them on a TCP store at the coordinator's address; without that env it
 starts a world of one process on an in-memory store. The backend is NCCL
 on the GPU, or gloo when the caller passes ``device="cpu"``.
+
+Elastic training (``horovod_tpu_torch.elastic``) ends a world and starts the
+next: :func:`reinit` starts it with the device and timeout of the last
+:func:`init`, and :func:`abort`, callable from any thread, marks a world
+whose peer died (on NCCL it aborts the communicators, so a collective
+blocked on that peer returns), and every later collective raises
+``HorovodInternalError``.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import torch.distributed as dist
 
 _lock = threading.Lock()
 _state = None  # the running world's _World, or None
+# the device and timeout of the last init(), which reinit() takes again
+_last_init = {"device": None, "timeout_s": 300}
 
 
 class _World:
@@ -39,6 +48,10 @@ class _World:
         self.process_sets = {}
         self.next_process_set_id = 1
         self.groups = {}
+        # the elastic rendezvous round this world belongs to, and why it
+        # was aborted (None while it is healthy)
+        self.elastic_round = os.environ.get("HVT_ELASTIC_ROUND")
+        self.aborted = None
 
 
 def _env_int(name, default):
@@ -73,6 +86,7 @@ def init(comm=None, process_sets=None, device=None, timeout_s=300):
                          "supported: process placement is owned by the "
                          "launcher (hvtrun)")
     _start(device, timeout_s)
+    _last_init.update(device=device, timeout_s=timeout_s)
     from horovod_tpu_torch.common import process_sets as _ps
 
     for ps in process_sets or ():
@@ -118,17 +132,94 @@ def _start(device, timeout_s):
         _state.process_sets[0] = global_process_set
 
 
+def reinit():
+    """Start a new world after :func:`shutdown` on the device and with the
+    timeout of the last :func:`init` (elastic training's reset). A CUDA
+    device that is gone raises; it never falls back to the CPU."""
+    init(**_last_init)
+
+
 def shutdown():
     """Destroy the process group and every process set's group; a later
-    ``init`` starts a new world with only the global set."""
+    ``init`` starts a new world with only the global set. A world that
+    :func:`abort` tore down is only forgotten: destroying a communicator
+    whose peer died can hang."""
     global _state
     with _lock:
         if _state is None:
             return
         for ps in _state.process_sets.values():
             ps.process_set_id, ps._group = None, None
-        dist.destroy_process_group()
+        if _state.aborted is None:
+            dist.destroy_process_group()
+        elif dist.is_initialized():
+            _abort_groups()
         _state = None
+
+
+def _abort_quietly(group):
+    try:
+        group.abort()
+    except Exception:
+        pass    # gone already: the group is torn down either way
+
+
+def _abort_groups():
+    """Abort every group of this process (the world and each ``new_group``)
+    and forget them. NCCL's abort ends the kernels still waiting on a peer,
+    so the host call blocked on them returns. The groups are aborted at
+    once, each from a thread of its own: one communicator's abort can wait
+    on the card until a kernel of another, still blocked on the dead peer,
+    ends (on four H100s, aborting the replication groups before the world
+    waited out the world's 300 s timeout)."""
+    c10d = dist.distributed_c10d
+    groups = list(c10d._world.pg_names)
+    threads = [threading.Thread(target=_abort_quietly, args=(g,), daemon=True)
+               for g in groups]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    # forget them: their communicators are gone
+    c10d._abort_process_group()
+
+
+def abort(reason, elastic_round=None) -> bool:
+    """Mark the running world failed because a peer died; safe from any
+    thread (the elastic driver's notification calls it). Every later
+    collective and ``State.commit()`` raises ``HorovodInternalError`` with
+    ``reason``, until ``shutdown`` and a new ``init``. With
+    ``elastic_round``, only a world of that rendezvous round is aborted.
+    Returns whether this call aborted the world.
+
+    On NCCL it also aborts the communicators at once: a kernel waiting on
+    the dead peer never ends otherwise, and the host call waiting on the
+    kernel returns once it does. A gloo collective in flight is not
+    released by an abort from another thread, and the abort would keep
+    its sockets open; gloo fails on its own when a peer's socket closes,
+    so its groups are aborted by ``shutdown`` in the thread that ran them,
+    which closes this process's sockets and fails the peers still waiting
+    on it."""
+    world = _state
+    if world is None or world.aborted is not None:
+        return False
+    if elastic_round is not None and world.elastic_round is not None \
+            and str(elastic_round) != world.elastic_round:
+        return False
+    world.aborted = str(reason)
+    if world.device.type == "cuda" and dist.is_initialized():
+        try:
+            _abort_groups()
+        except Exception:
+            pass    # already gone: the world is torn down either way
+    return True
+
+
+def aborted():
+    """Why the running world was aborted, or None while it is healthy (or
+    when no world runs)."""
+    world = _state
+    return None if world is None else world.aborted
 
 
 def is_initialized() -> bool:

@@ -10,7 +10,8 @@ calls in the same order, and a non-member's call raises ``ValueError``
 (``common/process_sets.py``). A collective that the backend fails (a peer
 lost, or one stalled past the process group's timeout) raises
 ``HorovodInternalError``, as Horovod's torch ops do; NCCL may instead abort
-the process, as its watchdog decides.
+the process, as its watchdog decides. After ``basics.abort`` every
+collective raises ``HorovodInternalError`` before it is issued.
 
 The synchronous out-of-place forms (:func:`allreduce`, :func:`allgather`,
 :func:`broadcast`, :func:`alltoall`, :func:`reducescatter`) are
@@ -82,10 +83,39 @@ def _resolve_op(op, average):
 
 
 def _collective(fn, *args, **kwargs):
+    reason = basics.aborted()
+    if reason is not None:      # basics.abort() tore the world down
+        raise HorovodInternalError(f"{fn.__name__}: the process group was "
+                                   f"aborted: {reason}")
     try:
         return fn(*args, **kwargs)
-    except RuntimeError as e:
-        raise HorovodInternalError(f"{fn.__name__} failed: {e}") from e
+    except Exception as e:
+        # an abort from another thread may fail the call in other ways
+        if isinstance(e, RuntimeError) or basics.aborted() is not None:
+            raise HorovodInternalError(f"{fn.__name__} failed: {e}") from e
+        raise
+
+
+def _wait(work):
+    """Wait for a backend ``Work``. On the CPU the wait polls, so that
+    ``basics.abort`` from another thread (the elastic driver's word that a
+    peer died) fails it at once: gloo does not release a collective in
+    flight when its group is aborted. On NCCL ``wait`` only orders the
+    current stream after the collective."""
+    if basics.device().type == "cpu":
+        delay = 1e-5
+        while not work.is_completed():
+            if basics.aborted() is not None:
+                raise HorovodInternalError(
+                    f"the process group was aborted: {basics.aborted()}")
+            time.sleep(delay)
+            delay = min(2 * delay, 1e-3)
+    work.wait()
+
+
+def _blocking(fn, *args, **kwargs):
+    """``fn`` issued asynchronously and waited for by :func:`_wait`."""
+    _collective(_wait, _collective(fn, *args, async_op=True, **kwargs))
 
 
 def _scale_(t, factor):
@@ -135,7 +165,7 @@ class Handle:
                         f"collective still pending after {timeout} s")
                 time.sleep(1e-3)
         for w in self._works:
-            _collective(w.wait)
+            _collective(_wait, w)
         self._result, self._finish, self._works = self._finish(), None, []
         return self._result
 
@@ -379,7 +409,7 @@ def _allgather_start(tensor, process_set):
                          dtype=torch.int64, device=t.device)
     shapes = torch.empty(n * (1 + _MAX_DIMS), dtype=torch.int64,
                          device=t.device)
-    _collective(dist.all_gather_into_tensor, shapes, shape, group=group)
+    _blocking(dist.all_gather_into_tensor, shapes, shape, group=group)
     shapes = shapes.view(n, 1 + _MAX_DIMS).tolist()
     rows = [s[1] for s in shapes]
     if any(s[0] != t.dim() or s[2:1 + t.dim()] != list(t.shape[1:])
@@ -540,7 +570,7 @@ def _alltoall_start(tensor, splits, process_set):
                 f"that sum to dim 0 ({t.shape[0]})")
     send = torch.tensor(splits, dtype=torch.int64, device=t.device)
     recv = torch.empty_like(send)
-    _collective(dist.all_to_all_single, recv, send, group=group)
+    _blocking(dist.all_to_all_single, recv, send, group=group)
     recv_splits = recv.tolist()
     out = t.new_empty((sum(recv_splits),) + t.shape[1:])
     work = _collective(dist.all_to_all_single, out, t,
@@ -610,10 +640,13 @@ def _reducescatter_start(tensor, op, process_set, prescale_factor,
                        op=_DIST_OP[op], group=group, async_op=True)
 
     def finish():
+        # gloo completes this work only inside its wait(), so it is waited
+        # for here and never polled
+        _collective(work.wait)
         return _scale_(_average(out, n) if op is Average else out,
                        postscale_factor)
 
-    h = Handle([work], finish)
+    h = Handle([], finish)
     h._input = buf      # alive until the collective completes
     return h
 
@@ -669,5 +702,5 @@ def grouped_reducescatter(tensors, op=None, name=None,
 
 def barrier(process_set=global_process_set):
     """Block until every member of the set reaches this call."""
-    _collective(dist.barrier, group=process_set.group())
+    _blocking(dist.barrier, group=process_set.group())
 

@@ -71,6 +71,14 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                                  **self._hvt_reduce_kwargs)
         self._hvt_synchronized = True
 
+    def load_state_dict(self, state_dict):
+        """Load the inner optimizer's state. The passes an unfinished
+        ``backward_passes_per_step`` update holds belong to the state being
+        replaced (an elastic restore rolls back to a commit), so they go."""
+        self._hvt_acc, self._hvt_passes = {}, 0
+        self._hvt_synchronized = False
+        super(self.__class__, self).load_state_dict(state_dict)
+
     @contextlib.contextmanager
     def skip_synchronize(self):
         """``step()`` inside this block does not reduce: for Horovod's

@@ -14,6 +14,12 @@ _KEYS = {
     "verbose": "verbose",
     "master-port": "master_port",
     "ssh-port": "ssh_port",
+    "min-np": "min_np",
+    "max-np": "max_np",
+    "host-discovery-script": "host_discovery_script",
+    "reset-limit": "reset_limit",
+    "elastic-timeout": "elastic_timeout",
+    "slots": "slots",
 }
 
 

@@ -13,6 +13,16 @@ to fail stops the rest, and the launcher exits 1.
 
 Each process drives the card of its local rank, so a host runs at most as
 many slots as it has cards (``-np`` on one host, or ``host:slots``).
+
+``--min-np`` or ``--host-discovery-script`` make the job elastic (the JAX
+package's ``_run_elastic``, Horovod's ``launch.py:619``): an
+``ElasticDriver`` and its rendezvous server run here, one worker per
+discovered slot is started, and a worker's death or a host change starts a
+new rendezvous round, each on a TCP store port probed free for it. The
+workers train under ``@hvt.elastic.run``::
+
+    python -m horovod_tpu_torch.runner.launch -np 4 --min-np 2 --max-np 4 \\
+        --host-discovery-script ./discover.sh python train.py
 """
 
 from __future__ import annotations
@@ -47,6 +57,22 @@ def parse_args(argv=None):
     p.add_argument("--master-port", type=int, default=29510,
                    help="the TCP store's port on the first host")
     p.add_argument("--ssh-port", type=int, default=22)
+    elastic = p.add_argument_group(
+        "elastic", "fault-tolerant launch (Horovod's launch.py:392 "
+        "--min-np/--max-np/--host-discovery-script)")
+    elastic.add_argument("--min-np", type=int, default=None,
+                         help="minimum world size; enables elastic mode")
+    elastic.add_argument("--max-np", type=int, default=None,
+                         help="maximum world size (default: -np)")
+    elastic.add_argument("--host-discovery-script", default=None,
+                         help="executable printing one 'host:slots' per "
+                              "line; polled every second")
+    elastic.add_argument("--reset-limit", type=int, default=None,
+                         help="max re-rendezvous rounds before failing")
+    elastic.add_argument("--elastic-timeout", type=float, default=600.0,
+                         help="seconds to wait for min-np slots")
+    elastic.add_argument("--slots", type=int, default=1,
+                         help="default slots per discovered host")
     p.add_argument("--config-file", default=None,
                    help="YAML file supplying any of these flags; explicit "
                         "CLI flags win")
@@ -107,6 +133,114 @@ def build_commands(args, slots, master_addr, base_env=None):
     return cmds
 
 
+def round_master_port(first_host, round_, base) -> int:
+    """The TCP store port of an elastic round whose rank 0 runs on
+    ``first_host``. A store of an older round can still hold its port, so
+    each round gets another: one probed free now on this host, else (a
+    host this process cannot probe) ``base`` rotated by the round."""
+    if _is_local(first_host):
+        with socket.socket() as s:
+            s.bind(("", 0))
+            return s.getsockname()[1]
+    return base + round_ % 2048
+
+
+def _run_elastic(args) -> int:
+    """Elastic launch: an ElasticDriver and its rendezvous server here, one
+    training subprocess per assigned slot, a new round on a failure or a
+    host change. Every child is stopped when the job ends."""
+    import json
+    import threading
+
+    from horovod_tpu_torch.runner.elastic.discovery import (
+        FixedHostDiscovery, HostDiscoveryScript)
+    from horovod_tpu_torch.runner.elastic.driver import ElasticDriver
+    from horovod_tpu_torch.runner.elastic.settings import ElasticSettings
+    from horovod_tpu_torch.runner.http_server import RendezvousServer
+
+    if args.host_discovery_script:
+        discovery = HostDiscoveryScript(args.host_discovery_script,
+                                        default_slots=args.slots)
+    elif args.hosts:
+        discovery = FixedHostDiscovery(args.hosts)
+    else:
+        discovery = FixedHostDiscovery(f"localhost:{args.num_proc}")
+    settings = ElasticSettings(
+        min_np=args.min_np or args.num_proc,
+        max_np=args.max_np or args.num_proc,
+        elastic_timeout=args.elastic_timeout,
+        reset_limit=args.reset_limit, verbose=args.verbose)
+
+    rendezvous = RendezvousServer(
+        lambda slots, round_: round_master_port(slots[0].hostname, round_,
+                                                args.master_port),
+        verbose=args.verbose)
+    rendezvous_port = rendezvous.start()
+    children = set()
+    children_lock = threading.Lock()
+
+    def create_worker(slot):
+        # a remote worker reaches the rendezvous on this host
+        drv = "127.0.0.1" if _is_local(slot.hostname) \
+            else socket.gethostname()
+        world = rendezvous.world
+        mh = world.get("master_host") or slot.hostname
+        master = "127.0.0.1" if _is_local(slot.hostname) and _is_local(mh) \
+            else mh
+        env = slot_env(dict(os.environ), slot, args, master)
+        env["HVT_COORDINATOR_ADDR"] = f"{master}:{world['master_port']}"
+        env.update({
+            "HVT_ELASTIC": "1",
+            "HVT_ELASTIC_ROUND": str(world["round"]),
+            "HVT_ELASTIC_NOTIFY_ADDR": f"{drv}:{rendezvous_port}",
+            "HVT_RENDEZVOUS_ADDR": f"{drv}:{rendezvous_port}"})
+        # the driver aborts a dead peer's survivors itself; NCCL's watchdog
+        # must then clean up (2) rather than kill the survivor (1, 3)
+        env.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "2")
+        if _is_local(slot.hostname):
+            cmd = list(args.command)
+        else:
+            cmd = _ssh_command(env, slot.hostname, args.ssh_port,
+                               args.command)
+            env = dict(os.environ)
+        child = safe_exec.Child(cmd, env, tag=slot.rank)
+        with children_lock:
+            children.add(child)
+        try:
+            return child.wait()
+        finally:
+            with children_lock:
+                children.discard(child)
+
+    def terminate_children():
+        with children_lock:
+            live = list(children)
+        for c in live:
+            c.terminate()
+
+    driver = ElasticDriver(rendezvous, discovery, settings,
+                           create_worker_fn=create_worker,
+                           on_stop=terminate_children)
+    try:
+        driver.start(args.num_proc)
+        driver.wait()
+    finally:
+        terminate_children()
+        rendezvous.stop()
+    print("[launch] elastic rounds: " + json.dumps(driver.rounds),
+          file=sys.stderr)
+    if driver.error:
+        print(f"[launch] elastic job failed: {driver.error}",
+              file=sys.stderr)
+        return 1
+    bad = {r: rc for r, rc in driver.get_results().items() if rc != 0}
+    if bad:
+        print(f"[launch] ranks failed: {sorted(bad.items())}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def check_build(verbose: bool = False) -> int:
     """Print what this installation can do (``horovodrun --check-build``):
     the framework, the backends torch.distributed has, and whether the
@@ -132,6 +266,7 @@ Available Frameworks:
 
 Available Controllers:
     [X] TCP store (HVT_COORDINATOR_ADDR)
+    [X] Elastic HTTP rendezvous (--min-np, --host-discovery-script)
 
 Available Tensor Operations:
     [{mark(basics.nccl_built())}] NCCL
@@ -154,6 +289,8 @@ def main(argv=None) -> int:
     if args.num_proc is None:
         print("launch: error: -np/--num-proc is required", file=sys.stderr)
         return 2
+    if args.min_np is not None or args.host_discovery_script:
+        return _run_elastic(args)
     if args.hostfile:
         hosts = parse_hostfile(args.hostfile)
     elif args.hosts:

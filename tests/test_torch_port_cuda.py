@@ -673,3 +673,118 @@ def test_nccl_fsdp_sharded_steps_and_checkpoint(cuda, tmp_path):
     print("FSDP4 " + json.dumps(summary))
     assert not failures, failures
     assert rows_alone_gap > LOSS_RTOL, summary["global_batch_one_card"]
+
+
+ELASTIC_CARDS, ELASTIC_BATCH = 4, 8
+# rows of the epoch: 3 commits at 4 cards, then 3 cards, then 4 again; 1152
+# splits over 4 and over 3 at every step of those rounds (no padding), so
+# every row is committed exactly once
+ELASTIC_ROWS, ELASTIC_KILL_AFTER, ELASTIC_GROW_AFTER = 1152, 3, 2
+ELASTIC_REPLICATED_STEPS = 4
+
+
+def _elastic_summary(lives, rounds, seconds):
+    """The ELASTIC4 numbers of one job: kill → HorovodInternalError per
+    survivor, each survivor's recovery phases, the grow round, step ms by
+    world size in order, commit ms and peak memory per card."""
+    import statistics
+
+    import torch_port_elastic_worker as EW
+
+    a = EW.analyze(lives, rounds)
+    phases, steps = {}, []
+    for life in lives:
+        for r in life["recoveries"]:
+            phases.setdefault(f"slot{life['slot']}", []).append(r)
+        if life["slot"] == 0:
+            for size, s in life["step_s"]:
+                if not steps or steps[-1][0] != size:
+                    steps.append((size, []))
+                steps[-1][1].append(s * 1e3)
+    commits = [e for life in lives for e in life["events"]
+               if e["kind"] == "commit"]
+    return a, {
+        "seconds": seconds, "rounds": [(r["round"], r["size"])
+                                       for r in rounds],
+        "kill_to_internal_error_s": a["kill_to_internal_error_s"],
+        "recoveries": phases,
+        "grow_written_to_resumed_s": a.get("grow_written_to_resumed_s"),
+        "fresh_worker_start_to_entry_s": a.get("fresh_start_to_enter_s"),
+        "step_ms_median_by_world": [
+            (size, statistics.median(ms[1:] or ms), len(ms))
+            for size, ms in steps],
+        "commit_ms_median": statistics.median(e["ms"] for e in commits),
+        "commit_payload_bytes": max((e.get("payload_bytes", 0)
+                                     for e in commits), default=0),
+        "commit_shard_bytes_held": max((e.get("shard_bytes", 0)
+                                        for e in commits), default=0),
+        "max_memory_allocated_bytes": {
+            f"slot{life['slot']}.{life['pid']}":
+                life.get("max_memory_allocated_bytes") for life in lives}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["torch_state", "replicated"])
+def test_nccl_elastic_kill_shrink_grow(cuda, tmp_path, case):
+    """Elastic training of the full-width GPT (bench.py --model gpt
+    --flash) on four cards, launched by the port's elastic launcher
+    (``-np 4 --min-np 2 --max-np 4 --host-discovery-script``, worker
+    tests/torch_port_elastic_worker.py). ``torch_state``: TorchState, rows
+    from an ElasticSampler over a seeded dataset; after commit 3 the worker
+    of slot 3 rewrites the discovery to ``localhost:3`` and SIGKILLs
+    itself; the driver aborts the survivors' NCCL communicators, each
+    survivor gets HorovodInternalError, restores commit 3 and trains at
+    size 3; rank 0 then writes ``localhost:4`` back, and at the next commit
+    the survivors re-rendezvous with a fresh worker on cuda:3 that sync()
+    brings to rank 0's state. Held: every row committed exactly once, one
+    parameter digest on every rank after each sync, each survivor's state
+    after the restore bit for bit its commit-3 state, finite losses, ranks
+    kept by slot. ``replicated``: ReplicatedTorchState; the killed slot is
+    respawned and rebuilds its lineage from its peer's shard, bit for bit.
+    Each case prints one ELASTIC4 JSON line (run with -s)."""
+    import json
+    import subprocess
+
+    import torch_port_elastic_worker as EW
+
+    if torch.cuda.device_count() < ELASTIC_CARDS:
+        pytest.skip(f"needs {ELASTIC_CARDS} CUDA devices")
+    args = dict(device="cuda", config="bench", batch=ELASTIC_BATCH,
+                timeout_s=120, rows=ELASTIC_ROWS)
+    if case == "torch_state":
+        args.update(kill={"slot": 3, "after_commit": ELASTIC_KILL_AFTER,
+                          "hosts": "localhost:3"},
+                    grow={"after_commit": ELASTIC_GROW_AFTER,
+                          "hosts": "localhost:4"})
+    else:
+        args.update(state="replicated", steps=ELASTIC_REPLICATED_STEPS,
+                    kill={"slot": 3, "after_commit": ELASTIC_KILL_AFTER})
+    job = EW.ElasticLaunch(ELASTIC_CARDS, str(tmp_path / case), args,
+                           min_np=2, timeout=900)
+    a, summary = _elastic_summary(*job.results())
+    summary["nvidia_smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print("ELASTIC4 " + json.dumps({case: summary}))
+
+    assert sorted(a["kill_to_internal_error_s"]) == [0, 1, 2]
+    assert all(0 < s < 60 for s in a["kill_to_internal_error_s"].values())
+    assert all(a["params_agree"].values()) and a["losses_finite"]
+    assert a["opt_set_sizes_match"]
+    for ranks in a["round_ranks"]:
+        assert all(rank == int(key.split("/")[1])
+                   for key, rank in ranks.items()), ranks
+    if case == "replicated":
+        assert a["round_sizes"] == [4, 4], a["round_sizes"]
+        assert a["fresh_equals_killed"], a
+        assert a["fresh_last_recovery"]["outcome"] == "peer"
+        return
+    sizes = a["round_sizes"]
+    assert sizes[0] == 4 and 3 in sizes and sizes[-1] == 4, sizes
+    assert sizes.index(3) < len(sizes) - 1
+    assert sorted(a["committed_counts"]) == list(range(ELASTIC_ROWS))
+    assert set(a["committed_counts"].values()) == {1}
+    assert a["restored_equals_commit"] == {0: True, 1: True, 2: True}
+    assert a["devices_by_slot"] == {i: [f"cuda:{i}"]
+                                    for i in range(ELASTIC_CARDS)}

@@ -59,7 +59,13 @@ def test_imports_with_jax_and_triton_blocked():
             "horovod_tpu_torch.parallel.pipeline, "
             "horovod_tpu_torch.parallel.fsdp, horovod_tpu_torch.checkpoint, "
             "horovod_tpu_torch.callbacks, horovod_tpu_torch.runner.launch, "
-            "horovod_tpu_torch.runner.config_parser\n"
+            "horovod_tpu_torch.runner.config_parser, "
+            "horovod_tpu_torch.elastic, horovod_tpu_torch.elastic.run, "
+            "horovod_tpu_torch.elastic.preemption, "
+            "horovod_tpu_torch.runner.http_server, "
+            "horovod_tpu_torch.runner.http_client, "
+            "horovod_tpu_torch.runner.elastic.driver, "
+            "horovod_tpu_torch.runner.elastic.notification\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
