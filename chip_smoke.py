@@ -124,8 +124,20 @@ Phases, each of which exits non-zero on a failure:
    raise HostsUpdatedInterrupt at commit 3, re-rendezvous into round 2 on
    cuda:0 and finish every row of the epoch exactly once; the rounds and
    the seconds to the worker's result.
-16. summary: one JSON line listing the kernels (launches on the main path,
-   the accumulation, sequence, checkpoint, fsdp, launch and elastic
+16. observe: the main path's 7 steps through train.train with
+   hvt.start_timeline, metrics.serve(0) and callbacks.MetricsCallback, in
+   turns with plain runs (plain, observed, observed, plain), then once with
+   the timeline's torch.profiler session: losses bit for bit the main
+   path's, 12 launches a step of each sm90 kernel (and 12 of each in the
+   profiler's trace), every grouped allreduce timed by CUDA events (a
+   histogram observation and a NCCL_ span on the timeline each), a scrape
+   of /metrics holding hvt_train_* and the latency, join() = 0 and nothing
+   pending after the last step; the host µs that timing one collective
+   adds; then the step captured in a CUDA graph with and without the
+   timeline: the same replayed losses bit for bit, the capture counted once
+   in hvt_traced_collectives_total and not timed.
+17. summary: one JSON line listing the kernels (launches on the main path,
+   the observe, accumulation, sequence, checkpoint, fsdp, launch and elastic
    phases), the nvidia-smi line, and last the {"ok": true, ...} line.
 """
 
@@ -213,6 +225,12 @@ TOL_STEM = {"float32": 1e-4, "bfloat16": 2e-2}
 PROFILE_STEPS, PROFILE_TOP = 2, 12
 LOSS_RTOL = 1e-2
 SLEEP_CYCLES = 100_000_000   # about 50 ms of the card's clock
+MARK_CYCLES = 1_000          # a marker kernel in a profile
+# torch.profiler on the GPU machine can lose a run of device records at a
+# session's start (PERF.md §7): a session whose marker kernels are not all
+# in its records is discarded and run again, at most PROFILE_SESSIONS times
+# in all
+PROFILE_SESSIONS = 3
 # bench.py's GPT has 12 layers: a step launches each flash kernel 12 times
 MAIN_LAYERS = 12
 # the checkpoint phase: save at this step, then as many more
@@ -597,27 +615,63 @@ def _category(kernel_name):
     return "other"
 
 
+def _markers(names):
+    """Positions of the marker kernels in a profile's device records."""
+    return [i for i, n in enumerate(names) if "spin_kernel" in n]
+
+
+def _discarded(what, session, seen, want, records):
+    """Reports a profiler session discarded for a lost marker, or fails
+    when it was the last one allowed."""
+    msg = (f"{what}: {seen} of the {want} marker kernels in the profile's "
+           f"{records} device records (session {session} of "
+           f"{PROFILE_SESSIONS}); the records lost at its start reach past "
+           f"the first marker")
+    if session == PROFILE_SESSIONS:
+        fail(msg)
+    emit({"phase": "profile_session_discarded", "what": what,
+          "session": session, "markers_seen": seen, "markers": want,
+          "device_records": records})
+
+
 def device_time(run, count, unit_s):
     """Device time of ``count`` calls of ``run`` (each ends in a device
     sync) under torch.profiler: busy ms per call, ms per call by kernel
     category and by kernel name, and the idle share twice (of the
     profiled window, and of the unprofiled median call ``unit_s``, since
     profiling slows the host). None when the profiler saw no device
-    events."""
+    events. The profiler on that machine can lose the records at the
+    start of a session (tools/observe_probe.py; PERF.md §7), so one call
+    runs first, and only the records between two marker kernels, which
+    enclose the ``count`` calls, are read; a session that lost a marker is
+    run again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(count):
+    for session in range(1, PROFILE_SESSIONS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             run()
+            torch.cuda._sleep(MARK_CYCLES)
+            for _ in range(count):
+                run()
+            torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+        records = sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)),
+            key=lambda e: e.time_range.start)
+        if not records:
+            return None
+        marks = _markers([e.name for e in records])
+        if len(marks) == 2:
+            break
+        _discarded(f"profile of {count} calls", session, len(marks), 2,
+                   len(records))
     # device activity: kernels, copies and sets, but not the annotation
     # ranges (e.g. "Optimizer.step#AdamW.step") that overlap them
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    if not kernels:
-        return None
+    kernels = records[marks[0] + 1:marks[1]]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, spans[0][0]
     for a, b in spans:                       # union of kernel intervals
@@ -676,6 +730,231 @@ def profile_phase(model, optimizer, cfg, batch, seq, step_s, launches):
               prof["idle_share_of_profiled_window"],
           "idle_share_of_step": prof["idle_share_unprofiled"],
           "top_kernels_ms_per_step": [[n[:90], t] for n, t in top]})
+
+
+def _latency(op):
+    """(sum in seconds, count) of hvt_collective_latency_seconds{op} on the
+    global set, after the drainer resolved every CUDA event pair."""
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.utils import timeline
+
+    if not timeline.drainer.flush():
+        fail("observe: the drainer left CUDA event pairs unresolved")
+    fam = metrics.registry().get("hvt_collective_latency_seconds")
+    if fam is None:
+        return 0.0, 0
+    _, total, count = fam.labels(op=op, process_set="global").snapshot()
+    return total, count
+
+
+def _traced(op):
+    from horovod_tpu_torch import metrics
+
+    fam = metrics.registry().get("hvt_traced_collectives_total")
+    return 0 if fam is None else fam.labels(op=op).value
+
+
+def _profiler_kernel_names(path):
+    """Names of the kernels in a torch.profiler Chrome trace, in order of
+    start."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e.get("ts", 0))
+    return [e.get("name", "") for e in kernels]
+
+
+def _profiler_kernels(names):
+    """Kernel launches by flash category."""
+    counts = {}
+    for name in names:
+        cat = _category(name)
+        counts[cat] = counts.get(cat, 0) + 1
+    return counts
+
+
+def _instrumentation_us(hvt, calls=1000):
+    """Host µs that counting and timing one collective adds on CUDA
+    (``collective_ops._begin`` and ``_end``: a histogram child, two CUDA
+    event records, the pair handed to the drainer), per call."""
+    import torch
+
+    from horovod_tpu_torch.ops import collective_ops as C
+
+    x = torch.zeros(1, device=hvt.device())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        C._end(C._begin("allreduce", hvt.global_process_set, x))
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def observe_phase(hvt, K, main_losses, main_step_s):
+    """The main path's steps with the observability plane on: the GPT
+    through train.train with a timeline recording, /metrics served and
+    MetricsCallback, in turns with plain runs (plain, observed, observed,
+    plain), then once with the timeline's torch.profiler session; then the
+    step captured in a CUDA graph with and without the timeline. Returns
+    the launch counts of the profiled run."""
+    import urllib.request
+
+    import torch
+
+    from horovod_tpu_torch import bench, metrics
+    from horovod_tpu_torch.callbacks import MetricsCallback
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.train import (gpt_config, make_train_step,
+                                         seeded_tokens, train)
+    from horovod_tpu_torch.utils import timeline
+
+    hvt.init()                  # a one-process NCCL world on cuda:0
+    cfg = gpt_config("bench", use_flash=True, dtype=torch.bfloat16)
+    batch, seq = MAIN_SHAPE[0], cfg.max_seq_len
+    steps = STEPS_WARMUP + STEPS_TIMED
+    op = "grouped_allreduce"     # DistributedOptimizer's one collective
+    out_dir = tempfile.mkdtemp(prefix="hvt_observe_")
+    port = metrics.serve(0)
+    out = {"main_path_step_ms_median": main_step_s * 1e3,
+           "instrumentation_host_us_per_collective":
+               _instrumentation_us(hvt), "plain_step_ms_median": []}
+    try:
+        for name, profiler in (("plain", None),
+                               ("timeline_metrics", False),
+                               ("timeline_metrics_2", False),
+                               ("plain", None),
+                               ("timeline_metrics_profiler", True)):
+            if profiler is None:    # the same steps, no timeline or scrape
+                res = train(cfg, steps, batch, seq, seed=0)
+                out["plain_step_ms_median"].append(statistics.median(
+                    res["step_s"][STEPS_WARMUP:]) * 1e3)
+                del res
+                torch.cuda.empty_cache()
+                continue
+            path = os.path.join(out_dir, name + ".json")
+            for session in range(1, PROFILE_SESSIONS + 1):
+                before = _latency(op)
+                hvt.start_timeline(path, profiler=profiler)
+                if profiler:        # a lost marker: a lost prefix
+                    torch.cuda._sleep(MARK_CYCLES)
+                K.reset_launches()
+                res = train(cfg, steps, batch, seq, seed=0,
+                            callbacks=MetricsCallback())
+                launches = dict(K.LAUNCHES)
+                pending = hvt.diagnostics()["pending"]
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/metrics",
+                        timeout=30) as resp:
+                    text = resp.read().decode()
+                scrape_ms = (time.perf_counter() - t0) * 1e3
+                last = hvt.join()
+                hvt.stop_timeline()
+                after = _latency(op)
+                if not profiler:
+                    break
+                ppath = timeline.profiler_trace_path(path)
+                names = _profiler_kernel_names(ppath)
+                if len(_markers(names)) == 1:
+                    break
+                _discarded(f"observe {name}", session, len(_markers(names)),
+                           1, len(names))
+            events = timeline.load_trace(path)
+            spans = [e for e in events
+                     if e.get("name") == "NCCL_GROUPED_ALLREDUCE"]
+            row = {"losses": res["loss"],
+                   "step_ms_median": statistics.median(
+                       res["step_s"][STEPS_WARMUP:]) * 1e3,
+                   "launches": launches, "scrape_ms": scrape_ms,
+                   "scrape_bytes": len(text), "join": last,
+                   "pending_after_last_step": pending,
+                   "trace_bytes": os.path.getsize(path),
+                   "trace_events": len(events),
+                   "device_spans": len(spans),
+                   "device_span_ms": [e["dur"] / 1e3 for e in spans],
+                   "histogram_count": after[1] - before[1],
+                   "histogram_ms": (after[0] - before[0]) * 1e3}
+            if res["loss"] != main_losses:
+                fail(f"observe {name}: losses {res['loss']} are not the "
+                     f"main path's {main_losses} bit for bit")
+            _sm90_only(f"observe {name}", launches, steps, MAIN_LAYERS)
+            if last != 0 or pending:
+                fail(f"observe {name}: join() gave {last}, pending after "
+                     f"the last step {pending}")
+            if row["histogram_count"] != steps or len(spans) != steps \
+                    or any(e["args"]["clock"] != "cuda_event"
+                           or e["dur"] < 0 for e in spans):
+                fail(f"observe {name}: {row['histogram_count']} latencies "
+                     f"and {len(spans)} device spans of {op} in {steps} "
+                     f"steps: {spans[:2]}")
+            want = f'hvt_train_metric{{metric="loss"}} '
+            if want + repr(res["loss"][-1]) not in text \
+                    or "hvt_train_epochs_total" not in text \
+                    or f'hvt_collective_latency_seconds_count{{op="{op}",' \
+                    not in text:
+                fail(f"observe {name}: /metrics lacks the train metrics or "
+                     f"the {op} latency:\n{text[:2000]}")
+            if profiler:
+                row["profiler_sessions"] = session
+                row["profiler_trace_bytes"] = os.path.getsize(ppath)
+                row["profiler_kernels"] = kernels = \
+                    _profiler_kernels(names)
+                for kern in FLASH_KERNELS:
+                    n = kernels.get(kern, 0)
+                    if n != (MAIN_LAYERS * steps if kern.endswith("_sm90")
+                             else 0):
+                        fail(f"observe: the profiler's trace has {n} "
+                             f"{kern} kernels in {steps} steps")
+            out[name] = row
+            del res
+            torch.cuda.empty_cache()
+        observed = [out[k]["step_ms_median"] for k in ("timeline_metrics",
+                                                       "timeline_metrics_2")]
+        out["observed_minus_plain_ms"] = (statistics.mean(observed)
+                                          - statistics.mean(
+                                              out["plain_step_ms_median"]))
+        # the step captured in a CUDA graph, with and without the timeline:
+        # the capture counts its collective once and times none, and the
+        # replayed losses are the same bit for bit
+        captured = {}
+        for name in ("plain", "timeline"):
+            model = GPT(cfg, device=hvt.device(), seed=0)
+            opt = hvt.DistributedOptimizer(torch.optim.AdamW(
+                model.parameters(), lr=1e-4, weight_decay=1e-4,
+                capturable=True))
+            step = make_train_step(model, opt)
+            tokens = seeded_tokens(cfg, batch, seq, seed=0)
+            if name == "timeline":
+                hvt.start_timeline(os.path.join(out_dir, "capture.json"),
+                                   profiler=False)
+            traced, timed = _traced(op), _latency(op)[1]
+            replay = bench.capture_step(step, tokens, model, opt)
+            losses = [float(replay()) for _ in range(steps)]
+            captured[name] = {
+                "losses": losses, "traced": _traced(op) - traced,
+                "timed": _latency(op)[1] - timed}
+            if name == "timeline":
+                hvt.stop_timeline()
+            del model, opt, step, replay
+            torch.cuda.empty_cache()
+        out["captured"] = captured
+        if captured["plain"]["losses"] != captured["timeline"]["losses"]:
+            fail(f"observe: the replayed losses changed with the timeline "
+                 f"on: {captured}")
+        for name, c in captured.items():
+            # the warm-up steps run eagerly and are timed; the capture is
+            # counted once and not timed
+            if c["traced"] != 1 \
+                    or c["timed"] != bench.CAPTURE_WARMUP_STEPS:
+                fail(f"observe: capture {name} counted {c['traced']} "
+                     f"traced and {c['timed']} timed {op}")
+    finally:
+        hvt.stop_timeline()
+        metrics.stop_server()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "observe", "config": "bench.py --model gpt --flash",
+          "batch": batch, "seq": seq, "steps": steps,
+          "nvidia_smi": bench.card_info()["nvidia_smi"], **out})
+    return out["timeline_metrics_profiler"]["launches"]
 
 
 def accumulation_phase(hvt, K, main_losses):
@@ -1508,7 +1787,9 @@ def main():
 
     launches, *trained, main_losses = main_path(hvt, K)
     profile_phase(*trained, launches)
+    main_step_s = trained[-1]
     del trained
+    observe_launches = observe_phase(hvt, K, main_losses, main_step_s)
     acc_launches, model, optimizer = accumulation_phase(hvt, K, main_losses)
     collectives_phase(hvt, model, optimizer)
     del model, optimizer
@@ -1534,6 +1815,7 @@ def main():
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],
+         "launches_observe": observe_launches[name],
          "launches_accumulation": acc_launches[name],
          "launches_sequence": seq_launches[name],
          "launches_bench_outside_replays": bench_launches[name],

@@ -16,16 +16,19 @@ Launch a job with ``python -m horovod_tpu_torch.runner.launch -np N
 python train.py``; shard a model with ``parallel.fsdp.shard_module``; save
 and resume with ``hvt.checkpoint.CheckpointManager``; survive a lost card
 with ``@hvt.elastic.run`` and ``hvt.elastic.TorchState``, launched with
-``--min-np``.
+``--min-np``. Watch a job with ``hvt.metrics`` (``launch --metrics-port``
+serves ``GET /metrics`` from every worker), ``hvt.start_timeline`` (or
+``launch --timeline``) and ``hvt.diagnostics()``; let ranks with unequal
+data finish with ``hvt.join()``.
 """
 
-from horovod_tpu_torch import callbacks, checkpoint
+from horovod_tpu_torch import callbacks, checkpoint, metrics
 from horovod_tpu_torch.common.basics import (
     ccl_built, cross_rank, cross_size, cuda_built, ddl_built, device,
-    gloo_built, gloo_enabled, init, is_homogeneous, is_initialized,
-    local_rank, local_size, mpi_built, mpi_enabled, mpi_threads_supported,
-    nccl_built, process_rank, process_size, rank, rocm_built, shutdown, size,
-    xla_built)
+    diagnostics, gloo_built, gloo_enabled, init, is_homogeneous,
+    is_initialized, local_rank, local_size, mpi_built, mpi_enabled,
+    mpi_threads_supported, nccl_built, process_rank, process_size, rank,
+    rocm_built, shutdown, size, start_timeline, stop_timeline, xla_built)
 from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
                                                  HorovodTimeoutError,
                                                  HostsUpdatedInterrupt)
@@ -40,7 +43,7 @@ from horovod_tpu_torch.ops.collective_ops import (
     broadcast_, broadcast_async, broadcast_async_, grouped_allgather,
     grouped_allgather_async, grouped_allreduce, grouped_allreduce_,
     grouped_allreduce_async, grouped_allreduce_async_, grouped_reducescatter,
-    poll, reducescatter, reducescatter_async, synchronize)
+    join, poll, reducescatter, reducescatter_async, synchronize)
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_attention_with_lse)
@@ -76,7 +79,7 @@ __all__ = [
     "grouped_allgather", "grouped_allgather_async", "broadcast",
     "broadcast_", "broadcast_async", "broadcast_async_", "alltoall",
     "alltoall_async", "reducescatter", "reducescatter_async",
-    "grouped_reducescatter", "barrier", "synchronize", "poll",
+    "grouped_reducescatter", "barrier", "join", "synchronize", "poll",
     "adasum_reduce", "pairwise_adasum",
     "hierarchical_allreduce", "hierarchical_allgather",
     "allgather_object", "broadcast_object", "broadcast_object_fn",
@@ -85,5 +88,6 @@ __all__ = [
     "sparse_allreduce", "apply_sparse", "sparse_allreduce_apply",
     "Compression", "flash_attention", "flash_attention_with_lse",
     "DistributedOptimizer", "PartialDistributedOptimizer", "SyncBatchNorm",
-    "callbacks", "checkpoint", "elastic",
+    "callbacks", "checkpoint", "elastic", "metrics",
+    "start_timeline", "stop_timeline", "diagnostics",
 ]

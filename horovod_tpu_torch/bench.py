@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from horovod_tpu_torch import metrics
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.process_sets import global_process_set
 from horovod_tpu_torch.models.resnet import ResNet50, ResNet101, ResNet152
@@ -189,7 +190,9 @@ def capture_step(step, tokens, model, optimizer,
                     v.copy_(state[p, k]) if (p, k) in state else v.zero_()
     optimizer.zero_grad(set_to_none=True)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # thread-local: the drainer thread may still query the CUDA events of
+    # the warm-up steps' collectives, which a global-mode capture forbids
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         loss = step(tokens)
 
     def replay():
@@ -413,6 +416,23 @@ def make_record(args, result, calib_samples, card):
     }
 
 
+def final_metrics(record):
+    """The registry's JSON snapshot for the record's ``engine_metrics``
+    (the JAX bench's): the allreduce of the last loss is a real dispatch,
+    so the snapshot always holds an allreduce latency series; its CUDA
+    events are resolved before the snapshot is taken."""
+    from horovod_tpu_torch.ops.collective_ops import allreduce
+    from horovod_tpu_torch.utils import timeline
+
+    last = (record.get("replayed") or record["eager"])["losses"][-1]
+    allreduce(torch.tensor(last, device=basics.device()),
+              name="bench_final_loss")
+    if not timeline.drainer.flush():
+        raise RuntimeError("the CUDA events of collectives stayed "
+                           "unresolved: no engine_metrics snapshot")
+    return metrics.json_snapshot()
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", default="resnet50",
@@ -464,6 +484,7 @@ def main(argv=None):
     if card:
         calib.append(calibrate_matmul_tflops(dev))
     record = make_record(args, result, calib, card)
+    record["engine_metrics"] = final_metrics(record)
     if basics.rank() == 0:
         unit = "tok" if args.model == "gpt" else "img"
         for name in ("eager", "replayed"):

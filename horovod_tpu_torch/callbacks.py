@@ -136,13 +136,16 @@ class MetricsCallback(Callback):
     """Fold epoch-end metrics into a registry (the JAX package's
     ``MetricsCallback``): each numeric value becomes a sample of the
     ``<prefix>_metric`` gauge labelled by its name, and epochs are counted
-    in ``<prefix>_epochs_total``. ``registry`` is any object with the
-    JAX package's registry calls (``gauge`` and ``counter``; a metric's
-    ``labels``, ``set`` and ``inc``). The port has no registry of its own
-    yet, so unlike the JAX callback it takes no default. Order it after
-    :class:`MetricAverageCallback` to record the average."""
+    in ``<prefix>_epochs_total``. ``registry`` defaults to the process's
+    (``horovod_tpu_torch.metrics.registry()``), which ``GET /metrics``
+    serves. Order it after :class:`MetricAverageCallback` to record the
+    average."""
 
-    def __init__(self, registry, prefix: str = "hvt_train"):
+    def __init__(self, registry=None, prefix: str = "hvt_train"):
+        if registry is None:
+            from horovod_tpu_torch import metrics
+
+            registry = metrics.registry()
         self._gauge = registry.gauge(
             f"{prefix}_metric", "training metrics by name (last epoch)",
             ("metric",))

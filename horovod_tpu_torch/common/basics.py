@@ -19,10 +19,22 @@ next: :func:`reinit` starts it with the device and timeout of the last
 whose peer died (on NCCL it aborts the communicators, so a collective
 blocked on that peer returns), and every later collective raises
 ``HorovodInternalError``.
+
+Observability (the JAX package's ``basics.py:113-160``): with
+``HVT_METRICS_PORT`` (``launch --metrics-port``) ``init`` serves ``GET
+/metrics`` at that base port + rank (0: an ephemeral port), and with
+``HVT_TIMELINE_SHARD`` (``launch --timeline``) it records this rank's
+timeline shard ``<base>.rank<r>``, its clock aligned to the launcher's
+``GET /clock`` (``HVT_DIAG_ADDR``, or the elastic ``HVT_RENDEZVOUS_ADDR``)
+and uploaded there by ``shutdown``. A port that cannot be bound or a shard
+that cannot be opened raises. :func:`reinit` brings both back on the same
+port and the same shard. :func:`diagnostics` names this rank's collectives
+in flight.
 """
 
 from __future__ import annotations
 
+import atexit
 import os
 import threading
 from datetime import timedelta
@@ -34,6 +46,9 @@ _lock = threading.Lock()
 _state = None  # the running world's _World, or None
 # the device and timeout of the last init(), which reinit() takes again
 _last_init = {"device": None, "timeout_s": 300}
+# the metrics port bound and the timeline shard (path, pid) the first init
+# started, which reinit() starts again
+_observe = {"metrics_port": None, "shard": None}
 
 
 class _World:
@@ -87,6 +102,7 @@ def init(comm=None, process_sets=None, device=None, timeout_s=300):
                          "launcher (hvtrun)")
     _start(device, timeout_s)
     _last_init.update(device=device, timeout_s=timeout_s)
+    _start_observers()
     from horovod_tpu_torch.common import process_sets as _ps
 
     for ps in process_sets or ():
@@ -130,6 +146,56 @@ def _start(device, timeout_s):
 
         global_process_set.process_set_id = 0
         _state.process_sets[0] = global_process_set
+        from horovod_tpu_torch.ops import collective_ops
+
+        collective_ops._reset_join()
+
+
+def _env_on(name) -> bool:
+    return os.environ.get(name, "0") not in ("", "0")
+
+
+def _start_observers():
+    """The launcher's metrics endpoint and timeline shard for this rank
+    (see the module docstring); each is started once per world."""
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.utils import timeline
+
+    r = rank()
+    port = os.environ.get("HVT_METRICS_PORT")
+    if port is not None and metrics.server_port() is None:
+        if _observe["metrics_port"] is None:
+            base = int(port)
+            _observe["metrics_port"] = base + r if base else 0
+        _observe["metrics_port"] = metrics.serve(_observe["metrics_port"])
+        if _env_on("HVT_VERBOSE"):
+            print(f"[hvt] metrics endpoint on "
+                  f":{_observe['metrics_port']}/metrics")
+    shard_base = os.environ.get("HVT_TIMELINE_SHARD")
+    if shard_base and not timeline.active():
+        first = _observe["shard"] is None
+        if first:
+            _observe["shard"] = (f"{shard_base}.rank{r}", r)
+            atexit.register(timeline.stop)
+        path, pid = _observe["shard"]
+        addr = (os.environ.get("HVT_DIAG_ADDR")
+                or os.environ.get("HVT_RENDEZVOUS_ADDR"))
+        meta = {}
+        if addr:
+            # an unaligned shard still merges, only skewed: the failure is
+            # written into the shard rather than raised
+            try:
+                offset = timeline.measure_clock_offset_us(addr)
+                timeline.set_clock_offset_us(offset)
+                meta["clock_sync"] = {"server": addr, "offset_us": offset}
+            except Exception as e:
+                meta["clock_sync"] = {"server": addr,
+                                      "error": f"{type(e).__name__}: {e}"}
+        # torch.profiler off by default: a session in every worker costs
+        # memory and time; HVT_TIMELINE_TORCH_PROFILER=1 opts back in
+        timeline.start(path, profiler=_env_on("HVT_TIMELINE_TORCH_PROFILER"),
+                       pid=pid, upload_addr=addr, append=not first,
+                       meta=meta)
 
 
 def reinit():
@@ -148,6 +214,13 @@ def shutdown():
     with _lock:
         if _state is None:
             return
+        from horovod_tpu_torch import metrics
+        from horovod_tpu_torch.utils import timeline
+
+        # the timeline resolves the last collectives' device spans first,
+        # then closes and uploads its shard
+        timeline.stop()
+        metrics.stop_server()
         for ps in _state.process_sets.values():
             ps.process_set_id, ps._group = None, None
         if _state.aborted is None:
@@ -271,6 +344,54 @@ def process_rank() -> int:
 def process_size() -> int:
     """The number of processes: :func:`size`."""
     return size()
+
+
+def start_timeline(file_path: str, mark_cycles: bool = False,
+                   profiler: bool = True):
+    """Begin recording a Chrome-trace timeline of this rank (Horovod's
+    ``horovod_start_timeline``; ``utils/timeline.py``). ``profiler=True``
+    (default) also arms a ``torch.profiler`` session whose Chrome trace of
+    host and device activity ``stop_timeline`` writes to
+    ``<file_path>.profiler.json``; pass False when you manage your own
+    profiler session. ``mark_cycles`` is accepted for Horovod's signature
+    and ignored: the port has no engine cycle to mark."""
+    from horovod_tpu_torch.utils import timeline
+
+    del mark_cycles
+    timeline.start(file_path, profiler=profiler, pid=rank())
+
+
+def stop_timeline():
+    """Stop the timeline: the device spans of the collectives waited for
+    are resolved first, and the profiler's trace is written."""
+    _world()
+    from horovod_tpu_torch.utils import timeline
+
+    timeline.stop()
+
+
+def diagnostics() -> dict:
+    """This rank's stall-diagnostics snapshot (the JAX package's
+    ``diagnostics()``), JSON-serializable:
+
+    - ``process_rank`` and ``timeline_active``;
+    - ``pending``: this rank's collectives not yet complete (handles not
+      yet waited for, and collectives waited for that the card has not
+      finished), each with its name, op, process set and age in seconds;
+    - ``joined``: whether this rank is inside ``join()``;
+    - ``engine``: ``{"running": False}``, as the JAX package reports
+      without its engine: the port has no coordinator, so the JAX dict's
+      engine counters, ``negotiations`` and ``stalls`` are not filled."""
+    from horovod_tpu_torch.ops import collective_ops
+    from horovod_tpu_torch.utils import timeline
+
+    world = _state
+    return {"process_rank": world.rank if world is not None
+            else _env_int("HVT_PROCESS_ID", 0),
+            "timeline_active": timeline.active(),
+            "pending": collective_ops.pending(),
+            "joined": collective_ops.joined(),
+            "engine": {"running": False}}
 
 
 def is_homogeneous() -> bool:

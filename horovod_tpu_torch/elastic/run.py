@@ -12,9 +12,11 @@ import socket
 import time
 import urllib.error
 
+from horovod_tpu_torch import metrics
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
                                                  HostsUpdatedInterrupt)
+from horovod_tpu_torch.utils import timeline
 
 _LOCAL_NAMES = ("localhost", "127.0.0.1")
 
@@ -97,7 +99,10 @@ class _Recovery:
     (waiting for the next round), ``reinit`` and ``rebuild`` (``sync``).
     Each phase's seconds go to
     ``/kv/recovery/<host>/<slot>`` on the driver's rendezvous (under an
-    elastic launch) and, when the episode ends, to :data:`recoveries`."""
+    elastic launch) and, when the episode ends, to :data:`recoveries`, to
+    the timeline as ``RECOVERY(<phase>, <outcome>)`` events, and to the
+    ``hvt_recovery_rounds_total{trigger}`` and
+    ``hvt_recovery_end_to_end_seconds`` metrics."""
 
     def __init__(self, trigger: str):
         self.trigger = trigger
@@ -120,6 +125,20 @@ class _Recovery:
                           "trigger": self.trigger,
                           "phases": {n: round(s, 4)
                                      for n, s in phases.items()}})
+        # the timeline was stopped with the world for most of the episode:
+        # every phase is stamped now, as the JAX package stamps them into
+        # its engine's ring after re-init
+        for name, seconds, outcome in self.phases:
+            timeline.record_recovery(name, outcome, seconds)
+        timeline.record_recovery("recovered", "ok", total)
+        metrics.counter(
+            "hvt_recovery_rounds_total",
+            "completed elastic recovery episodes by trigger",
+            ("trigger",)).labels(trigger=self.trigger).inc()
+        metrics.gauge(
+            "hvt_recovery_end_to_end_seconds",
+            "duration of the last recovery episode (failure/update "
+            "detection to training resumed)").set(total)
 
 
 def _sync_outcome(state) -> str:

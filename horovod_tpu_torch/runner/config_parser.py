@@ -20,6 +20,8 @@ _KEYS = {
     "reset-limit": "reset_limit",
     "elastic-timeout": "elastic_timeout",
     "slots": "slots",
+    "timeline": "timeline",
+    "metrics-port": "metrics_port",
 }
 
 

@@ -18,7 +18,10 @@ Orchestrates a fault-tolerant job:
 - when a worker of the current round dies, tells every other registered
   worker first (``PUT /abort``), whose handler aborts its process group:
   a survivor blocked in an NCCL collective on the dead peer then gets
-  HorovodInternalError at once instead of at the group's timeout.
+  HorovodInternalError at once instead of at the group's timeout;
+- counts rounds, resets, preemptions and folded rounds and gauges the
+  world and the hosts in ``horovod_tpu_torch.metrics`` (the JAX package's
+  ``hvt_elastic_*`` families), served by the rendezvous's ``GET /metrics``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,31 @@ from horovod_tpu_torch.runner.hosts import (HostInfo, SlotInfo,
                                             get_host_assignments)
 
 _NOTIFY_SCOPE = "workers"
+
+
+def _elastic_metrics():
+    """The driver's families (the JAX package's ``driver.py:35-57``)."""
+    from horovod_tpu_torch import metrics
+
+    return (
+        metrics.counter("hvt_elastic_rounds_total",
+                        "elastic rendezvous rounds activated"),
+        metrics.counter("hvt_elastic_resets_total",
+                        "elastic restarts after the initial round"),
+        metrics.gauge("hvt_elastic_world_size",
+                      "slots assigned in the current round"),
+        metrics.gauge("hvt_elastic_alive_hosts",
+                      "distinct hosts in the current assignment"),
+        metrics.gauge("hvt_elastic_blacklisted_hosts",
+                      "hosts currently blacklisted by the host manager"),
+        metrics.counter("hvt_elastic_preemptions_total",
+                        "hosts drained gracefully on a preemption "
+                        "notice (/kv/failure/<host>/preempt)"),
+        metrics.counter("hvt_elastic_folded_rounds_total",
+                        "host changes folded into an in-flight "
+                        "re-rendezvous instead of costing their own "
+                        "restart round"),
+    )
 
 
 class ElasticDriver:
@@ -171,6 +199,8 @@ class ElasticDriver:
                 # the flag here would let two loops run concurrently
                 with self._resume_lock:
                     self._resuming = False
+            if folded > 0:
+                _elastic_metrics()[6].inc(folded)
 
     def _note_host_change(self):
         """A host left/joined outside the barrier path (failure report,
@@ -306,6 +336,7 @@ class ElasticDriver:
                       f"on a preemption notice")
             self._mark_draining(reporter_host)
             self._note_host_change()
+            _elastic_metrics()[5].inc()
             self._notify_workers_host_changes()
             return
         try:
@@ -401,6 +432,13 @@ class ElasticDriver:
                                 "size": len(slots), "time": time.time(),
                                 "ranks": {f"{s.hostname}/{s.local_rank}":
                                           s.rank for s in slots}})
+        rounds, resets, world, alive, blacklisted = _elastic_metrics()[:5]
+        rounds.inc()
+        if rounds.value > 1:
+            resets.inc()
+        world.set(len(slots))
+        alive.set(len({s.hostname for s in slots}))
+        blacklisted.set(self._host_manager.blacklisted_count())
         if self._settings.verbose:
             print(f"[elastic driver] round {self._rendezvous_round()}: "
                   f"{len(slots)} slots")
@@ -482,6 +520,7 @@ class ElasticDriver:
                 changed = self._host_manager.update_available_hosts()
             except Exception:
                 changed = False
+            _elastic_metrics()[4].set(self._host_manager.blacklisted_count())
             if changed:
                 self._notify_workers_host_changes()
                 self._start_missing_workers_if_growing()

@@ -62,3 +62,12 @@ def get_json(addr, path, timeout=5, retries=DEFAULT_RETRIES):
     with _urlopen_retrying(req, timeout, retries) as resp:
         body = resp.read()
         return json.loads(body) if body else None
+
+
+def put_bytes(addr, path, data: bytes, timeout=5, retries=DEFAULT_RETRIES):
+    req = urllib.request.Request(f"http://{addr}{path}", data=data,
+                                 method="PUT",
+                                 headers={"Content-Type":
+                                          "application/octet-stream"})
+    with _urlopen_retrying(req, timeout, retries) as resp:
+        return resp.status

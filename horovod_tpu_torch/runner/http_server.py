@@ -4,22 +4,27 @@ package's ``runner/http_server.py`` (Horovod's
 rendezvous server re-``init()``-ed for each elastic round).
 
 The elastic driver runs it: workers PUT their notification endpoints and
-reports under scoped keys, and GET their slot for each round. The port's
-static jobs need none of it (they join on the TCP store), and it serves
-none of the JAX package's diagnostic routes (``/metrics``, ``/statusz``,
-``/debugz``, ``/clock``, ``/kvbulk``).
+reports under scoped keys, and GET their slot for each round. A static job
+joins on the TCP store and starts one only for ``--timeline``: workers
+sample its ``GET /clock`` to align their shards and PUT each shard under
+``/kv/timeline/<rank>``. It serves the launcher process's metrics
+(``GET /metrics``, ``GET /metrics.json``: the elastic driver's families);
+the JAX package's ``/statusz``, ``/debugz`` and ``/kvbulk`` belong to the
+fleet plane, not ported yet.
 """
 
 from __future__ import annotations
 
 import json
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 # scopes kept across elastic round resets (init / DELETE /rendezvous):
-# `workers` (notification registrations, made once per worker) and
-# `recovery` (recovery-phase reports, written between rounds)
-KEEP_SCOPES = ("workers", "recovery")
+# `workers` (notification registrations, made once per worker),
+# `recovery` (recovery-phase reports, written between rounds) and
+# `timeline` (shards, uploaded as workers end, merged at the job's end)
+KEEP_SCOPES = ("workers", "recovery", "timeline")
 
 
 class _Store:
@@ -54,6 +59,12 @@ class RendezvousServer:
       GET     /rendezvous/<host>/<local_rank> — JSON SlotInfo
       GET     /world                    — JSON {size, hosts, master_host,
                                           master_port, round}
+      GET     /metrics                  — Prometheus text exposition of
+                                          this process's registry
+      GET     /metrics.json             — its JSON snapshot
+      GET     /clock                    — server wall clock (epoch µs);
+                                          the timeline's clock-offset
+                                          handshake samples this
       DELETE  /rendezvous               — finalize round (elastic)
     """
 
@@ -158,6 +169,21 @@ class RendezvousServer:
                 elif parts == ["world"]:
                     self._send(200, json.dumps(server_ref._world).encode(),
                                "application/json")
+                elif parts == ["metrics"]:
+                    from horovod_tpu_torch import metrics
+
+                    self._send(200, metrics.prometheus_text().encode(),
+                               metrics.PROMETHEUS_CONTENT_TYPE)
+                elif parts == ["metrics.json"]:
+                    from horovod_tpu_torch import metrics
+
+                    self._send(200, json.dumps(
+                        metrics.json_snapshot()).encode(),
+                        "application/json")
+                elif parts == ["clock"]:
+                    self._send(200, json.dumps(
+                        {"epoch_us": time.time_ns() // 1000}).encode(),
+                        "application/json")
                 else:
                     self._send(404)
 

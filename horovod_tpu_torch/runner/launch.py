@@ -23,11 +23,21 @@ workers train under ``@hvt.elastic.run``::
 
     python -m horovod_tpu_torch.runner.launch -np 4 --min-np 2 --max-np 4 \\
         --host-discovery-script ./discover.sh python train.py
+
+``--timeline PATH`` makes every worker record its timeline shard
+``PATH.rank<r>`` (``utils/timeline.py``), aligned to this process's clock
+and uploaded here when it shuts down; at the job's end the shards are
+merged into ``PATH``, a killed worker's local shard standing in for its
+upload. A static job starts a KV server of its own for this
+(``HVT_DIAG_ADDR``); an elastic one uses the driver's rendezvous.
+``--metrics-port P`` makes every worker serve ``GET /metrics`` at ``P`` +
+its rank (0: ephemeral ports).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import shlex
 import socket
@@ -57,6 +67,14 @@ def parse_args(argv=None):
     p.add_argument("--master-port", type=int, default=29510,
                    help="the TCP store's port on the first host")
     p.add_argument("--ssh-port", type=int, default=22)
+    p.add_argument("--timeline", default=None,
+                   help="merged chrome-trace timeline output path; each "
+                        "worker records PATH.rank<r> (Horovod's "
+                        "HOROVOD_TIMELINE)")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve Prometheus GET /metrics from every worker "
+                        "at this base port (rank r binds port+r); 0 binds "
+                        "ephemeral ports")
     elastic = p.add_argument_group(
         "elastic", "fault-tolerant launch (Horovod's launch.py:392 "
         "--min-np/--max-np/--host-discovery-script)")
@@ -109,21 +127,35 @@ def _ssh_command(env, hostname, ssh_port, command):
 
 
 def slot_env(base_env, slot, args, master_addr):
-    """One slot's environment: ``base_env``, its identity and the
-    coordinator's address."""
+    """One slot's environment: ``base_env``, its identity, the
+    coordinator's address and the observability flags."""
     env = dict(base_env)
     env.update(slot_env_vars(slot))
     env["HVT_COORDINATOR_ADDR"] = f"{master_addr}:{args.master_port}"
+    if getattr(args, "timeline", None):
+        env["HVT_TIMELINE_SHARD"] = args.timeline
+    if getattr(args, "metrics_port", None) is not None:
+        env["HVT_METRICS_PORT"] = str(args.metrics_port)
     return env
 
 
-def build_commands(args, slots, master_addr, base_env=None):
+def _reach(hostname, port) -> str:
+    """This host's ``host:port`` as a worker on ``hostname`` dials it."""
+    here = "127.0.0.1" if _is_local(hostname) else socket.gethostname()
+    return f"{here}:{port}"
+
+
+def build_commands(args, slots, master_addr, base_env=None, diag_port=None):
     """``(command, env, rank)`` of every slot: the command itself for a
-    local slot, ssh for a remote one."""
+    local slot, ssh for a remote one. ``diag_port`` is the port of this
+    launcher's KV server (``--timeline``), given to each worker as
+    ``HVT_DIAG_ADDR``."""
     base_env = dict(os.environ if base_env is None else base_env)
     cmds = []
     for slot in slots:
         env = slot_env(base_env, slot, args, master_addr)
+        if diag_port is not None:
+            env["HVT_DIAG_ADDR"] = _reach(slot.hostname, diag_port)
         if _is_local(slot.hostname):
             cmds.append((list(args.command), env, slot.rank))
         else:
@@ -131,6 +163,43 @@ def build_commands(args, slots, master_addr, base_env=None):
                                       args.command),
                          dict(base_env), slot.rank))
     return cmds
+
+
+def merge_timeline_shards(timeline_path, store, expected_ranks=()):
+    """Merge the per-rank timeline shards into ``timeline_path``: those the
+    workers uploaded to ``store`` (``/kv/timeline/<rank>``), and for an
+    expected rank that uploaded none, its local shard
+    ``<timeline_path>.rank<r>`` (a killed worker never uploads, but its
+    flushed shard still loads). Returns the number of shards merged."""
+    from horovod_tpu_torch.utils import timeline as tl
+
+    shards, found = [], set()
+    if store is not None:
+        for key in store.keys("timeline"):
+            v = store.get("timeline", key)
+            if v is not None:
+                shards.append(tl.parse_trace(v.decode(errors="replace")))
+                found.add(str(key))
+    missing = []
+    for r in expected_ranks:
+        local = f"{timeline_path}.rank{r}"
+        if str(r) in found:
+            continue
+        if os.path.exists(local):
+            shards.append(tl.load_trace(local))
+        else:
+            missing.append(r)
+    if not shards:
+        print(f"[launch] timeline: no shards recorded; {timeline_path} "
+              f"not written", file=sys.stderr)
+        return 0
+    merged = tl.merge_traces(shards)
+    with open(timeline_path, "w") as f:
+        json.dump(merged, f)
+    note = f" (no shard from ranks {missing})" if missing else ""
+    print(f"[launch] timeline: merged {len(shards)} shard(s), "
+          f"{len(merged)} events -> {timeline_path}{note}", file=sys.stderr)
+    return len(shards)
 
 
 def round_master_port(first_host, round_, base) -> int:
@@ -149,7 +218,6 @@ def _run_elastic(args) -> int:
     """Elastic launch: an ElasticDriver and its rendezvous server here, one
     training subprocess per assigned slot, a new round on a failure or a
     host change. Every child is stopped when the job ends."""
-    import json
     import threading
 
     from horovod_tpu_torch.runner.elastic.discovery import (
@@ -181,8 +249,7 @@ def _run_elastic(args) -> int:
 
     def create_worker(slot):
         # a remote worker reaches the rendezvous on this host
-        drv = "127.0.0.1" if _is_local(slot.hostname) \
-            else socket.gethostname()
+        drv = _reach(slot.hostname, rendezvous_port)
         world = rendezvous.world
         mh = world.get("master_host") or slot.hostname
         master = "127.0.0.1" if _is_local(slot.hostname) and _is_local(mh) \
@@ -192,8 +259,7 @@ def _run_elastic(args) -> int:
         env.update({
             "HVT_ELASTIC": "1",
             "HVT_ELASTIC_ROUND": str(world["round"]),
-            "HVT_ELASTIC_NOTIFY_ADDR": f"{drv}:{rendezvous_port}",
-            "HVT_RENDEZVOUS_ADDR": f"{drv}:{rendezvous_port}"})
+            "HVT_ELASTIC_NOTIFY_ADDR": drv, "HVT_RENDEZVOUS_ADDR": drv})
         # the driver aborts a dead peer's survivors itself; NCCL's watchdog
         # must then clean up (2) rather than kill the survivor (1, 3)
         env.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "2")
@@ -226,6 +292,14 @@ def _run_elastic(args) -> int:
         driver.wait()
     finally:
         terminate_children()
+        if args.timeline:
+            # the world's size varies by round: merge what was uploaded
+            # (the timeline scope survives round resets), with local shards
+            # standing in over the last round's ranks
+            merge_timeline_shards(
+                args.timeline, rendezvous.store,
+                expected_ranks=range(rendezvous.world.get("size")
+                                     or args.num_proc))
         rendezvous.stop()
     print("[launch] elastic rounds: " + json.dumps(driver.rounds),
           file=sys.stderr)
@@ -305,7 +379,24 @@ def main(argv=None) -> int:
             print(f"[launch] rank {s.rank} -> {s.hostname} "
                   f"(local {s.local_rank}/{s.local_size}, "
                   f"cross {s.cross_rank}/{s.cross_size})", file=sys.stderr)
-    exit_codes = safe_exec.run_all(build_commands(args, slots, master_addr))
+    diag = None
+    if args.timeline:
+        # a KV server for the shards' upload and the clock handshake
+        from horovod_tpu_torch.runner.http_server import RendezvousServer
+
+        diag = RendezvousServer(lambda slots_, round_: args.master_port)
+        diag.init(slots)
+        diag.start()
+    try:
+        exit_codes = safe_exec.run_all(build_commands(
+            args, slots, master_addr,
+            diag_port=diag.port if diag is not None else None))
+        if diag is not None:
+            merge_timeline_shards(args.timeline, diag.store,
+                                  expected_ranks=range(args.num_proc))
+    finally:
+        if diag is not None:
+            diag.stop()
     bad = [(i, rc) for i, rc in enumerate(exit_codes) if rc != 0]
     if bad:
         print(f"[launch] ranks failed: {bad}", file=sys.stderr)

@@ -146,11 +146,13 @@ def seeded_tokens(cfg, batch, seq, seed=0):
 
 
 def train(cfg, steps, batch, seq, *, device=None, seed=0, lr=1e-4,
-          weight_decay=1e-4):
+          weight_decay=1e-4, callbacks=None):
     """Data-parallel training on one repeated seeded batch (as
     ``measure_gpt`` does). ``batch`` is per process. Returns the per-step
     ``loss`` and ``step_s`` (host seconds, ending in a device sync), the
-    ``model`` and the ``optimizer``."""
+    ``model`` and the ``optimizer``. ``callbacks`` (a ``callbacks``
+    ``Callback``, e.g. ``MetricsCallback``) sees each step as an epoch of
+    the repeated batch: ``on_epoch_end(step, {"loss": ...})``."""
     basics.init(device=device)
     model = GPT(cfg, device=basics.device(), seed=seed)
     optimizer = DistributedOptimizer(torch.optim.AdamW(
@@ -163,5 +165,7 @@ def train(cfg, steps, batch, seq, *, device=None, seed=0, lr=1e-4,
         loss = float(step(tokens))                # waits for the device
         times.append(time.perf_counter() - t0)
         losses.append(loss)
+        if callbacks is not None:
+            callbacks.on_epoch_end(len(losses) - 1, {"loss": loss})
     return {"loss": losses, "step_s": times, "model": model,
             "optimizer": optimizer}

@@ -130,9 +130,15 @@ def test_metrics_callback_records_as_the_jax_callback():
 
 
 def test_metrics_callback_needs_a_registry():
-    """The port has no process-wide registry to default to."""
-    with pytest.raises(TypeError):
-        cb.MetricsCallback()
+    """Without one it takes the process-wide registry, which GET /metrics
+    serves, as the JAX callback does."""
+    from horovod_tpu_torch import metrics
+
+    callback = cb.MetricsCallback(prefix="t_default")
+    callback.on_epoch_end(0, {"loss": 0.75})
+    reg = metrics.registry()
+    assert reg.get("t_default_metric").labels(metric="loss").value == 0.75
+    assert 't_default_metric{metric="loss"} 0.75' in metrics.prometheus_text()
 
 
 def test_callbacks_in_a_world_of_one(world):

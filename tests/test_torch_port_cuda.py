@@ -788,3 +788,187 @@ def test_nccl_elastic_kill_shrink_grow(cuda, tmp_path, case):
     assert a["restored_equals_commit"] == {0: True, 1: True, 2: True}
     assert a["devices_by_slot"] == {i: [f"cuda:{i}"]
                                     for i in range(ELASTIC_CARDS)}
+
+
+JOIN_CARDS, JOIN_BATCHES, JOIN_SHORT, JOIN_BATCH = 4, 5, 3, 8
+JOIN_RTOL = 1e-5
+
+
+def join_reference(cfg, state, steps, batch, cards, device):
+    """One process from the JOIN4 job's state after step ``JOIN_SHORT``:
+    for each of ``steps`` (0-based), the active ranks' (all but the last)
+    rows' losses, then one AdamW step on their gradients summed with the
+    joined rank's zeros and divided by ``cards`` (the JAX engine's Average
+    rule with a rank joined). Returns the losses by step and the
+    parameters' sums after the last step."""
+    import torch_port_launch_worker as LW
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.train import loss_fn
+
+    model = GPT(cfg, device=device, seed=0)
+    model.load_state_dict(state["model"])
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    opt.load_state_dict(state["optim"])
+    losses = []
+    for i in steps:
+        opt.zero_grad(set_to_none=True)
+        losses.append([])
+        for r in range(cards - 1):
+            loss = loss_fn(model, LW.join_tokens(cfg, i, r, cards,
+                                                 batch).to(device))
+            loss.backward()
+            losses[-1].append(float(loss.detach()))
+        for p in model.parameters():
+            p.grad /= cards
+        opt.step()
+    return losses, [float(p.detach().double().sum())
+                    for p in model.parameters()]
+
+
+def check_join_job(results, trace, cfg, device, batch, cards, out):
+    """JOIN4's checks (also run on the CPU at a small size): the same last
+    rank everywhere, steps JOIN_SHORT+1.. of the active ranks against
+    :func:`join_reference`, equal parameters on every rank at the end, and
+    a merged trace with a pid per rank holding its allreduces' spans.
+    Returns the reference's losses."""
+    lasts = {res["last"] for res in results}
+    assert len(lasts) == 1 and lasts.pop() in range(cards - 1), lasts
+    assert len({res["param_sha256"] for res in results}) == 1
+    state = torch.load(out + ".state.pt", weights_only=False,
+                       map_location=device)
+    steps = range(JOIN_SHORT, JOIN_BATCHES)
+    ref_losses, ref_sums = join_reference(cfg, state, steps, batch, cards,
+                                          device)
+    for k, i in enumerate(steps):
+        for r in range(cards - 1):
+            np.testing.assert_allclose(results[r]["losses"][i],
+                                       ref_losses[k][r], rtol=JOIN_RTOL,
+                                       err_msg=f"step {i + 1} rank {r}")
+    np.testing.assert_allclose(results[0]["param_sums"], ref_sums,
+                               rtol=JOIN_RTOL, atol=1e-6)
+    assert {e["pid"] for e in trace} == set(range(cards))
+    span = "NCCL_GROUPED_ALLREDUCE" if device.type == "cuda" \
+        else "GLOO_GROUPED_ALLREDUCE"
+    for r in range(cards):
+        spans = [e for e in trace if e["pid"] == r and e.get("name") == span]
+        # a step's allreduce each, and the profiled ones after the join
+        want = len(results[r]["losses"]) + results[r].get(
+            "window", {}).get("calls", 0)
+        assert len(spans) == want, (r, len(spans))
+        assert all(e["dur"] > 0 for e in spans)
+        if device.type == "cuda":
+            assert all(e["args"]["clock"] == "cuda_event" for e in spans)
+    return ref_losses
+
+
+@pytest.mark.cuda
+def test_nccl_join_ragged_ranks_full_width(cuda, tmp_path):
+    """JOIN4: the full-width GPT (bench.py --model gpt --flash) through the
+    port's launcher on four cards with ``--timeline`` and
+    ``--metrics-port``; ranks 0-2 hold 5 batches of 8 rows, rank 3 holds 3
+    and calls ``hvt.join()`` after its third step, the others after their
+    fifth, then all take the last joiner's parameters. Every rank's join
+    returns the same last rank; steps 4-5 of ranks 0-2 match one process
+    from step 3's state applying the JAX engine's Average rule with rank
+    3's zeros (rtol 1e-5); parameters agree on all four ranks; the merged
+    trace has four pids, each with the CUDA-event spans of its NCCL
+    allreduces; rank 0 scrapes all four /metrics mid-run. Prints one JOIN4
+    JSON line: the header's cost per collective, the step time before and
+    after the join, the histogram's allreduce ms beside the NCCL kernels'
+    ms, the trace's size (run with -s)."""
+    import json
+
+    import torch_port_launch_worker as LW
+    from horovod_tpu_torch.train import gpt_config
+
+    if torch.cuda.device_count() < JOIN_CARDS:
+        pytest.skip(f"needs {JOIN_CARDS} CUDA devices")
+    trace_path, out = str(tmp_path / "trace.json"), str(tmp_path / "res")
+    base = LW.free_port()
+    results = LW.Launch(
+        JOIN_CARDS, "join_gpt", out,
+        dict(device="cuda", config="bench", batch=JOIN_BATCH,
+             batches=JOIN_BATCHES, short=JOIN_SHORT, scrape_at=2,
+             timeout_s=300),
+        timeout=900, launcher_args=("--timeline", trace_path,
+                                    "--metrics-port", str(base))).results()
+    with open(trace_path) as f:
+        trace = json.load(f)
+    cfg = gpt_config("bench", use_flash=True)
+    ref = None
+    try:
+        ref = check_join_job(results, trace, cfg, cuda, JOIN_BATCH,
+                             JOIN_CARDS, out)
+    finally:
+        print("JOIN4 " + json.dumps(_join_summary(results, ref, trace,
+                                                  trace_path)))
+    for r, res in enumerate(results):
+        want = JOIN_SHORT if r == JOIN_CARDS - 1 else JOIN_BATCHES
+        assert res["launches"] == {
+            **{k: 12 * want for k in ("flash_fwd_sm90", "flash_dq_sm90",
+                                      "flash_dkv_sm90")},
+            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}, r
+        assert res["diagnostics"]["pending"] == []
+    for peer, scrape in enumerate(results[0]["scraped"]):
+        assert 'hvt_collective_latency_seconds_count{op="grouped_allreduce"' \
+            in scrape["text"], peer
+    for res in results:
+        w = res["window"]
+        assert w["observations"] == w["calls"], w
+        assert w["nccl_kernels"] == 2 + 2 * w["calls"], w
+
+
+def _join_summary(results, ref, trace, trace_path):
+    """The JOIN4 line's numbers."""
+    import os
+    import statistics
+    import subprocess
+
+    return {
+        "last": results[0]["last"],
+        "reference_losses_steps_4_5": ref,
+        "losses": [res["losses"] for res in results],
+        "step_ms": [[s * 1e3 for s in res["step_s"]] for res in results],
+        "step_ms_before_join": [statistics.median(res["step_s"][1:JOIN_SHORT])
+                                * 1e3 for res in results],
+        "step_ms_after_join": [statistics.median(res["step_s"][JOIN_SHORT:])
+                               * 1e3 for res in results[:-1]],
+        "join_s": [res["join_s"] for res in results],
+        "window": [res["window"] for res in results],
+        "header_cost": [res["header_cost"] for res in results],
+        "scrape_ms": [s["ms"] for s in results[0]["scraped"]],
+        "max_memory_allocated_bytes": [res["max_memory_allocated_bytes"]
+                                       for res in results],
+        "trace_bytes": os.path.getsize(trace_path),
+        "trace_events": len(trace),
+        "nvidia_smi": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()}
+
+
+@pytest.mark.cuda
+def test_nccl_allreduce_latency_from_cuda_events(cuda, tmp_path):
+    """NCCL allreduces of 64 MiB on two cards, behind a barrier: the
+    latency the histogram holds (a pair of CUDA events on the issuing
+    stream, resolved off the thread) against the NCCL kernels' time in
+    torch.profiler over the same calls. The events bracket each call's
+    header and allreduce kernels, so the latency is at least the kernels'
+    time and exceeds it by the gaps between them alone. Prints one
+    ALLREDUCE_LATENCY JSON line."""
+    import json
+
+    import torch_port_launch_worker as LW
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    calls = 5
+    results = LW.Launch(2, "allreduce_latency", str(tmp_path / "res"),
+                        dict(device="cuda", mib=64, calls=calls),
+                        timeout=300).results()
+    print("ALLREDUCE_LATENCY " + json.dumps(results))
+    for res in results:
+        assert res["observations"] == calls, res
+        assert res["nccl_kernels"] == 2 + 2 * calls, res
+        assert res["event_ms"] >= 0.95 * res["nccl_kernel_ms"], res
+        assert res["event_ms"] - res["nccl_kernel_ms"] < calls * 1.0, res

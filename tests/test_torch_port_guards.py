@@ -65,7 +65,12 @@ def test_imports_with_jax_and_triton_blocked():
             "horovod_tpu_torch.runner.http_server, "
             "horovod_tpu_torch.runner.http_client, "
             "horovod_tpu_torch.runner.elastic.driver, "
-            "horovod_tpu_torch.runner.elastic.notification\n"
+            "horovod_tpu_torch.runner.elastic.notification, "
+            "horovod_tpu_torch.metrics, "
+            "horovod_tpu_torch.metrics.exposition, "
+            "horovod_tpu_torch.metrics.merge, "
+            "horovod_tpu_torch.metrics.registry, "
+            "horovod_tpu_torch.utils.timeline\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

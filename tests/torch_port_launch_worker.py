@@ -435,7 +435,226 @@ def mode_fsdp_gpt(args):
     return out
 
 
-WORKER_MODES = {"gpt", "fail", "fsdp_mlp", "checkpoint", "api", "fsdp_gpt"}
+def join_tokens(cfg, step, rank, size, batch):
+    """Rank ``rank``'s rows at ``step`` (0-based) of the JOIN4 job: rows
+    rank·batch onwards of a global batch of batch · size rows drawn from
+    seed 1000 + step."""
+    import torch
+
+    rows = np.random.RandomState(1000 + step).randint(
+        0, cfg.vocab_size, (batch * size, cfg.max_seq_len))
+    return torch.from_numpy(rows[rank * batch:(rank + 1) * batch])
+
+
+def _latency_sum(op):
+    """(sum in seconds, count) of hvt_collective_latency_seconds{op}, its
+    CUDA events resolved first."""
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.utils import timeline
+
+    timeline.drainer.flush()
+    _, s, c = metrics.registry().get("hvt_collective_latency_seconds") \
+        .labels(op=op, process_set="global").snapshot()
+    return s, c
+
+
+def _nccl_kernels(prof):
+    """The NCCL kernels a torch.profiler session saw, in order of start:
+    (name, start µs, ms). The device timeline also holds an ``nccl:<op>``
+    range over each kernel; those are left out."""
+    import torch
+
+    ks = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.name.startswith(("ncclDevKernel", "ncclKernel"))]
+    return [(e.name, e.time_range.start, e.time_range.elapsed_us() / 1e3)
+            for e in sorted(ks, key=lambda e: e.time_range.start)]
+
+
+def _profiled_collectives(op, call, calls):
+    """``calls`` calls of ``call`` (one collective on the global set, a
+    header and its data each) under torch.profiler, behind a barrier that
+    lines the ranks up: the latency the histogram ``op`` holds for them
+    beside their NCCL kernels (the last 2·calls kernels; the barrier's two
+    come first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import horovod_tpu_torch as hvt
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        hvt.barrier()
+        before = _latency_sum(op)
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        after = _latency_sum(op)
+    kernels = _nccl_kernels(prof)
+    mine = kernels[-2 * calls:]
+    return {"calls": calls, "event_ms": (after[0] - before[0]) * 1e3,
+            "observations": after[1] - before[1],
+            "nccl_kernel_ms": sum(k[2] for k in mine),
+            "nccl_kernels": len(kernels),
+            "kernels": [[n[:60], round(ms, 4)] for n, _, ms in kernels]}
+
+
+def _header_cost(calls=100):
+    """Device and host time per call of an in-place 1 KiB allreduce: through
+    torch.distributed alone; through torch.distributed preceded by a
+    header-sized int64 allreduce; through hvt on a process set of every
+    rank (timed, no header); and through hvt on the global set (timed, a
+    header); the last two again once the timeline is stopped. And the host
+    µs of timing alone (``collective_ops._begin`` and ``_end``)."""
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvt
+    from horovod_tpu_torch.ops import collective_ops as C
+    from horovod_tpu_torch.utils import timeline
+
+    x = torch.zeros(256, device=hvt.device())
+    h = torch.zeros(C._HEADER_LEN, dtype=torch.int64, device=hvt.device())
+    every = hvt.add_process_set(list(range(hvt.size())))
+
+    def two():
+        dist.all_reduce(h)
+        dist.all_reduce(x)
+
+    def timing_only():
+        C._end(C._begin("allreduce", every, x))
+
+    out = {}
+    for name, call in (
+            ("torch_distributed", lambda: dist.all_reduce(x)),
+            ("torch_distributed_two", two),
+            ("hvt_no_header", lambda: hvt.allreduce_(x, op=hvt.Sum,
+                                                     process_set=every)),
+            ("hvt", lambda: hvt.allreduce_(x, op=hvt.Sum)),
+            ("stop_timeline", None),
+            ("hvt_no_header_no_timeline",
+             lambda: hvt.allreduce_(x, op=hvt.Sum, process_set=every)),
+            ("hvt_no_timeline", lambda: hvt.allreduce_(x, op=hvt.Sum)),
+            ("timing_only", timing_only)):
+        if call is None:
+            timeline.stop()
+            continue
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+        hvt.barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        host = (time.perf_counter() - t0) / calls
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = {"device_ms_per_call": start.elapsed_time(end) / calls,
+                     "host_us_per_call": host * 1e6}
+    out["header_host_us"] = (out["hvt"]["host_us_per_call"]
+                             - out["hvt_no_header"]["host_us_per_call"])
+    out["header_device_ms"] = (out["hvt"]["device_ms_per_call"]
+                               - out["hvt_no_header"]["device_ms_per_call"])
+    return out
+
+
+def mode_join_gpt(args):
+    """The JOIN4 job: the named GPT under DistributedOptimizer(AdamW), rank
+    r on its own rows (:func:`join_tokens`); the last rank holds
+    ``args["short"]`` batches, the others ``args["batches"]``, and each
+    calls ``hvt.join()`` when its data runs out, then takes the last
+    joiner's parameters. Rank 0 saves the training state after step
+    ``short`` (the one-process reference's start) and scrapes every rank's
+    ``GET /metrics`` after step ``scrape_at``; a barrier after each keeps
+    them out of the next step's time. Then, with every rank active again,
+    the step's gradient allreduce three times under torch.profiler (the
+    histogram's time beside the NCCL kernels') and the header's cost per
+    collective (:func:`_header_cost`)."""
+    import hashlib
+    import urllib.request
+
+    import torch
+
+    import horovod_tpu_torch as hvt
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.ops import _kernels as K
+    from horovod_tpu_torch.train import gpt_config, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r, n, dev = hvt.rank(), hvt.size(), hvt.device()
+    cfg = gpt_config(args["config"], use_flash=True)
+    model = GPT(cfg, device=dev, seed=0)
+    opt = hvt.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=1e-4, weight_decay=1e-4))
+    step = make_train_step(model, opt)
+    batches = args["short"] if r == n - 1 else args["batches"]
+    out = {"losses": [], "step_s": [], "device": str(dev)}
+    K.reset_launches()
+    for i in range(batches):
+        tokens = join_tokens(cfg, i, r, n, args["batch"]).to(dev)
+        t0 = time.perf_counter()
+        out["losses"].append(float(step(tokens)))   # waits for the card
+        out["step_s"].append(time.perf_counter() - t0)
+        if r == 0 and i + 1 == args["short"]:
+            torch.save({"model": model.state_dict(),
+                        "optim": opt.state_dict()},
+                       args["out"] + ".state.pt")
+        if r == 0 and i + 1 == args["scrape_at"]:
+            base = int(os.environ["HVT_METRICS_PORT"])
+            out["scraped"] = []
+            for peer in range(n):
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{base + peer}/metrics",
+                        timeout=30) as resp:
+                    text = resp.read().decode()
+                out["scraped"].append({"text": text, "ms": (
+                    time.perf_counter() - t0) * 1e3})
+        if i + 1 in (args["short"], args["scrape_at"]):
+            hvt.barrier()
+    out["launches"] = dict(K.LAUNCHES)
+    out["param_sums"] = [float(p.detach().double().sum())
+                         for p in model.parameters()]
+    t0 = time.perf_counter()
+    out["last"] = hvt.join()
+    out["join_s"] = time.perf_counter() - t0
+    hvt.broadcast_parameters(model.state_dict(), root_rank=out["last"])
+    digest = hashlib.sha256()
+    for p in model.parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    out["param_sha256"] = digest.hexdigest()
+    if dev.type == "cuda":
+        grads = [p.grad for p in model.parameters()]
+        out["window"] = _profiled_collectives(
+            "grouped_allreduce", lambda: hvt.grouped_allreduce_(grads), 3)
+        out["header_cost"] = _header_cost()
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    out["diagnostics"] = hvt.diagnostics()
+    return out
+
+
+def mode_allreduce_latency(args):
+    """In-place NCCL allreduces of ``args["mib"]`` MiB under torch.profiler
+    (:func:`_profiled_collectives`): their latency from the histogram (CUDA
+    events) beside their NCCL kernels' time."""
+    import torch
+
+    import horovod_tpu_torch as hvt
+
+    x = torch.ones(args["mib"] << 18, device=hvt.device())
+    for _ in range(3):
+        hvt.allreduce_(x, op=hvt.Sum)
+    torch.cuda.synchronize()
+    return dict(_profiled_collectives(
+        "allreduce", lambda: hvt.allreduce_(x, op=hvt.Sum), args["calls"]),
+        bytes=x.numel() * 4)
+
+
+WORKER_MODES = {"gpt", "fail", "fsdp_mlp", "checkpoint", "api", "fsdp_gpt",
+                "join_gpt", "allreduce_latency"}
 
 
 def main():
@@ -473,13 +692,14 @@ class Launch:
     mode out args``, started at construction; the launcher's output goes to
     ``out.log``."""
 
-    def __init__(self, n, mode, out, args=None, timeout=240, env=None):
+    def __init__(self, n, mode, out, args=None, timeout=240, env=None,
+                 launcher_args=()):
         self.n, self.out, self.timeout = n, out, timeout
-        args = dict(args or {}, stack_after=max(timeout - 30, 1))
+        args = dict(args or {}, stack_after=max(timeout - 30, 1), out=out)
         cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
                "-np", str(n), "--master-port", str(free_port()),
-               sys.executable, os.path.abspath(__file__), mode, out,
-               json.dumps(args)]
+               *launcher_args, sys.executable, os.path.abspath(__file__),
+               mode, out, json.dumps(args)]
         env = dict(os.environ if env is None else env, PYTHONPATH=REPO,
                    OMP_NUM_THREADS="1")
         self.log = out + ".log"
