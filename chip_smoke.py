@@ -6,8 +6,8 @@
 Phases, each of which exits non-zero on a failure:
 
 1. device: require CUDA; print the card's name and power limit.
-2. build: compile the six flash-attention kernels from csrc/ with nvcc,
-   one process per source, in parallel.
+2. build: compile the six flash-attention kernels and the wire codecs
+   from csrc/ with nvcc, one process per source, in parallel.
 3. kernels: hold every kernel against its plain PyTorch version, and the
    autograd Function built on them (cotangents on o and on lse) against
    autograd of flash_attention_reference, at eleven shapes: the main
@@ -136,8 +136,35 @@ Phases, each of which exits non-zero on a failure:
    adds; then the step captured in a CUDA graph with and without the
    timeline: the same replayed losses bit for bit, the capture counted once
    in hvt_traced_collectives_total and not timed.
-17. summary: one JSON line listing the kernels (launches on the main path,
-   the observe, accumulation, sequence, checkpoint, fsdp, launch and elastic
+17. fleet: python -m horovod_tpu_torch.runner.launch -np 1 --timeline ...
+   (the launcher's KV server) runs tests/torch_port_launch_worker.py fleet:
+   the main path's GPT through train.train for FLEET_STEPS steps with
+   HVT_TELEMETRY_AGG=1 (the rank leads its host and pushes host frames)
+   and HVT_DEBUGZ_INTERVAL_MS=200; from step FLEET_POLL_FROM the worker
+   reads GET /statusz and GET /debugz each step. The rank's record must be
+   fresh, the schema hvt-statusz-r1, the mode leader, no alert, and
+   hvt_collective_bytes_total{op="grouped_allreduce"} in the host frame;
+   losses within 1e-2 of the main path's, 12 launches a step of each sm90
+   kernel. Prints the snapshot's bytes, a snapshot's build and a PUT's host
+   ms, and each read's ms.
+18. wire: the bench GPT's full gradient (one backward of the main path's
+   batch) as one flat fp32 buffer, and buffers with the codecs' edge cases
+   (NaN of both signs, ±Inf, zero, -0 and subnormal blocks) with tails of 1
+   and 255 elements: each codec kernel (bf16, int8, fp8 × encode,
+   decode_accumulate, ef_roundtrip) bit for bit against its plain version,
+   the stream's length against the wire formula; each kernel timed by CUDA
+   events over 20 calls at the gradient's size beside its bound and its
+   plain version (and for bf16 encode and decode the PyTorch cast). Then
+   the compressed route's code (ops/hierarchical.py compressed_allreduce)
+   over the one-process world's group, one call a codec on the gradient
+   with each parameter's error feedback: the result the roundtrip of the
+   error-fed gradient bit for bit, 2 encodes, 1 decode and one ef_roundtrip
+   a parameter. A one-card world sends no byte, so hvt.allreduce takes the
+   route only across hosts (tests/test_torch_port_cuda.py WIRE4 drives it
+   there); these are the codec kernels' launches in the kernels line.
+19. summary: one JSON line listing the kernels (launches on the main path,
+   or the wire phase's route for the codec kernels; the observe,
+   accumulation, sequence, checkpoint, fsdp, launch, elastic and fleet
    phases), the nvidia-smi line, and last the {"ok": true, ...} line.
 """
 
@@ -170,6 +197,18 @@ REPLACES = {"flash_fwd_sm90": "horovod_tpu/ops/flash_attention.py:94",
             "flash_fwd": "horovod_tpu/ops/flash_attention.py:94",
             "flash_dq": "horovod_tpu/ops/flash_attention.py:156",
             "flash_dkv": "horovod_tpu/ops/flash_attention.py:210"}
+# the wire codec kernels replace the C++ codecs (no Pallas kernel): bf16's
+# Compress/Decompress, the block codecs' Compress/Decompress, and the
+# engine's error-feedback pass around Roundtrip
+for _codec in ("bf16", "int8", "fp8"):
+    SOURCE.update({f"wire_{op}_{_codec}": CSRC + "wire_codec.cu"
+                   for op in ("encode", "decode_accumulate", "ef_roundtrip")})
+    REPLACES.update({
+        f"wire_encode_{_codec}": "horovod_tpu/csrc/codecs.cc:"
+        + ("38" if _codec == "bf16" else "93"),
+        f"wire_decode_accumulate_{_codec}": "horovod_tpu/csrc/codecs.cc:"
+        + ("45" if _codec == "bf16" else "117"),
+        f"wire_ef_roundtrip_{_codec}": "horovod_tpu/csrc/engine.cc:3273"})
 # (B, S, H, H_kv, D, dtype name, causal, o's dtype name); the first is the
 # main path's, the second the accumulation phase's (each update takes the
 # main path's batch as MICRO_BATCHES micro-batches)
@@ -240,6 +279,19 @@ ELASTIC_STEPS, ELASTIC_FAIL_AT = 7, 5
 # the elastic launch: rows of the epoch (ELASTIC_LAUNCH_STEPS batches of
 # MAIN_SHAPE[0] rows) and the commit after which the worker is preempted
 ELASTIC_LAUNCH_STEPS, ELASTIC_SIGTERM_AFTER = 6, 2
+# the wire phase: the codec kernels timed over WIRE_ITERS calls; the ragged
+# buffers hold WIRE_BLOCKS whole blocks and a tail of each WIRE_TAILS
+WIRE_CODECS = ("bf16", "int8", "fp8")
+WIRE_ITERS, WIRE_BLOCKS, WIRE_TAILS = 20, 4096, (1, 255)
+WIRE_OPS = ("encode", "decode_accumulate", "ef_roundtrip")
+# where the kernels line's codec launches come from: hvt.allreduce and the
+# DistributedOptimizer reach the codec kernels only across hosts, which the
+# four-card WIRE4 test (tests/test_torch_port_cuda.py) drives
+WIRE_LAUNCHES_FROM = ("wire phase: ops/hierarchical.py compressed_allreduce "
+                      "called directly, plan flat, a group of one")
+# the fleet phase: the launched job's steps, the step from which it reads
+# /statusz and /debugz, and its push period
+FLEET_STEPS, FLEET_POLL_FROM, FLEET_INTERVAL_MS = 12, 6, 200
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -494,14 +546,16 @@ def kernel_phase(case, K, ref_fn, timings):
                                            variant=vr),
             lambda: K.flash_fwd_plain(q, k, v, scale, causal, out_dtype),
             sdpa_fwd)
+        # dq and dkv: SDPA's backward alone (on a retained graph), the one
+        # call that computes them
         timed[K._kernel("flash_dq", q, variant)] = (
             lambda vr=variant: K.flash_dq(*args, variant=vr),
             lambda r=sm90: K.flash_dq_plain(*args, round_operands=r),
-            sdpa_pair)
+            sdpa_bwd)
         timed[K._kernel("flash_dkv", q, variant)] = (
             lambda vr=variant: K.flash_dkv(*args, variant=vr),
             lambda r=sm90: K.flash_dkv_plain(*args, round_operands=r),
-            sdpa_pair)
+            sdpa_bwd)
     for name, (kern, plain, lib) in timed.items():
         bound_ms, bound_by = bound(name, b, s, h, h_kv, d, dtype_name,
                                    causal, out_name)
@@ -514,8 +568,8 @@ def kernel_phase(case, K, ref_fn, timings):
               **timings[name], "wrapper_host_ms": host_ms,
               "library": "scaled_dot_product_attention "
                          + ("forward" if name.startswith("flash_fwd")
-                            else "forward + backward"),
-              "library_backward_only_ms": sdpa_bwd})
+                            else "backward on a retained graph"),
+              "library_forward_backward_ms": sdpa_pair})
 
 
 def main_path(hvt, K):
@@ -834,7 +888,11 @@ def observe_phase(hvt, K, main_losses, main_step_s):
             for session in range(1, PROFILE_SESSIONS + 1):
                 before = _latency(op)
                 hvt.start_timeline(path, profiler=profiler)
-                if profiler:        # a lost marker: a lost prefix
+                if profiler:
+                    # a session can lose its first device record: a fill
+                    # kernel takes that place, and a lost marker then means
+                    # a lost prefix (device_time runs one call first too)
+                    torch.zeros(1, device=hvt.device())
                     torch.cuda._sleep(MARK_CYCLES)
                 K.reset_launches()
                 res = train(cfg, steps, batch, seq, seed=0,
@@ -1360,7 +1418,7 @@ def vision_phase():
 
 def _sm90_only(tag, launches, steps, per_step):
     """Fail unless each sm90 kernel launched ``per_step`` times a step and
-    no SIMT kernel ran."""
+    no SIMT or codec kernel ran."""
     for name, n in launches.items():
         want = per_step * steps if name.endswith("_sm90") else 0
         if n != want:
@@ -1698,6 +1756,285 @@ def elastic_phase(hvt, K, main_losses):
     return launches
 
 
+def _gradient_buffer(hvt):
+    """The bench GPT's full gradient (one backward of the main path's
+    batch, built as the bench phase builds the model) as one flat fp32
+    buffer, with the parameters' names and sizes."""
+    import torch
+
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.train import gpt_config, loss_fn, seeded_tokens
+
+    cfg = gpt_config("bench", use_flash=True, dtype=torch.bfloat16)
+    model = GPT(cfg, device=hvt.device(), seed=0)
+    loss_fn(model, seeded_tokens(cfg, MAIN_SHAPE[0], cfg.max_seq_len,
+                                 seed=0)).backward()
+    named = [(n, p) for n, p in model.named_parameters()
+             if p.grad is not None]
+    flat = torch.cat([p.grad.float().reshape(-1) for _, p in named])
+    names, sizes = [n for n, _ in named], [p.numel() for _, p in named]
+    del model, named
+    torch.cuda.empty_cache()
+    return flat, names, sizes
+
+
+def _edge_buffer(n, seed):
+    """n seeded values over 16 decades with the codecs' edge cases: NaN of
+    both signs, ±Inf, a zero block, a -0 block, subnormal blocks."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(n) * np.logspace(-8, 8, n)).astype(np.float32)
+    x[5], x[300], x[301], x[700] = np.nan, np.inf, -np.inf, -np.nan
+    x[512:768], x[1280:1536] = 0.0, -0.0
+    x[768:1024] = np.float32(1e-42)
+    x[1024:1280] = (np.float32(1e-39) * rng.randn(256)).astype(np.float32)
+    return torch.from_numpy(x).cuda()
+
+
+def _same_bits(a, b):
+    import torch
+
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _wire_check(tag, W, codec, x):
+    """Every codec kernel against its plain version on ``x``, bit for bit,
+    and the stream's length against the formula. Returns the kernels'
+    calls and their plain versions, for timing."""
+    import torch
+
+    n = x.numel()
+    stream = W.encode(x, codec)
+    want_len = (n // 256) * 260 + (4 + n % 256 if n % 256 else 0) \
+        if codec != "bf16" else 2 * n
+    if stream.numel() != want_len or W.wire_bytes(codec, n) != want_len:
+        fail(f"wire {tag}: {codec} stream of {n} elements holds "
+             f"{stream.numel()} bytes, the formula {want_len}")
+    if not _same_bits(stream, W.encode_plain(x, codec)):
+        fail(f"wire {tag}: encode_{codec} differs from its plain version")
+    dec = W.decode_accumulate(stream, codec, n)
+    ref = W.decode_accumulate_plain(stream, codec, n, torch.empty_like(x))
+    if not _same_bits(dec, ref):
+        fail(f"wire {tag}: decode_{codec} differs from its plain version")
+    base = torch.randn(n, device=x.device, generator=torch.Generator(
+        device=x.device).manual_seed(1))
+    acc = W.decode_accumulate(stream, codec, n, out=base.clone(),
+                              accumulate=True)
+    if not _same_bits(acc, base + ref):
+        fail(f"wire {tag}: decode_accumulate_{codec} differs from its plain "
+             f"version")
+    res = torch.randn(n, device=x.device, generator=torch.Generator(
+        device=x.device).manual_seed(2)) * 1e-3
+    s1, r1, s2, r2 = x.clone(), res.clone(), x.clone(), res.clone()
+    W.ef_roundtrip(s1, codec, r1)
+    W.ef_roundtrip_plain(s2, codec, r2)
+    if not (_same_bits(s1, s2) and _same_bits(r1, r2)):
+        fail(f"wire {tag}: ef_roundtrip_{codec} differs from its plain "
+             f"version")
+    p1, p2 = x.clone(), x.clone()
+    if not _same_bits(W.ef_roundtrip(p1, codec),
+                      W.ef_roundtrip_plain(p2, codec)):
+        fail(f"wire {tag}: the roundtrip of {codec} differs from its plain "
+             f"version")
+    acc_buf = base.clone()
+    return {"encode": (lambda: W.encode(x, codec),
+                       lambda: W.encode_plain(x, codec)),
+            "decode_accumulate": (
+                lambda: W.decode_accumulate(stream, codec, n, out=acc_buf,
+                                            accumulate=True),
+                lambda: W.decode_accumulate_plain(stream, codec, n, acc_buf,
+                                                  accumulate=True)),
+            "ef_roundtrip": (lambda: W.ef_roundtrip(s1, codec, r1),
+                             lambda: W.ef_roundtrip_plain(s2, codec, r2))}
+
+
+def _wire_bound(op, codec, n):
+    """(bound_ms, bound_by) of one codec kernel on n elements: each input
+    read once and each output written once over the HBM rate (the
+    arithmetic is a few operations an element, far under the card's)."""
+    wire = 2 * n if codec == "bf16" else \
+        (n // 256) * 260 + (4 + n % 256 if n % 256 else 0)
+    nbytes = {"encode": 4 * n + wire,
+              "decode_accumulate": wire + 8 * n,     # read acc, write acc
+              "ef_roundtrip": 16 * n}[op]            # seg and r, each way
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def wire_phase(hvt, K, timings):
+    """The wire codec kernels: each held bit for bit against its plain
+    version on the bench GPT's full gradient as one flat fp32 buffer and
+    on edge-case buffers with tails of 1 and 255 elements, timed at the
+    gradient's size; then the compressed route's code
+    (``ops/hierarchical.py``) over the one-process world's group, one call
+    a codec on that buffer with each parameter's error feedback, the
+    kernels' launches counted. Returns those counts."""
+    import torch
+
+    from horovod_tpu_torch import compression
+    from horovod_tpu_torch.compression import codecs as W
+    from horovod_tpu_torch.ops import hierarchical
+
+    hvt.init()
+    grad, names, sizes = _gradient_buffer(hvt)
+    n = grad.numel()
+    if not torch.isfinite(grad).all():
+        fail("wire: the gradient buffer is not finite")
+    out = {"phase": "wire", "elements": n, "parameters": len(sizes),
+           "bytes_fp32": 4 * n, "codecs": {}}
+    for codec in WIRE_CODECS:
+        row = {}
+        for i, tail in enumerate(WIRE_TAILS):
+            _wire_check(f"edge tail {tail}", W, codec,
+                        _edge_buffer(256 * WIRE_BLOCKS + tail, seed=i))
+        calls = _wire_check("gradient", W, codec, grad)
+        for op in WIRE_OPS:
+            name = f"wire_{op}_{codec}"
+            kern, plain = calls[op]
+            ms, host_ms = cuda_ms(kern, WIRE_ITERS)
+            bound_ms, bound_by = _wire_bound(op, codec, n)
+            lib = None
+            if codec == "bf16" and op == "encode":
+                lib = cuda_ms(lambda: grad.to(torch.bfloat16), WIRE_ITERS)[0]
+            elif codec == "bf16" and op == "decode_accumulate":
+                st, acc = W.encode(grad, codec), grad.clone()
+                lib = cuda_ms(lambda: acc.add_(st.view(torch.bfloat16)),
+                              WIRE_ITERS)[0]
+            timings[name] = {"max_abs_err": 0.0, "ms": ms,
+                             "plain_ms": cuda_ms(plain, 5)[0],
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": lib}
+            row[op] = dict(timings[name], wrapper_host_ms=host_ms,
+                           x_bound=ms / bound_ms)
+        out["codecs"][codec] = row
+        torch.cuda.empty_cache()
+    # the route's code on the gradient: a group of one member, so the own
+    # chunk is summed raw and the gathered stream decoded, after error
+    # feedback quantized each parameter's segment with its residual
+    ps = hvt.global_process_set
+    route = {}
+    K.reset_launches()
+    for codec in WIRE_CODECS:
+        compression.configure({"HVT_WIRE_COMPRESSION": f"none,{codec}",
+                               "HVT_EF_MAX_BYTES": str(8 * n)})
+        buf = grad.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hierarchical.compressed_allreduce(buf, ps, ("flat", 1), names=names,
+                                          segments=sizes)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want, off = grad.clone(), 0
+        for k in sizes:     # a first residual is zeros: -0 + 0 is +0
+            W.ef_roundtrip_plain(want[off:off + k], codec,
+                                 torch.zeros(k, device=want.device))
+            off += k
+        want = W.roundtrip_plain(want, codec)
+        if not _same_bits(buf, want):
+            fail(f"wire route {codec}: the result is not the roundtrip of "
+                 f"the error-fed gradient")
+        route[codec] = {"ms": ms, "tx": compression.tx_bytes(),
+                        "ef_residual_bytes": compression.state().ef.bytes}
+    launches = dict(K.LAUNCHES)
+    compression.configure()
+    out["route"] = route
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    emit(out)
+    for codec in WIRE_CODECS:
+        want = {f"wire_encode_{codec}": 2,
+                f"wire_decode_accumulate_{codec}": 1,
+                f"wire_ef_roundtrip_{codec}": len(sizes)}
+        for name, count in want.items():
+            if launches[name] != count:
+                fail(f"wire route: {name} launched {launches[name]} times, "
+                     f"expected {count}")
+    if any(launches[k] for k in K.FLASH_KERNELS):
+        fail(f"wire route: flash kernels launched: {launches}")
+    del grad
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fleet_phase(main_losses):
+    """The launcher's -np 1 job of the main path (tests/
+    torch_port_launch_worker.py fleet: the bench GPT through train.train)
+    with --timeline (the launcher's KV server), HVT_TELEMETRY_AGG=1 and
+    HVT_DEBUGZ_INTERVAL_MS=FLEET_INTERVAL_MS; from step FLEET_POLL_FROM the
+    worker reads /statusz and /debugz each step. Returns the worker's
+    launch counts."""
+    import torch
+
+    out_dir = tempfile.mkdtemp(prefix="hvt_fleet_")
+    out = os.path.join(out_dir, "res")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+           "1", "--master-port", str(port), "--timeline",
+           os.path.join(out_dir, "timeline.json"), sys.executable,
+           os.path.join(REPO, "tests", "torch_port_launch_worker.py"),
+           "fleet", out, json.dumps({
+               "device": "cuda", "config": "bench", "steps": FLEET_STEPS,
+               "poll_from": FLEET_POLL_FROM, "batch": MAIN_SHAPE[0],
+               "seq": MAIN_SHAPE[1]})]
+    env = dict(os.environ, PYTHONPATH=REPO, HVT_TELEMETRY_AGG="1",
+               HVT_DEBUGZ_INTERVAL_MS=str(FLEET_INTERVAL_MS))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=600, env=env)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"fleet: the launcher exited {proc.returncode}:\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        res = torch.load(out + ".0.pt", weights_only=False)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    st, dz = res["statusz"], res["debugz"]
+    rec = st.get("ranks", {}).get("0", {})
+    host = next(iter(st.get("hosts", {}).values()), {})
+    families = (host.get("metrics") or {}).get("metrics") or {}
+    coll = {s["labels"].get("op"): s["value"] for s in families.get(
+        "hvt_collective_bytes_total", {}).get("samples", ())}
+    emit({"phase": "fleet", "command": "python -m "
+          "horovod_tpu_torch.runner.launch -np 1 --timeline ... python "
+          "tests/torch_port_launch_worker.py fleet ...",
+          "env": {"HVT_TELEMETRY_AGG": "1",
+                  "HVT_DEBUGZ_INTERVAL_MS": FLEET_INTERVAL_MS},
+          "seconds": seconds, "losses": res["losses"],
+          "step_ms_median": statistics.median(res["step_s"][2:]) * 1e3,
+          "statusz": {k: st.get(k) for k in (
+              "schema", "mode", "ranks_expected", "ranks_covered",
+              "missing_ranks", "alerts", "codecs", "totals", "rates",
+              "health_windows", "ingest")},
+          "rank_record": rec, "hvt_collective_bytes_total": coll,
+          "debugz_telemetry_hosts": dz.get("telemetry_hosts"),
+          "snapshot_bytes": res["snapshot_bytes"],
+          "snapshot_build_host_ms": res["snapshot_ms"],
+          "push_put_host_ms": res["put_ms"],
+          "statusz_get_ms": res["statusz_ms"],
+          "debugz_get_ms": res["debugz_ms"], "launches": res["launches"]})
+    if st.get("schema") != "hvt-statusz-r1" or st.get("alerts") \
+            or st.get("mode") != "leader" or not rec or rec.get("stale") \
+            or st.get("ranks_covered") != 1:
+        fail(f"fleet: /statusz {st.get('schema')}, mode {st.get('mode')}, "
+             f"alerts {st.get('alerts')}, rank 0's record {rec}")
+    if not coll.get("grouped_allreduce"):
+        fail(f"fleet: no hvt_collective_bytes_total{{op=grouped_allreduce}} "
+             f"in the host frame: {sorted(families)}")
+    if not dz.get("telemetry_hosts") or dz.get("world", {}).get("size") != 1:
+        fail(f"fleet: /debugz {dz}")
+    rels = [abs(a - b) / abs(b) for a, b in zip(res["losses"], main_losses)]
+    if max(rels) > LOSS_RTOL or not all(math.isfinite(x)
+                                        for x in res["losses"]):
+        fail(f"fleet: losses {res['losses']} are not within {LOSS_RTOL} of "
+             f"the main path's {main_losses}")
+    _sm90_only("fleet", res["launches"], FLEET_STEPS, MAIN_LAYERS)
+    return res["launches"]
+
+
 def elastic_launch_phase():
     """The elastic launcher's one-card job: a SIGTERM after commit
     ELASTIC_SIGTERM_AFTER becomes HostsUpdatedInterrupt at the next commit,
@@ -1779,7 +2116,6 @@ def main():
           "libraries": {n: p.name for n, p in libs.items()},
           "ptxas": {n: ptxas_summary(log)
                     for n, log in K.build_log().items()}})
-
     timings = {}
     for case in CASES:
         kernel_phase(case, K, flash_attention_reference, timings)
@@ -1811,10 +2147,21 @@ def main():
     hvt.shutdown()
     torch.cuda.empty_cache()
     elastic_launch_launches = elastic_launch_phase()
+    fleet_launches = fleet_phase(main_losses)
+    wire_launches = wire_phase(hvt, K, timings)
+    hvt.shutdown()
+    torch.cuda.empty_cache()
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
-         "replaces": REPLACES[name], "launches": launches[name],
+         "replaces": REPLACES[name],
+         # a codec kernel's path is the compressed route (wire phase)
+         "launches": wire_launches[name] if name in K.CODEC_KERNELS
+         else launches[name],
+         "launches_from": WIRE_LAUNCHES_FROM if name in K.CODEC_KERNELS
+         else "main_path",
+         "launches_main_path": launches[name],
+         "launches_fleet": fleet_launches[name],
          "launches_observe": observe_launches[name],
          "launches_accumulation": acc_launches[name],
          "launches_sequence": seq_launches[name],

@@ -19,7 +19,9 @@ with ``@hvt.elastic.run`` and ``hvt.elastic.TorchState``, launched with
 ``--min-np``. Watch a job with ``hvt.metrics`` (``launch --metrics-port``
 serves ``GET /metrics`` from every worker), ``hvt.start_timeline`` (or
 ``launch --timeline``) and ``hvt.diagnostics()``; let ranks with unequal
-data finish with ``hvt.join()``.
+data finish with ``hvt.join()``. ``HVT_WIRE_COMPRESSION`` moves fp32
+allreduces between hosts through block-scaled wire codecs
+(``horovod_tpu_torch.compression``, ``hvt.wire_compression()``).
 """
 
 from horovod_tpu_torch import callbacks, checkpoint, metrics
@@ -43,7 +45,8 @@ from horovod_tpu_torch.ops.collective_ops import (
     broadcast_, broadcast_async, broadcast_async_, grouped_allgather,
     grouped_allgather_async, grouped_allreduce, grouped_allreduce_,
     grouped_allreduce_async, grouped_allreduce_async_, grouped_reducescatter,
-    join, poll, reducescatter, reducescatter_async, synchronize)
+    join, poll, reducescatter, reducescatter_async, synchronize,
+    wire_compression)
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_attention_with_lse)
@@ -89,5 +92,5 @@ __all__ = [
     "Compression", "flash_attention", "flash_attention_with_lse",
     "DistributedOptimizer", "PartialDistributedOptimizer", "SyncBatchNorm",
     "callbacks", "checkpoint", "elastic", "metrics",
-    "start_timeline", "stop_timeline", "diagnostics",
+    "start_timeline", "stop_timeline", "diagnostics", "wire_compression",
 ]

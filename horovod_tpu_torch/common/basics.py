@@ -29,7 +29,9 @@ timeline shard ``<base>.rank<r>``, its clock aligned to the launcher's
 and uploaded there by ``shutdown``. A port that cannot be bound or a shard
 that cannot be opened raises. :func:`reinit` brings both back on the same
 port and the same shard. :func:`diagnostics` names this rank's collectives
-in flight.
+in flight. When that KV server is known, ``init`` also starts the telemetry
+push loop (:func:`_debugz_push_loop`, ``metrics/telemetry.py``) that feeds
+its ``GET /debugz`` and ``GET /statusz``; ``shutdown`` stops it.
 """
 
 from __future__ import annotations
@@ -67,6 +69,9 @@ class _World:
         # was aborted (None while it is healthy)
         self.elastic_round = os.environ.get("HVT_ELASTIC_ROUND")
         self.aborted = None
+        # the telemetry pusher of this world (_start_push_loop)
+        self.push_stop = None
+        self.push_thread = None
 
 
 def _env_int(name, default):
@@ -103,6 +108,7 @@ def init(comm=None, process_sets=None, device=None, timeout_s=300):
     _start(device, timeout_s)
     _last_init.update(device=device, timeout_s=timeout_s)
     _start_observers()
+    _start_push_loop()
     from horovod_tpu_torch.common import process_sets as _ps
 
     for ps in process_sets or ():
@@ -146,9 +152,11 @@ def _start(device, timeout_s):
 
         global_process_set.process_set_id = 0
         _state.process_sets[0] = global_process_set
+        from horovod_tpu_torch import compression
         from horovod_tpu_torch.ops import collective_ops
 
         collective_ops._reset_join()
+        compression.configure()
 
 
 def _env_on(name) -> bool:
@@ -178,8 +186,7 @@ def _start_observers():
             _observe["shard"] = (f"{shard_base}.rank{r}", r)
             atexit.register(timeline.stop)
         path, pid = _observe["shard"]
-        addr = (os.environ.get("HVT_DIAG_ADDR")
-                or os.environ.get("HVT_RENDEZVOUS_ADDR"))
+        addr = _rendezvous_addr()
         meta = {}
         if addr:
             # an unaligned shard still merges, only skewed: the failure is
@@ -196,6 +203,93 @@ def _start_observers():
         timeline.start(path, profiler=_env_on("HVT_TIMELINE_TORCH_PROFILER"),
                        pid=pid, upload_addr=addr, append=not first,
                        meta=meta)
+
+
+def _rendezvous_addr():
+    """The launcher's KV server: the static job's (``--timeline``) or the
+    elastic rendezvous."""
+    return (os.environ.get("HVT_DIAG_ADDR")
+            or os.environ.get("HVT_RENDEZVOUS_ADDR"))
+
+
+def _start_push_loop():
+    """This world's telemetry pusher (the JAX package's
+    ``basics.py:156-163``), when the launcher's KV server is known."""
+    world = _state
+    addr = _rendezvous_addr()
+    if world is None or not addr or world.push_stop is not None:
+        return
+    world.push_stop = threading.Event()
+    world.push_thread = threading.Thread(
+        target=_debugz_push_loop, args=(addr, world.rank, world.push_stop),
+        daemon=True, name="hvt-telemetry-push")
+    world.push_thread.start()
+
+
+def _stop_push_loop(world):
+    if world.push_stop is not None:
+        world.push_stop.set()
+        # the leader's last relay flush: bounded by the HTTP timeout
+        world.push_thread.join(timeout=5)
+
+
+def _telemetry_stats() -> dict:
+    """The port's stats for a telemetry snapshot, from the metrics
+    registry: collective bytes and counts per op, encoded wire bytes per op
+    and per (codec, op), and the error-feedback residual bytes."""
+    from horovod_tpu_torch import metrics
+
+    reg = metrics.registry()
+
+    def per(name, key=lambda labels: labels["op"], value=None):
+        out = {}
+        metric = reg.get(name)
+        for labels, child in (metric.samples() if metric else ()):
+            v = value(child) if value else child.value
+            out[key(labels)] = out.get(key(labels), 0) + int(v)
+        return out
+
+    codec_tx = {}
+    for (codec, op), v in per("hvt_wire_tx_bytes_total",
+                              key=lambda l: (l["codec"], l["op"])).items():
+        codec_tx.setdefault(codec, {})[op] = v
+    ef = reg.get("hvt_ef_residual_bytes")
+    return {"collective_bytes": per("hvt_collective_bytes_total"),
+            "collective_count": per(
+                "hvt_collective_latency_seconds",
+                value=lambda child: child.snapshot()[2]),
+            "wire_tx_bytes": per("hvt_wire_tx_bytes_total"),
+            "wire_tx_comp_bytes": per("hvt_wire_tx_compressed_bytes_total"),
+            "codec_tx_bytes": codec_tx,
+            "ef_residual_bytes": int(ef.value) if ef else 0}
+
+
+def _telemetry_snapshot(rank: int) -> dict:
+    """This worker's push payload (``metrics/telemetry.py``):
+    :func:`diagnostics`, whose ``engine`` carries the number of collectives
+    pending as its queue depth and the wire-codec pair, plus the compact
+    record and the counter frame of :func:`_telemetry_stats`."""
+    from horovod_tpu_torch import compression
+    from horovod_tpu_torch.metrics import telemetry
+
+    diag = diagnostics()
+    intra, inter = compression.wire_pair()
+    diag["engine"] = dict(diag["engine"], queue_depth=len(diag["pending"]),
+                          wire={"intra": intra, "inter": inter,
+                                "auto": compression.auto_active()})
+    return telemetry.build_snapshot(rank, telemetry.host_name(), diag,
+                                    _telemetry_stats())
+
+
+def _debugz_push_loop(addr: str, rank: int, stop: "threading.Event"):
+    """Push this worker's telemetry until ``stop`` is set: every
+    ``HVT_DEBUGZ_INTERVAL_MS`` (default 5000, ±25 % jitter), directly to
+    ``/kv/debugz/<rank>``, or through the host leader under
+    ``HVT_TELEMETRY_AGG=1``. A dead server never disturbs training."""
+    from horovod_tpu_torch.metrics import telemetry
+
+    telemetry.TelemetryPusher(addr, rank, lambda: _telemetry_snapshot(rank),
+                              stop).run()
 
 
 def reinit():
@@ -217,6 +311,7 @@ def shutdown():
         from horovod_tpu_torch import metrics
         from horovod_tpu_torch.utils import timeline
 
+        _stop_push_loop(_state)
         # the timeline resolves the last collectives' device spans first,
         # then closes and uploads its shard
         timeline.stop()

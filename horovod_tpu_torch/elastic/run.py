@@ -203,25 +203,52 @@ def _put_report(scope: str, obj: dict, retries: int = 0,
         return False
 
 
+def _relay_report(scope: str, key: str, obj: dict, urgent: bool,
+                  timeout: float = 5.0) -> bool:
+    """PUT a worker report through the host leader's relay
+    (``metrics/telemetry.py relay_put``: under ``HVT_TELEMETRY_AGG=1`` one
+    ``/kvbulk`` request a host per flush), falling back to a direct PUT;
+    best-effort, as the driver may itself be down."""
+    addr = _elastic_addr()
+    if not addr:
+        return False
+    try:
+        from horovod_tpu_torch.metrics.telemetry import relay_put
+
+        return relay_put(addr, scope, key, obj, urgent=urgent,
+                         timeout=timeout)
+    except Exception:
+        return False
+
+
 def _report_failure(round_: int, err: Exception):
-    """PUT a failure report to the driver (``/kv/failure/<host>/<slot>``).
-    The port's collectives name no failed peer, so ``failed_ranks`` is
-    empty and the dead worker's own exit tells the driver which slot it
-    was."""
-    _put_report("failure", {"round": round_, "error": str(err)[:2048],
-                            "failed_ranks": []})
+    """A failure report to the driver (``/kv/failure/<host>/<slot>``),
+    urgent. The port's collectives name no failed peer, so
+    ``failed_ranks`` is empty and the dead worker's own exit tells the
+    driver which slot it was."""
+    host, slot = _my_identity()
+    _relay_report("failure", f"{host}/{slot}",
+                  {"round": round_, "error": str(err)[:2048],
+                   "failed_ranks": []}, urgent=True)
 
 
 def _report_state(state_name: str, round_: int):
-    # the driver's round barrier counts READY reports: worth retrying
-    _put_report("state", {"state": state_name, "round": round_}, retries=4)
+    host, slot = _my_identity()
+    body = {"state": state_name, "round": round_}
+    if _relay_report("state", f"{host}/{slot}", body, urgent=True):
+        return
+    # the driver's round barrier counts READY reports: worth a retried
+    # direct PUT when the relay and its direct fallback both failed
+    _put_report("state", body, retries=4)
 
 
 def _report_recovery(body: dict):
-    """One recovery-phase report (``/kv/recovery/<host>/<slot>``)."""
+    """One recovery-phase report (``/kv/recovery/<host>/<slot>``); not
+    urgent: it may ride the leader's next flush."""
     host, slot = _my_identity()
-    _put_report("recovery", dict(body, host=host, slot=slot, ts=time.time()),
-                timeout=3.0)
+    _relay_report("recovery", f"{host}/{slot}",
+                  dict(body, host=host, slot=slot, ts=time.time()),
+                  urgent=False, timeout=3.0)
 
 
 def _sync_slot_from_rendezvous(last_round: int,

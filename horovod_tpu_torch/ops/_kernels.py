@@ -2,7 +2,8 @@
 plain PyTorch version beside each kernel.
 
 Six CUDA C++ kernels replace the three Pallas kernels of
-``horovod_tpu/ops/flash_attention.py``:
+``horovod_tpu/ops/flash_attention.py``, and ``wire_codec.cu`` holds the wire
+codecs of the compressed allreduce (``compression/codecs.py`` wraps them):
 
 ==================  ========================  ==============================
 kernel              source (``csrc/``)        replaces
@@ -55,11 +56,18 @@ SOURCES = {"flash_fwd_sm90": "flash_fwd_sm90.cu",
            "flash_dq_sm90": "flash_dq_sm90.cu",
            "flash_dkv_sm90": "flash_dkv_sm90.cu",
            "flash_fwd": "flash_fwd.cu", "flash_dq": "flash_dq.cu",
-           "flash_dkv": "flash_dkv.cu"}
+           "flash_dkv": "flash_dkv.cu", "wire_codec": "wire_codec.cu"}
+FLASH_KERNELS = ("flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90",
+                 "flash_fwd", "flash_dq", "flash_dkv")
+# the wire codecs' kernels (wire_codec.cu; wrappers in compression/codecs.py):
+# an entry point per codec
+CODEC_KERNELS = tuple(f"wire_{op}_{codec}" for codec in ("bf16", "int8", "fp8")
+                      for op in ("encode", "decode_accumulate",
+                                 "ef_roundtrip"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in FLASH_KERNELS + CODEC_KERNELS}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _libs: dict = {}
@@ -137,11 +145,18 @@ def _lib(name: str):
             argtypes = {"flash_fwd_sm90": fwd, "flash_dq_sm90": dq,
                         "flash_dkv_sm90": dkv, "flash_fwd": fwd,
                         "flash_dq": dq, "flash_dkv": dkv}
+            i64 = ctypes.c_longlong
+            wire = {"hvt_wire_encode": [ptr, ptr, i64, i32, ptr],
+                    "hvt_wire_decode_accumulate": [ptr, ptr, i64, i32, i32,
+                                                   ptr],
+                    "hvt_wire_ef_roundtrip": [ptr, ptr, i64, i32, ptr]}
             for n, path in build().items():
                 lib = ctypes.CDLL(str(path))
-                fn = getattr(lib, f"hvt_{n}")
-                fn.argtypes = argtypes[n]
-                fn.restype = ctypes.c_int
+                for fname, args in (wire.items() if n == "wire_codec"
+                                    else [(f"hvt_{n}", argtypes[n])]):
+                    fn = getattr(lib, fname)
+                    fn.argtypes = args
+                    fn.restype = ctypes.c_int
                 if n == "flash_fwd_sm90":
                     lib.hvt_wgmma_probe.argtypes = [ptr] * 5
                     lib.hvt_wgmma_probe.restype = ctypes.c_int

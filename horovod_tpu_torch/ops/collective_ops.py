@@ -373,7 +373,16 @@ def _stand_in(desc, active):
         zeros = torch.zeros(dims[:ndim], dtype=_DTYPES[dtype_code - 1],
                             device=basics.device())
         if op == "allreduce":
-            _blocking(dist.all_reduce, zeros, op=_WIRE_OPS[arg], group=group)
+            plan = _wire_plan(zeros, Sum if arg == 0 else None,
+                              global_process_set)
+            if plan is not None:
+                from horovod_tpu_torch.ops import hierarchical
+
+                hierarchical.compressed_allreduce(zeros, global_process_set,
+                                                  plan)
+            else:
+                _blocking(dist.all_reduce, zeros, op=_WIRE_OPS[arg],
+                          group=group)
         elif op == "broadcast":
             _blocking(dist.broadcast, zeros, src=arg, group=group)
         elif op == "reducescatter":
@@ -466,21 +475,51 @@ def poll(handle) -> bool:
     return handle.done()
 
 
+def wire_compression() -> tuple:
+    """The wire-codec pair of this process as ``(intra, inter)`` codec
+    names (``"none"``, ``"bf16"``, ``"int8"`` or ``"fp8"``): the codec an
+    fp32 allreduce moves between processes of one host and across hosts,
+    e.g. ``("none", "int8")`` under ``HVT_WIRE_COMPRESSION=none,int8``,
+    ``("none", "none")`` by default. Under ``auto`` the inter codec is the
+    tuner's latest pick (``horovod_tpu_torch.compression.auto_active()``
+    tells). Distinct from ``hvt.Compression`` (a cast before the
+    collective): wire codecs are transparent to callers, with per-tensor
+    error feedback (``HVT_ERROR_FEEDBACK``) compensating the quantization.
+    Every process of a job must be given the same spec."""
+    from horovod_tpu_torch import compression
+
+    return compression.wire_pair()
+
+
 # --------------------------------------------------------------------------
 # allreduce
 # --------------------------------------------------------------------------
 
+def _wire_plan(buf, op, process_set):
+    """The compressed route of this allreduce (``ops/hierarchical.py``),
+    or None: only an fp32 Sum or Average whose wire codec is lossy takes
+    it (the engine's ``WireEligible``, ``csrc/engine.cc:2148``)."""
+    if op not in (Sum, Average) or buf.dtype != torch.float32 \
+            or buf.numel() == 0:
+        return None
+    from horovod_tpu_torch.ops import hierarchical
+
+    return hierarchical.wire_plan(process_set)
+
+
 def _allreduce_start(buf, op, prescale, postscale, process_set,
-                     segments=None, name=None, timed=True):
+                     segments=None, name=None, timed=True, names=None):
     """Reduce ``buf`` (owned by the caller, may be reduced in place) and
     return a Handle whose result is the reduced tensor. Adasum combines
     each of the flat ``segments`` (lengths; default the whole tensor) with
-    its own coefficients. Over a set of one process every op but Adasum is
-    the identity with the scales applied, so nothing is sent: the result is
-    ready at once, as the JAX package's single-process path is, and a
-    one-process step holds no collective (which a CUDA graph can then
-    capture). ``timed`` counts and times it as an ``allreduce``; a
-    grouped allreduce times its parts as one."""
+    its own coefficients; ``names`` name them for error feedback. Over a
+    set of one process every op but Adasum is the identity with the scales
+    applied, so nothing is sent: the result is ready at once, as the JAX
+    package's single-process path is, and a one-process step holds no
+    collective (which a CUDA graph can then capture). An fp32 Sum or
+    Average under a lossy wire codec takes the compressed route, which is
+    done when this returns. ``timed`` counts and times it as an
+    ``allreduce``; a grouped allreduce times its parts as one."""
     group = process_set.group()
     n = process_set.size()
     timing = _begin("allreduce", process_set, buf, name,
@@ -500,6 +539,16 @@ def _allreduce_start(buf, op, prescale, postscale, process_set,
     if n == 1:
         return _done(finish(), timing)
     header = _announce("allreduce", process_set, buf, arg=_WIRE_CODE[op])
+    plan = _wire_plan(buf, op, process_set)
+    if plan is not None:
+        from horovod_tpu_torch.ops import hierarchical
+
+        hierarchical.compressed_allreduce(
+            buf, process_set, plan, names=names or [name or "allreduce"],
+            segments=segments or [buf.numel()])
+        if header is not None:
+            _collective(_wait, header)
+        return _done(finish(), timing)
     work = _collective(dist.all_reduce, buf, op=_DIST_OP[op], group=group,
                        async_op=True)
     return Handle([header, work], finish, timing)
@@ -610,11 +659,13 @@ def grouped_allreduce_async(tensors, average=None, name=None, op=None,
     for i, (wire, _) in enumerate(wires):
         buckets.setdefault((wire.device, wire.dtype), []).append(i)
     parts = []
+    base = name or "grouped_allreduce"
     for idx in buckets.values():
         flat = torch.cat([wires[i][0].reshape(-1) for i in idx])
         parts.append((idx, _allreduce_start(
             flat, op, prescale_factor, postscale_factor, process_set,
-            segments=[wires[i][0].numel() for i in idx], timed=False)))
+            segments=[wires[i][0].numel() for i in idx], timed=False,
+            names=[f"{base}.{i}" for i in idx])))
 
     def finish():       # the parts' Work objects are already waited for
         out = [None] * len(tensors)

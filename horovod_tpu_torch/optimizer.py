@@ -66,8 +66,13 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 if p.grad is None and p.requires_grad:
                     p.grad = torch.zeros_like(p)
         params = [p for p in params if p.grad is not None]
-        for group in _split_list(params, self._hvt_num_groups or 1):
+        for k, group in enumerate(_split_list(params,
+                                              self._hvt_num_groups or 1)):
+            # the group's name keys its tensors' error-feedback residuals
+            # (compression), as the torch binding names it group.<param>
+            first = self._hvt_names.get(group[0], f"noname.{k}")
             C.grouped_allreduce_([p.grad for p in group],
+                                 name=f"group.{first}",
                                  **self._hvt_reduce_kwargs)
         self._hvt_synchronized = True
 

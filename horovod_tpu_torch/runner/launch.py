@@ -287,10 +287,18 @@ def _run_elastic(args) -> int:
     driver = ElasticDriver(rendezvous, discovery, settings,
                            create_worker_fn=create_worker,
                            on_stop=terminate_children)
+    # HVT_AUTOSCALE=1: scale out on a sustained worker backlog, shed on
+    # failure reports (runner/elastic/autoscaler.py)
+    from horovod_tpu_torch.runner.elastic.autoscaler import \
+        maybe_start_autoscaler
+    autoscaler = maybe_start_autoscaler(driver, rendezvous,
+                                        verbose=bool(args.verbose))
     try:
         driver.start(args.num_proc)
         driver.wait()
     finally:
+        if autoscaler is not None:
+            autoscaler.stop()
         terminate_children()
         if args.timeline:
             # the world's size varies by round: merge what was uploaded

@@ -22,6 +22,8 @@ from horovod_tpu_torch.ops.flash_attention import (flash_attention_reference,
                                                    flash_attention_with_lse)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# no wire codec kernel runs where no lossy wire codec is set
+NO_CODEC = {k: 0 for k in _kernels.CODEC_KERNELS}
 
 # (B, S, H, H_kv, D, dtype, causal, out_dtype)
 CASES = [
@@ -123,6 +125,63 @@ def test_autograd_function_matches_autograd_of_reference(cuda):
         grads.append([o.detach(), lse.detach()] + [x.grad for x in leaves])
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _wire_input(n, device, seed):
+    """Seeded values over 16 decades with the codecs' edge cases: NaN of
+    both signs, ±Inf, a zero block, a -0 block, subnormal blocks."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(n) * np.logspace(-8, 8, n)).astype(np.float32)
+    x[5], x[300], x[301], x[700] = np.nan, np.inf, -np.inf, -np.nan
+    x[512:768], x[1280:1536] = 0.0, -0.0
+    x[768:1024] = np.float32(1e-42)
+    x[1024:1280] = (np.float32(1e-39) * rng.randn(256)).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["bf16", "int8", "fp8"])
+def test_wire_codec_kernels_match_plain_versions_bit_for_bit(cuda, codec):
+    """encode, decode_accumulate (both modes) and ef_roundtrip (with and
+    without a residual) against their plain versions on the same CUDA
+    tensors, at tails of 1 and 255 elements and a whole number of
+    blocks."""
+    from horovod_tpu_torch.compression import codecs as W
+
+    for n in (256 * 8 + 1, 256 * 8 + 255, 256 * 16):
+        x = _wire_input(n, cuda, seed=n)
+        before = dict(_kernels.LAUNCHES)
+        stream = W.encode(x, codec)
+        assert torch.equal(stream, W.encode_plain(x, codec))
+        assert stream.numel() == W.wire_bytes(codec, n)
+        dec = W.decode_accumulate(stream, codec, n)
+        want = W.decode_accumulate_plain(stream, codec, n,
+                                         torch.empty_like(x))
+        assert _same_bits(dec, want)
+        base = torch.randn(n, device=cuda)
+        acc = W.decode_accumulate(stream, codec, n, out=base.clone(),
+                                  accumulate=True)
+        assert _same_bits(acc, base + want)
+        seg, r = torch.randn(n, device=cuda) * 3, \
+            torch.randn(n, device=cuda) * 0.01
+        seg[7] = float("nan")
+        s1, r1 = seg.clone(), r.clone()
+        W.ef_roundtrip(s1, codec, r1)
+        s2, r2 = seg.clone(), r.clone()
+        W.ef_roundtrip_plain(s2, codec, r2)
+        assert _same_bits(s1, s2) and _same_bits(r1, r2)
+        assert _same_bits(W.ef_roundtrip(x.clone(), codec),
+                          W.roundtrip_plain(x, codec))
+        got = {k: _kernels.LAUNCHES[k] - before[k] for k in before
+               if _kernels.LAUNCHES[k] != before[k]}
+        assert got == {f"wire_encode_{codec}": 1,
+                       f"wire_decode_accumulate_{codec}": 2,
+                       f"wire_ef_roundtrip_{codec}": 2}
 
 
 @pytest.mark.cuda
@@ -289,7 +348,7 @@ def test_nccl_dryrun_and_full_width_sp_tp_step(cuda, tmp_path):
         assert full["launches"] == {
             "flash_fwd_sm90": blocks, "flash_dq_sm90": blocks,
             "flash_dkv_sm90": blocks, "flash_fwd": 0, "flash_dq": 0,
-            "flash_dkv": 0}
+            "flash_dkv": 0, **NO_CODEC}
         need = r["ulysses_least_tol"]
         assert need[0] <= 2e-2 and max(need[1:]) <= 5e-2, need
         summary["ranks"].append({
@@ -637,7 +696,8 @@ def test_nccl_fsdp_sharded_steps_and_checkpoint(cuda, tmp_path):
         rows = []
         for r, res in enumerate(results):
             assert res["launches"] == {
-                **{k + "_sm90": 12 * steps for k in sims}, **sims}, name
+                **{k + "_sm90": 12 * steps for k in sims}, **sims,
+                **NO_CODEC}, name
             if name == "fsdp4_resumed":
                 assert res["restored_step"] == FSDP_SAVE_AT
                 want = runs["fsdp4"][r]["losses"][FSDP_SAVE_AT:
@@ -907,7 +967,7 @@ def test_nccl_join_ragged_ranks_full_width(cuda, tmp_path):
         assert res["launches"] == {
             **{k: 12 * want for k in ("flash_fwd_sm90", "flash_dq_sm90",
                                       "flash_dkv_sm90")},
-            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}, r
+            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, **NO_CODEC}, r
         assert res["diagnostics"]["pending"] == []
     for peer, scrape in enumerate(results[0]["scraped"]):
         assert 'hvt_collective_latency_seconds_count{op="grouped_allreduce"' \
@@ -972,3 +1032,107 @@ def test_nccl_allreduce_latency_from_cuda_events(cuda, tmp_path):
         assert res["nccl_kernels"] == 2 + 2 * calls, res
         assert res["event_ms"] >= 0.95 * res["nccl_kernel_ms"], res
         assert res["event_ms"] - res["nccl_kernel_ms"] < calls * 1.0, res
+
+
+def _wire4_chunk_bytes(codec, m, g, me):
+    """Encoded bytes member ``me`` of a group of ``g`` sends in a
+    compressed reduce-scatter and allgather of ``m`` elements (the wire
+    formula of tests/test_data_plane.py:205, stream by stream)."""
+    c = -(-m // (256 * g)) * 256
+    lens = [max(0, min(c, m - j * c)) for j in range(g)]
+    wb = (lambda k: 2 * k) if codec == "bf16" else \
+        (lambda k: (k // 256) * 260 + (4 + k % 256 if k % 256 else 0))
+    return sum(wb(k) for j, k in enumerate(lens) if j != me) + \
+        (g - 1) * wb(lens[me])
+
+
+@pytest.mark.cuda
+def test_nccl_wire4_codecs_on_two_faked_hosts_full_width(cuda, tmp_path):
+    """WIRE4: the bench GPT at full width under
+    DistributedOptimizer(AdamW) on four cards as two faked hosts of two,
+    each rank on its own rows, WIRE4_STEPS steps under each spec of
+    torch_port_wire_gang.WIRE4_SPECS in turn (a launch each). Every run's
+    losses are finite and within LOSS_RTOL of the raw run's at steps 1 and
+    7, the parameters are bit-identical across the four ranks, each step's
+    encoded bytes equal the wire formula for the codec it used, and the
+    codec kernels launch as the route says. Prints one WIRE4 JSON line
+    (run with -s): step ms a card, the codec kernels' and NCCL's device ms
+    in a profiled step, the cross stage alone by CUDA events."""
+    import json
+    import statistics
+    import subprocess
+
+    import torch_port_wire_gang as WG
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    _kernels.build()        # once, before four processes would each build
+    runs = {}
+    for i, spec in enumerate(WG.WIRE4_SPECS):
+        name = ",".join(f"{k}={v}" for k, v in spec.items()) or "unset"
+        runs[name] = WG.run_wire4(str(tmp_path / f"w{i}"), spec)
+    raw = runs["unset"]
+    summary = {"steps": WG.WIRE4_STEPS, "batch_per_card": WG.WIRE4_BATCH,
+               "seq": WG.WIRE4_SEQ, "n_params": raw[0]["n_params"],
+               "runs": {}}
+    failures = []
+    for name, results in runs.items():
+        n_params = results[0]["n_params"]
+        piece = 256 * -(-n_params // (2 * 256))
+        row = {"losses": [r["losses"] for r in results],
+               "step_ms_median": [statistics.median(r["step_s"][2:]) * 1e3
+                                  for r in results],
+               "codec_ms_per_step": [r["codec_ms_per_step"]
+                                     for r in results],
+               "nccl_ms_per_step": [r["nccl_ms_per_step"] for r in results],
+               "cross_stage_ms_median": [statistics.median(
+                   r["cross_stage_ms"]) for r in results],
+               "cross_stage_elements": results[0]["cross_stage_elements"],
+               "picks": results[0]["picks"],
+               "tx_bytes_total": [r["tx"][-1] for r in results],
+               "ef_residual_bytes": results[0]["ef_residual_bytes"],
+               "ef_dropped": results[0]["ef_dropped"],
+               "launches_rank0": {k: v for k, v in
+                                  results[0]["launches"].items() if v},
+               "profiled_step_device_ms_rank0":
+                   results[0]["profiled_step_device_ms"]}
+        summary["runs"][name] = row
+        for r, res in enumerate(results):
+            losses, ref = res["losses"], raw[r]["losses"]
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+            if not all(map(lambda v: v == v and abs(v) < 1e30, losses)) \
+                    or rel[0] > LOSS_RTOL or rel[6] > LOSS_RTOL:
+                failures.append(f"{name} rank {r}: losses {losses} vs raw "
+                                f"{ref}")
+            if res["param_sha256"] != results[0]["param_sha256"]:
+                failures.append(f"{name}: rank {r}'s parameters differ "
+                                f"from rank 0's")
+            prev, cr = {}, r // 2
+            for i, (tx, pick) in enumerate(zip(res["tx"], res["picks"])):
+                step_tx = {c: v - prev.get(c, 0) for c, v in tx.items()
+                           if v - prev.get(c, 0)}
+                want = {} if pick == "none" else {
+                    pick: _wire4_chunk_bytes(pick, piece, 2, cr)}
+                if step_tx != want:
+                    failures.append(f"{name} rank {r} step {i + 1}: wire "
+                                    f"bytes {step_tx}, formula {want}")
+                prev = tx
+            lossy = [p for p in res["picks"] if p != "none"]
+            want = {k: 12 * WG.WIRE4_STEPS for k in (
+                "flash_fwd_sm90", "flash_dq_sm90", "flash_dkv_sm90")}
+            for codec in set(lossy):
+                k = lossy.count(codec)
+                want.update({f"wire_encode_{codec}": 2 * k,
+                             f"wire_decode_accumulate_{codec}": 3 * k,
+                             f"wire_ef_roundtrip_{codec}":
+                                 res["n_tensors"] * k})
+            got = {k: v for k, v in res["launches"].items() if v}
+            if got != want:
+                failures.append(f"{name} rank {r}: launches {got}, "
+                                f"expected {want}")
+    summary["nvidia_smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print("WIRE4 " + json.dumps(summary))
+    assert not failures, failures

@@ -23,6 +23,10 @@ committing after every step. Arguments:
   after its ``after_commit``-th commit of that round writes ``hosts``;
 - ``sigterm_after_commit``: the worker sends itself one SIGTERM after that
   commit (a preemption notice);
+- ``backlog``: ``{"inflight", "until_size"}``: rank 0, before each step of a
+  world smaller than ``until_size``, PUTs a serving report of ``inflight``
+  requests to ``/kv/serving/0`` on the rendezvous (the autoscaler's backlog
+  signal), and one of 0 once the world has grown;
 - ``hosts_file``: the file the discovery script prints;
 - ``sleep``: seconds to wait before each step, so that a host change
   lands mid-run on a fast CPU model;
@@ -164,6 +168,18 @@ def main():
     lives = {"commits": 0, "round_commits": 0, "grown": False,
              "sizes": []}
 
+    def report_backlog():
+        from horovod_tpu_torch.runner.http_client import put_json
+
+        grown = hvt.size() >= args["backlog"]["until_size"]
+        inflight = 0 if grown else args["backlog"]["inflight"]
+        put_json(os.environ["HVT_RENDEZVOUS_ADDR"], "/kv/serving/0",
+                 {"rank": 0, "replica": 0, "inflight": inflight,
+                  "ts": time.time()}, retries=0)
+        if lives.get("backlog") != inflight:
+            rec.event("backlog", inflight=inflight, size=hvt.size())
+            lives["backlog"] = inflight
+
     def live_digest():
         return digest(model.state_dict(), opt.state_dict(),
                       state._tracked())
@@ -239,6 +255,8 @@ def main():
                     if not idx:
                         break
                 position += 1
+                if args.get("backlog") and hvt.rank() == 0:
+                    report_backlog()
                 time.sleep(args.get("sleep", 0))   # a slower step
                 restored = (args.get("record_restored_step")
                             and position == 1 and len(lives["sizes"]) > 1
@@ -292,15 +310,16 @@ class ElasticLaunch:
     """``python -m horovod_tpu_torch.runner.launch -np n --min-np ...
     --host-discovery-script <script> python <this file> out args``,
     started at construction. The script prints ``out.hosts``, which starts
-    as ``localhost:<n>`` and which the workers rewrite (``kill``, ``grow``).
+    as ``localhost:<slots or n>`` and which the workers rewrite (``kill``,
+    ``grow``).
     The launcher's output goes to ``out.log``."""
 
     def __init__(self, n, out, args, min_np, max_np=None, timeout=240,
-                 env=None):
+                 env=None, slots=None, launcher_args=()):
         self.out, self.timeout = out, timeout
         hosts, script = out + ".hosts", out + ".discover.sh"
         with open(hosts, "w") as f:
-            f.write(f"localhost:{n}\n")
+            f.write(f"localhost:{slots or n}\n")
         with open(script, "w") as f:
             f.write(f"#!/bin/sh\ncat {hosts}\n")
         os.chmod(script, 0o755)
@@ -308,7 +327,8 @@ class ElasticLaunch:
         cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
                "-np", str(n), "--min-np", str(min_np), "--max-np",
                str(max_np or n), "--host-discovery-script", script,
-               "--master-port", str(free_port()), sys.executable,
+               "--master-port", str(free_port()), *launcher_args,
+               sys.executable,
                os.path.abspath(__file__), out, json.dumps(args)]
         env = dict(os.environ if env is None else env, PYTHONPATH=REPO,
                    OMP_NUM_THREADS="1")

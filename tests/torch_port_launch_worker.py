@@ -653,8 +653,65 @@ def mode_allreduce_latency(args):
         bytes=x.numel() * 4)
 
 
+def _get_json_ms(addr, path):
+    from horovod_tpu_torch.runner.http_client import get_json
+
+    t0 = time.perf_counter()
+    doc = get_json(addr, path, timeout=30, retries=0)
+    return doc, (time.perf_counter() - t0) * 1e3
+
+
+def mode_fleet(args):
+    """``args["steps"]`` steps of ``train.train`` on the named GPT while the
+    telemetry push loop runs; from step ``args["poll_from"]`` on, each step
+    reads ``GET /statusz`` and ``GET /debugz`` from the launcher's server
+    (``HVT_DIAG_ADDR``). Returns the last reads, each read's ms, the
+    snapshot's bytes, and the host ms of building a snapshot and of PUTting
+    it to a scratch scope (one push's work)."""
+    import horovod_tpu_torch as hvt
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import _kernels as K
+    from horovod_tpu_torch.runner.http_client import put_bytes
+    from horovod_tpu_torch.train import gpt_config, train
+
+    addr = os.environ["HVT_DIAG_ADDR"]
+    reads = {"statusz_ms": [], "debugz_ms": [], "snapshot_ms": [],
+             "put_ms": []}
+
+    class Poll:
+        def on_epoch_end(self, step, logs):
+            if step + 1 < args["poll_from"]:
+                return
+            deadline = time.monotonic() + 30
+            while "statusz" not in reads and time.monotonic() < deadline:
+                # the first read waits for this rank's first push
+                doc, _ = _get_json_ms(addr, "/statusz")
+                if str(hvt.rank()) in doc.get("ranks", {}):
+                    break
+                time.sleep(0.05)
+            reads["statusz"], ms = _get_json_ms(addr, "/statusz")
+            reads["statusz_ms"].append(ms)
+            reads["debugz"], ms = _get_json_ms(addr, "/debugz")
+            reads["debugz_ms"].append(ms)
+            t0 = time.perf_counter()
+            body = json.dumps(basics._telemetry_snapshot(hvt.rank()))
+            t1 = time.perf_counter()
+            put_bytes(addr, f"/kv/fleet_probe/{hvt.rank()}", body.encode(),
+                      timeout=30, retries=0)
+            reads["snapshot_ms"].append((t1 - t0) * 1e3)
+            reads["put_ms"].append((time.perf_counter() - t1) * 1e3)
+            reads["snapshot_bytes"] = len(body)
+
+    cfg = gpt_config(args["config"], use_flash=True)
+    K.reset_launches()
+    res = train(cfg, args["steps"], args["batch"], args["seq"],
+                device=args["device"], seed=0, callbacks=Poll())
+    return {**_identity(), "losses": res["loss"], "step_s": res["step_s"],
+            "launches": dict(K.LAUNCHES), **reads}
+
+
 WORKER_MODES = {"gpt", "fail", "fsdp_mlp", "checkpoint", "api", "fsdp_gpt",
-                "join_gpt", "allreduce_latency"}
+                "join_gpt", "allreduce_latency", "fleet"}
 
 
 def main():
