@@ -162,10 +162,27 @@ Phases, each of which exits non-zero on a failure:
    a parameter. A one-card world sends no byte, so hvt.allreduce takes the
    route only across hosts (tests/test_torch_port_cuda.py WIRE4 drives it
    there); these are the codec kernels' launches in the kernels line.
-19. summary: one JSON line listing the kernels (launches on the main path,
+19. serving: horovod_tpu_torch.serving.loadgen.run_loadtest in this
+   process on a gang of one (one-process NCCL world), r07's traffic (800
+   requests of 8,192 bytes, burst 2, window 4, sync every 50, admission
+   250 ms) with a contended phase at burst 8 that sheds, unbatched and with
+   HVT_SERVING_BATCH=4: artifacts valid, every result exact, p50, p99,
+   requests/s and host µs a request. A replica of one rank sends nothing;
+   four cards' lanes are SERVE4's (tests/test_torch_port_cuda.py).
+20. run: horovod_tpu_torch.runner.run(fn, np=1): the launcher's worker on
+   cuda:0 takes 2 steps of the main path's GPT; losses within 1e-2 of the
+   main path's, 12 launches a step of each sm90 kernel; the seconds run()
+   took.
+21. estimator: horovod_tpu_torch.spark.TorchEstimator._fit_arrays through
+   the in-process _local_run, a 16-64-1 MLP on 4,096 seeded rows, 2
+   epochs, a FilesystemStore in a temporary directory, on the card and
+   then on the CPU: per-epoch losses within 1e-4, every epoch's checkpoint
+   published, TorchModel.load predicting on the card as the fitted model.
+22. summary: one JSON line listing the kernels (launches on the main path,
    or the wire phase's route for the codec kernels; the observe,
-   accumulation, sequence, checkpoint, fsdp, launch, elastic and fleet
-   phases), the nvidia-smi line, and last the {"ok": true, ...} line.
+   accumulation, sequence, checkpoint, fsdp, launch, elastic, fleet,
+   serving, run and estimator phases), the nvidia-smi line, and last the
+   {"ok": true, ...} line.
 """
 
 import json
@@ -292,6 +309,22 @@ WIRE_LAUNCHES_FROM = ("wire phase: ops/hierarchical.py compressed_allreduce "
 # the fleet phase: the launched job's steps, the step from which it reads
 # /statusz and /debugz, and its push period
 FLEET_STEPS, FLEET_POLL_FROM, FLEET_INTERVAL_MS = 12, 6, 200
+# the serving phase: r07's traffic (benchmarks/r07_serving_loadtest.json's
+# config) on a gang of one, its contended phase at burst 2 x 4 = 8 against a
+# window of 4 so that it sheds; once unbatched, once batched by 4
+SERVING_ARGV = ["--replicas", "1", "--requests", "800", "--bytes", "8192",
+                "--burst", "2", "--window", "4", "--admission-ms", "250",
+                "--gap-ms", "0", "--sync-every", "50",
+                "--saturate-replica", "0", "--saturate-factor", "4",
+                "--phases", "contended,baseline"]
+SERVING_BATCHES = (1, 4)
+# the run phase: steps of the main path's GPT in runner.run's worker
+RUN_STEPS = 2
+# the estimator phase: a 16-64-1 MLP fitted by TorchEstimator on the card
+# and on the CPU; the card's per-epoch losses within ESTIMATOR_RTOL of the
+# CPU's (fp32 both, TF32 off)
+ESTIMATOR_ROWS, ESTIMATOR_FEATURES, ESTIMATOR_EPOCHS = 4096, 16, 2
+ESTIMATOR_BATCH, ESTIMATOR_RTOL = 64, 1e-4
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2088,6 +2121,198 @@ def elastic_launch_phase():
     return life["launches"]
 
 
+def serving_phase(hvt, K):
+    """The port's serving gang on one card (a gang of one): the load
+    generator's run_loadtest in this process with r07's traffic at
+    --replicas 1 (SERVING_ARGV; its contended phase bursts 8 requests into a
+    window of 4, so it sheds), once per HVT_SERVING_BATCH of
+    SERVING_BATCHES. Every artifact must be valid, every result exact
+    (members x (payload + k), checked after each phase outside the timed
+    reaps), the contended phase must shed and the baseline not, on cuda:0.
+    A replica of one rank sends nothing (the allreduce over a set of one
+    returns at once): this drives admission, shedding, batching and latency
+    accounting; four cards' NCCL lanes are SERVE4's
+    (tests/test_torch_port_cuda.py). Returns the launch counts (none
+    expected)."""
+    from horovod_tpu_torch.serving import loadgen
+
+    old = os.environ.get("HVT_SERVING_BATCH")
+    runs = {}
+    K.reset_launches()
+    try:
+        for batch in SERVING_BATCHES:
+            os.environ["HVT_SERVING_BATCH"] = str(batch)
+            args = loadgen._parser().parse_args(SERVING_ARGV)
+            t0 = time.perf_counter()
+            doc = loadgen.run_loadtest(args)
+            runs[batch] = (doc, time.perf_counter() - t0)
+            hvt.shutdown()
+    finally:
+        if old is None:
+            os.environ.pop("HVT_SERVING_BATCH", None)
+        else:
+            os.environ["HVT_SERVING_BATCH"] = old
+    launches = dict(K.LAUNCHES)
+    for batch, (doc, seconds) in runs.items():
+        phases = {p: ph["ranks"][0] for p, ph in doc["phases"].items()}
+        emit({"phase": "serving", "command": "loadgen.run_loadtest "
+              + " ".join(SERVING_ARGV), "HVT_SERVING_BATCH": batch,
+              "seconds": seconds, "device": doc["config"]["device"],
+              "phases": {p: {k: s[k] for k in (
+                  "admitted", "shed", "completed", "deadline_miss",
+                  "batches", "p50_ms", "p99_ms", "throughput_rps",
+                  "checked", "wrong", "max_abs_err")} | {
+                  "host_us_per_completed_request":
+                      1e6 / s["throughput_rps"]}
+                  for p, s in phases.items()}})
+        errs = loadgen.validate_artifact(doc)
+        if errs or doc["config"]["device"] != "cuda:0":
+            fail(f"serving: batch {batch}: artifact {errs} on "
+                 f"{doc['config']['device']}")
+        for p, s in phases.items():
+            if s["wrong"] or s["checked"] != s["admitted"] \
+                    or not s["admitted"]:
+                fail(f"serving: batch {batch} {p}: {s['wrong']} wrong of "
+                     f"{s['checked']} checked, {s['admitted']} admitted")
+        if not phases["contended"]["shed"] or phases["baseline"]["shed"]:
+            fail(f"serving: batch {batch}: shed {phases['contended']['shed']}"
+                 f" contended, {phases['baseline']['shed']} baseline")
+    if any(launches.values()):
+        fail(f"serving: kernels launched: {launches}")
+    return launches
+
+
+def run_api_phase(main_losses):
+    """horovod_tpu_torch.runner.run(fn, np=1) on the card: the launcher's
+    one worker (the task runner) takes RUN_STEPS steps of the main path's
+    GPT on cuda:0; the losses within 1e-2 of the main path's, 12 launches
+    a step of each sm90 kernel, none SIMT. Returns the worker's launch
+    counts."""
+    from horovod_tpu_torch.runner import run
+
+    def fn(steps, batch, seq):
+        # made here, so that cloudpickle ships it by value
+        import torch
+
+        from horovod_tpu_torch.ops import _kernels
+        from horovod_tpu_torch.train import gpt_config, train
+
+        cfg = gpt_config("bench", use_flash=True, dtype=torch.bfloat16)
+        _kernels.reset_launches()
+        res = train(cfg, steps, batch, seq, seed=0)
+        return {"losses": res["loss"], "launches": dict(_kernels.LAUNCHES),
+                "device": str(next(res["model"].parameters()).device),
+                "step_s": res["step_s"]}
+
+    t0 = time.perf_counter()
+    try:
+        (res,) = run(fn, args=(RUN_STEPS, MAIN_SHAPE[0], MAIN_SHAPE[1]),
+                     np=1)
+    except RuntimeError as e:
+        fail(f"run: {e}")
+    seconds = time.perf_counter() - t0
+    emit({"phase": "run", "call": "horovod_tpu_torch.runner.run(fn, np=1)",
+          "seconds": seconds, "device": res["device"],
+          "losses": res["losses"], "main_path_losses":
+          main_losses[:RUN_STEPS], "step_s": res["step_s"],
+          "launches": res["launches"]})
+    if res["device"] != "cuda:0":
+        fail(f"run: the worker trained on {res['device']}")
+    rels = [abs(a - b) / abs(b) for a, b in zip(res["losses"], main_losses)]
+    if len(rels) != RUN_STEPS or max(rels) > LOSS_RTOL:
+        fail(f"run: losses {res['losses']} are not within {LOSS_RTOL} of "
+             f"the main path's {main_losses[:RUN_STEPS]}")
+    _sm90_only("run", res["launches"], RUN_STEPS, MAIN_LAYERS)
+    return res["launches"]
+
+
+def estimator_phase(hvt, K):
+    """TorchEstimator._fit_arrays through the in-process _local_run: a small
+    MLP on ESTIMATOR_ROWS seeded rows, ESTIMATOR_EPOCHS epochs, a
+    FilesystemStore under a temporary directory, first on the card (the
+    estimator's default device), then the same fit on the CPU (gloo);
+    TorchModel.load from each store and predict on the card. The card's
+    per-epoch losses within ESTIMATOR_RTOL of the CPU's, every epoch's
+    checkpoint published, the predictions of the loaded model equal the
+    fitted one's. Returns the card fit's launch counts (none expected)."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.spark import Store, TorchEstimator, TorchModel
+
+    rng = np.random.RandomState(0)
+    X = rng.randn(ESTIMATOR_ROWS, ESTIMATOR_FEATURES).astype(np.float32)
+    y = np.tanh(X @ rng.randn(ESTIMATOR_FEATURES).astype(np.float32))
+    cols = [f"f{i}" for i in range(ESTIMATOR_FEATURES)]
+
+    def mlp():
+        torch.manual_seed(0)
+        return torch.nn.Sequential(
+            torch.nn.Linear(ESTIMATOR_FEATURES, 64), torch.nn.Tanh(),
+            torch.nn.Linear(64, 1))
+
+    class Losses:               # the estimator's callback
+        def __init__(self):
+            self.losses = []
+
+        def on_epoch_end(self, epoch, logs):
+            self.losses.append(logs["loss"])
+
+    hvt.shutdown()
+    fits = {}
+    for device in ("cuda", "cpu"):
+        tmp = tempfile.mkdtemp(prefix="hvt_est_")
+        seen = Losses()
+        try:
+            store = Store.create(os.path.join(tmp, "st"))
+            est = TorchEstimator(
+                model=mlp(), optimizer_fn=lambda p: torch.optim.SGD(
+                    p, lr=0.05), feature_cols=cols, label_col="y",
+                epochs=ESTIMATOR_EPOCHS, batch_size=ESTIMATOR_BATCH,
+                store=store, run_id="smoke", callbacks=[seen],
+                device=None if device == "cuda" else "cpu")
+            K.reset_launches()
+            t0 = time.perf_counter()
+            model = est._fit_arrays(X, y)
+            seconds = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            trained_on = str(hvt.device())
+            hvt.shutdown()
+            published = [store.exists(store.get_run_path("smoke")
+                                      + f"/checkpoint-{e}.pt")
+                         for e in range(ESTIMATOR_EPOCHS)]
+            loaded = TorchModel.load(store, "smoke", mlp())
+            loaded.model.cuda()
+            pred = loaded._predict_arrays(X)
+            want = model._predict_arrays(X)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        fits[device] = {"losses": seen.losses,
+                        "seconds": seconds, "trained_on": trained_on,
+                        "published": published, "launches": launches,
+                        "pred_max_abs_diff": float(np.abs(pred - want).max()),
+                        "mse": float(np.mean((pred - y) ** 2))}
+    rels = [abs(a - b) / abs(b) for a, b in zip(fits["cuda"]["losses"],
+                                                 fits["cpu"]["losses"])]
+    emit({"phase": "estimator", "rows": ESTIMATOR_ROWS,
+          "epochs": ESTIMATOR_EPOCHS, "batch": ESTIMATOR_BATCH,
+          "fits": fits, "rel_diff": rels, "rtol": ESTIMATOR_RTOL})
+    if fits["cuda"]["trained_on"] != "cuda:0" \
+            or fits["cpu"]["trained_on"] != "cpu":
+        fail(f"estimator: fits ran on {fits['cuda']['trained_on']} and "
+             f"{fits['cpu']['trained_on']}")
+    if max(rels) > ESTIMATOR_RTOL or len(rels) != ESTIMATOR_EPOCHS:
+        fail(f"estimator: card losses {fits['cuda']['losses']} vs CPU "
+             f"{fits['cpu']['losses']}: rel diff {rels} > {ESTIMATOR_RTOL}")
+    for device, f in fits.items():
+        if not all(f["published"]) or f["pred_max_abs_diff"] > 1e-5 \
+                or not f["losses"][-1] < f["losses"][0]:
+            fail(f"estimator: {device} fit {f}")
+    if any(fits["cuda"]["launches"].values()):
+        fail(f"estimator: kernels launched: {fits['cuda']['launches']}")
+    return fits["cuda"]["launches"]
+
+
 def main():
     import torch
 
@@ -2151,6 +2376,16 @@ def main():
     wire_launches = wire_phase(hvt, K, timings)
     hvt.shutdown()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serving_launches = serving_phase(hvt, K)
+    t1 = time.perf_counter()
+    run_launches = run_api_phase(main_losses)
+    t2 = time.perf_counter()
+    estimator_launches = estimator_phase(hvt, K)
+    emit({"phase": "slice11_seconds", "serving": t1 - t0, "run": t2 - t1,
+          "estimator": time.perf_counter() - t2})
+    hvt.shutdown()
+    torch.cuda.empty_cache()
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -2172,6 +2407,9 @@ def main():
          "launches_launch": launch_launches[name],
          "launches_elastic": elastic_launches[name],
          "launches_elastic_launch": elastic_launch_launches[name],
+         "launches_serving": serving_launches[name],
+         "launches_run": run_launches[name],
+         "launches_estimator": estimator_launches[name],
          **timings[name]} for name in K.LAUNCHES]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,11 +6,12 @@ codec plumbing, ``csrc/engine.cc``), on ``torch.distributed``.
 ``int8``, ``fp8``; ``none``/``raw``/empty move raw bytes) for both, an
 ``<intra>,<inter>`` pair, ``auto`` (intra raw, inter picked by the tuner) or
 ``<intra>,auto``. An unknown name moves raw bytes with a warning. The spec
-is read at ``hvt.init``. An fp32 Sum or Average allreduce (not Adasum) over
-more than one process whose codec is lossy takes the compressed route of
-``ops/hierarchical.py``: encoded chunks exchanged by ``all_to_all``, summed
-in rank order, each owner's sum encoded and gathered, so every rank decodes
-the same bits. The codec kernels are ``csrc/wire_codec.cu``
+is read at ``hvt.init``. An fp32 allreduce (any op but Adasum, as the
+engine's ``WireEligible``) over more than one process whose codec is lossy
+takes the compressed route of ``ops/hierarchical.py``: encoded chunks
+exchanged by ``all_to_all``, decoded and reduced by the op in rank order,
+each owner's result encoded and gathered, so every rank decodes the same
+bits. The codec kernels are ``csrc/wire_codec.cu``
 (``compression/codecs.py``).
 
 Error feedback (``HVT_ERROR_FEEDBACK``, default 1) adds each tensor's

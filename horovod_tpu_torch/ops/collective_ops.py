@@ -284,6 +284,7 @@ _DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16,
 _WIRE_OPS = (dist.ReduceOp.SUM, dist.ReduceOp.MIN, dist.ReduceOp.MAX,
              dist.ReduceOp.PRODUCT)
 _WIRE_CODE = {Average: 0, Sum: 0, Min: 1, Max: 2, Product: 3}
+_CODE_OP = (Sum, Min, Max, Product)     # _WIRE_CODE's inverse
 # [active, op, dtype, reduce op or root, ndim, dims...]
 _HEADER_LEN = 5 + _MAX_DIMS
 _HEADER_CACHE_MAX = 256
@@ -373,13 +374,12 @@ def _stand_in(desc, active):
         zeros = torch.zeros(dims[:ndim], dtype=_DTYPES[dtype_code - 1],
                             device=basics.device())
         if op == "allreduce":
-            plan = _wire_plan(zeros, Sum if arg == 0 else None,
-                              global_process_set)
+            plan = _wire_plan(zeros, _CODE_OP[arg], global_process_set)
             if plan is not None:
                 from horovod_tpu_torch.ops import hierarchical
 
                 hierarchical.compressed_allreduce(zeros, global_process_set,
-                                                  plan)
+                                                  plan, op=_CODE_OP[arg])
             else:
                 _blocking(dist.all_reduce, zeros, op=_WIRE_OPS[arg],
                           group=group)
@@ -497,10 +497,13 @@ def wire_compression() -> tuple:
 
 def _wire_plan(buf, op, process_set):
     """The compressed route of this allreduce (``ops/hierarchical.py``),
-    or None: only an fp32 Sum or Average whose wire codec is lossy takes
-    it (the engine's ``WireEligible``, ``csrc/engine.cc:2148``)."""
-    if op not in (Sum, Average) or buf.dtype != torch.float32 \
-            or buf.numel() == 0:
+    or None: every fp32 allreduce but Adasum whose wire codec is lossy
+    takes it, as the engine's ``WireEligible`` (``csrc/engine.cc:2148``,
+    the one gate of its stamping, error feedback and tuner) takes them.
+    Min, Max and Product decode each peer's chunk and then reduce by the
+    op, as the ring's ``ReduceFromWire`` does (``csrc/ring_ops.cc:82``), so
+    their results are quantized as the reference's are."""
+    if op is Adasum or buf.dtype != torch.float32 or buf.numel() == 0:
         return None
     from horovod_tpu_torch.ops import hierarchical
 
@@ -516,9 +519,9 @@ def _allreduce_start(buf, op, prescale, postscale, process_set,
     set of one process every op but Adasum is the identity with the scales
     applied, so nothing is sent: the result is ready at once, as the JAX
     package's single-process path is, and a one-process step holds no
-    collective (which a CUDA graph can then capture). An fp32 Sum or
-    Average under a lossy wire codec takes the compressed route, which is
-    done when this returns. ``timed`` counts and times it as an
+    collective (which a CUDA graph can then capture). An fp32 allreduce
+    but Adasum under a lossy wire codec takes the compressed route, which
+    is done when this returns. ``timed`` counts and times it as an
     ``allreduce``; a grouped allreduce times its parts as one."""
     group = process_set.group()
     n = process_set.size()
@@ -545,7 +548,8 @@ def _allreduce_start(buf, op, prescale, postscale, process_set,
 
         hierarchical.compressed_allreduce(
             buf, process_set, plan, names=names or [name or "allreduce"],
-            segments=segments or [buf.numel()])
+            segments=segments or [buf.numel()],
+            op=Sum if op is Average else op)
         if header is not None:
             _collective(_wait, header)
         return _done(finish(), timing)

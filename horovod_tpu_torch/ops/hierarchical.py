@@ -28,10 +28,15 @@ compressed reduce-scatter and allgather over a group of g:
    elements (the last chunk may be short or empty), encodes the buffer
    once (a chunk's stream is a slice of it) and sends chunk j to member j
    with ``all_to_all``;
-2. each member sums its chunk in member order, its own contribution raw,
-   the others' decoded;
-3. each member encodes its sum, the streams are gathered, and every member
-   decodes every chunk, its own too, so all hold the same bits.
+2. each member reduces its chunk in member order, its own contribution
+   raw, the others' decoded (Min, Max and Product decode a peer's chunk
+   and then apply the op, as the ring's ``ReduceFromWire`` does,
+   ``csrc/ring_ops.cc:82``);
+3. each member encodes its result, the streams are gathered, and every
+   member decodes every chunk, its own too, so all hold the same bits.
+
+The local stages of the hierarchical route and a raw hop reduce by the op
+too.
 
 Before any of it, error feedback quantizes each tensor of the buffer on the
 first lossy hop's codec with its stored residual
@@ -192,9 +197,12 @@ def _chunks(m, g):
     return c, [max(0, min(c, m - j * c)) for j in range(g)]
 
 
-def _reduce_scatter(x, group, g, me, codec):
-    """Compressed reduce-scatter of flat fp32 ``x``: (this member's chunk
-    sum, c, lens)."""
+_COMBINE = {C.Min: torch.minimum, C.Max: torch.maximum, C.Product: torch.mul}
+
+
+def _reduce_scatter(x, group, g, me, codec, op=C.Sum):
+    """Compressed reduce-scatter of flat fp32 ``x`` by ``op``: (this
+    member's chunk result, c, lens)."""
     name = compression.codec_name(codec)
     m = x.numel()
     c, lens = _chunks(m, g)
@@ -207,15 +215,23 @@ def _reduce_scatter(x, group, g, me, codec):
     compression.count_tx(name, sum(sizes) - sizes[me])
     mine = x[me * c:me * c + lens[me]]
     acc = torch.empty_like(mine)
+    combine = _COMBINE.get(op)
     for r in range(g):
         if r == me:
             if r == 0:
                 acc.copy_(mine)
-            else:
+            elif combine is None:
                 acc.add_(mine)
+            else:
+                combine(acc, mine, out=acc)
         elif lens[me]:
-            W.decode_accumulate(recv[r * sizes[me]:(r + 1) * sizes[me]],
-                                name, lens[me], out=acc, accumulate=r > 0)
+            part = recv[r * sizes[me]:(r + 1) * sizes[me]]
+            if combine is None or r == 0:
+                W.decode_accumulate(part, name, lens[me], out=acc,
+                                    accumulate=r > 0)
+            else:
+                combine(acc, W.decode_accumulate(part, name, lens[me]),
+                        out=acc)
     return acc, c, lens
 
 
@@ -238,13 +254,13 @@ def _allgather(acc, c, lens, group, g, me, codec, out):
     return out
 
 
-def _group_allreduce(x, group, g, me, codec):
-    """Sum flat fp32 ``x`` over ``group`` in place: compressed under a
-    lossy ``codec``, a raw allreduce under none."""
+def _group_allreduce(x, group, g, me, codec, op=C.Sum):
+    """Reduce flat fp32 ``x`` by ``op`` over ``group`` in place: compressed
+    under a lossy ``codec``, a raw allreduce under none."""
     if not codec:
-        C._collective(dist.all_reduce, x, group=group)
+        C._collective(dist.all_reduce, x, op=C._DIST_OP[op], group=group)
         return x
-    acc, c, lens = _reduce_scatter(x, group, g, me, codec)
+    acc, c, lens = _reduce_scatter(x, group, g, me, codec, op)
     return _allgather(acc, c, lens, group, g, me, codec, x)
 
 
@@ -262,11 +278,13 @@ def _error_feedback(flat, codec, names, segments, lane):
     compression.note_ef()
 
 
-def compressed_allreduce(buf, process_set, plan, names=None, segments=None):
-    """Sum the fp32 ``buf`` over ``process_set`` in place along ``plan``
-    (:func:`wire_plan`). ``names`` and ``segments`` name the tensors of the
-    flat buffer and give their lengths, for their error-feedback residuals;
-    without names (a joined rank's stand-in) no error feedback runs."""
+def compressed_allreduce(buf, process_set, plan, names=None, segments=None,
+                         op=C.Sum):
+    """Reduce the fp32 ``buf`` by ``op`` (Sum, Min, Max or Product) over
+    ``process_set`` in place along ``plan`` (:func:`wire_plan`). ``names``
+    and ``segments`` name the tensors of the flat buffer and give their
+    lengths, for their error-feedback residuals; without names (a joined
+    rank's stand-in) no error feedback runs."""
     st = compression.state()
     flat = buf.view(-1)
     n = flat.numel()
@@ -289,7 +307,7 @@ def compressed_allreduce(buf, process_set, plan, names=None, segments=None):
     agree = process_set.group()
     if kind == "flat":
         _stage(st, tuner,
-               lambda: _group_allreduce(flat, group, g, me, codec),
+               lambda: _group_allreduce(flat, group, g, me, codec, op),
                exploring, device, agree, 4 * n, codec)
         return buf
     padded = piece_n * L
@@ -297,11 +315,13 @@ def compressed_allreduce(buf, process_set, plan, names=None, segments=None):
         [flat, flat.new_zeros(padded - n)])
     lr, cr = basics.local_rank(), basics.cross_rank()
     if st.intra:
-        piece, _, _ = _reduce_scatter(work, local, L, lr, st.intra)
+        piece, _, _ = _reduce_scatter(work, local, L, lr, st.intra, op)
     else:
         piece = work.new_empty(piece_n)
-        C._collective(dist.reduce_scatter_tensor, piece, work, group=local)
-    _stage(st, tuner, lambda: _group_allreduce(piece, cross, Cs, cr, inter),
+        C._collective(dist.reduce_scatter_tensor, piece, work,
+                      op=C._DIST_OP[op], group=local)
+    _stage(st, tuner,
+           lambda: _group_allreduce(piece, cross, Cs, cr, inter, op),
            exploring, device, agree, 4 * piece_n, inter)
     if st.intra:
         _allgather(piece, piece_n, [piece_n] * L, local, L, lr, st.intra,

@@ -5,9 +5,9 @@ elasticity.
 Signals, all read from the rendezvous KV the elastic driver hosts:
 
 - ``serving`` scope (``/kv/serving/<rank>``): per-rank in-flight backlog,
-  shed counts, p99 latency. The port has no serving gang yet, so nothing
-  of the port writes it; a job (or a test) may PUT it, and the loop reads
-  it as the JAX module does;
+  shed counts, p99 latency, written by each rank's
+  ``serving.ReplicaGang.push_stats`` (``horovod_tpu_torch.serving``; the
+  load generator pushes after every phase) under an elastic launch;
 - ``debugz`` scope (``/kv/debugz/<rank>``, the workers' telemetry pushes,
   ``common/basics.py``): each rank's queue depth (its pending collectives);
 - ``failure`` scope (``/kv/failure/<host>/<slot>``, PUT by the elastic

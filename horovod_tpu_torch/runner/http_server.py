@@ -125,6 +125,8 @@ class RendezvousServer:
 
     Paths:
       PUT/GET /kv/<scope>/<key>         — raw bytes KV
+      HEAD    /kv/<scope>/<key>         — 200 (with the value's
+                                          Content-Length) or 404
       GET     /keys/<scope>             — JSON list of keys
       GET     /rendezvous/<host>/<local_rank> — JSON SlotInfo
       GET     /world                    — JSON {size, hosts, master_host,
@@ -351,6 +353,18 @@ class RendezvousServer:
                         "application/json")
                 else:
                     self._send(404)
+
+            def do_HEAD(self):
+                # an existence probe of /kv/<scope>/<key>: the status and
+                # the value's length, no body (the Spark HTTPStore's
+                # exists() asks this rather than download a checkpoint)
+                parts = self.path.strip("/").split("/")
+                v = (store.get(parts[1], "/".join(parts[2:]))
+                     if len(parts) >= 3 and parts[0] == "kv" else None)
+                self.send_response(404 if v is None else 200)
+                self.send_header("Content-Length",
+                                 "0" if v is None else str(len(v)))
+                self.end_headers()
 
             def do_DELETE(self):
                 if self.path.strip("/") == "rendezvous":

@@ -1136,3 +1136,42 @@ def test_nccl_wire4_codecs_on_two_faked_hosts_full_width(cuda, tmp_path):
         timeout=60).stdout.strip().splitlines()
     print("WIRE4 " + json.dumps(summary))
     assert not failures, failures
+
+
+@pytest.mark.cuda
+def test_nccl_serve4_replica_gangs_on_four_cards(cuda, tmp_path):
+    """SERVE4: ``python -m horovod_tpu_torch.serving.loadgen`` under the
+    port's launcher ``-np 4`` (each slot on fake hosts of two cards) with
+    r07's traffic (2 replicas, 800 requests of 8,192 bytes a rank a phase,
+    burst 2, window 4, admission 250 ms, sync every 50, replica 0 saturated
+    by 2 in the contended phase), once unbatched, once with
+    HVT_SERVING_BATCH=4, once with the column lanes [[0, 2], [1, 3]] across
+    the fake hosts, and with a zero admission budget (every reap waits
+    without the 1 ms deadline poll), in turns with the unbatched run, twice
+    each. Every artifact is valid; every member
+    of a replica has the same admitted and shed counts and decision log;
+    every result is exact. Prints one SERVE4 JSON line (run with -s): p50,
+    p99 and requests/s per replica and phase, the isolation block (its
+    ratio reported, not gated) and the decision logs' equality."""
+    import json
+    import subprocess
+
+    import torch_port_serve_worker as SW
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    runs = SW.run_serve4(str(tmp_path))
+    failures = []
+    for name, (doc, _) in runs.items():
+        members = [[0, 2], [1, 3]] if name == "columns" \
+            else [[0, 1], [2, 3]]
+        failures += [f"{name}: {p}" for p in SW.problems(doc, members)]
+        if not doc["config"]["device"].startswith("cuda"):
+            failures.append(f"{name}: ran on {doc['config']['device']}")
+    line = SW.serve4_line(runs)
+    line["nvidia_smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print("SERVE4 " + json.dumps(line))
+    assert not failures, failures

@@ -14,7 +14,9 @@
   (bf16 rtol 1e-2; int8 rtol 0.02, fp8 0.2, each with atol 2 % of the
   largest sum), results bit-identical across ranks, encoded bytes equal to
   the wire formula of ``tests/test_data_plane.py:205`` stream by stream,
-  other dtypes and Adasum exact, the spec unset bit-exact, the error
+  other dtypes and Adasum exact, fp32 Min and Max quantized along the
+  route (the engine's ``WireEligible`` takes them) and an integer Max
+  exact, the spec unset bit-exact, the error
   feedback scenario of ``tests/test_data_plane.py:284-321``, the residual
   budget, ``auto`` locking one codec on every rank, process sets, a joined
   rank's stand-in and the DistributedOptimizer.
@@ -318,6 +320,60 @@ def test_gang_other_dtypes_and_adasum_move_raw_and_exact(gang):
             np.testing.assert_array_equal(got.double().numpy(), x.numpy())
         assert torch.equal(res["adasum/int8"], res["adasum/off"])
         assert res["adasum_tx"] == {}
+
+
+def _route_of(xs, op):
+    """The compressed route's result for the fp32 inputs ``xs`` of every
+    rank under ``none,int8`` on two hosts of two, from the plain codecs in
+    the route's order: error feedback (a fresh residual: each input's int8
+    roundtrip), the raw local reduce-scatter by ``op``, the int8 cross
+    stage (each member's chunk reduced from its own raw piece and its
+    peer's decoded one, then encoded and decoded by every member), the raw
+    local allgather."""
+    fn = {"Max": torch.maximum, "Min": torch.minimum}[op]
+    n = xs[0].numel()
+    piece = math.ceil(n / (LOCAL * 256)) * 256
+    fed = [torch.cat([W.roundtrip_plain(x, "int8"),
+                      torch.zeros(piece * LOCAL - n)]) for x in xs]
+    hosts = N // LOCAL
+    out = []
+    for lr in range(LOCAL):
+        pieces = [fn(fed[h * LOCAL], fed[h * LOCAL + 1])[
+            lr * piece:(lr + 1) * piece] for h in range(hosts)]
+        c = math.ceil(piece / (256 * hosts)) * 256
+        for j in range(hosts):
+            k = slice(j * c, min((j + 1) * c, piece))
+            acc = pieces[j][k]
+            for h in range(hosts):
+                if h != j:
+                    acc = fn(acc, W.roundtrip_plain(pieces[h], "int8")[k])
+            out.append(W.roundtrip_plain(acc, "int8"))
+    return torch.cat(out)[:n]
+
+
+@pytest.mark.parametrize("op", G.OPS)
+def test_gang_min_max_quantized_along_the_route(gang, op):
+    """An fp32 Max or Min under none,int8 is quantized as the reference's
+    route quantizes it (decode, then reduce by the op), not exact; its
+    cross stage moves int8 bytes; an integer Max stays exact and raw."""
+    xs = [torch.from_numpy(G.op_input(G.OP_NUMEL, r)) for r in range(N)]
+    want = _route_of(xs, op)
+    exact = (torch.stack(xs).amax(0) if op == "Max"
+             else torch.stack(xs).amin(0))
+    _identical(gang, f"op/{op}")
+    for r, res in enumerate(gang):
+        np.testing.assert_array_equal(_bits(res[f"op/{op}"].numpy()),
+                                      _bits(want.numpy()))
+        assert res[f"op_tx/{op}"] == _expected_tx("none,int8", G.OP_NUMEL,
+                                                  r)
+    assert not torch.equal(gang[0][f"op/{op}"], exact)
+    np.testing.assert_allclose(gang[0][f"op/{op}"].numpy(), exact.numpy(),
+                               rtol=0.02, atol=exact.abs().max() * 0.02)
+    want_int = torch.stack([(torch.arange(1025, dtype=torch.int32)
+                             * (r + 3)) % 11 for r in range(N)]).amax(0)
+    for res in gang:
+        assert torch.equal(res["op/int_max"], want_int)
+        assert res["op_tx/int_max"] == {}
 
 
 def test_gang_average_under_int8(gang):

@@ -35,12 +35,19 @@ AUTO_NUMEL = 1 << 14
 AUTO_SET_CALLS = 3          # fewer than a candidate's trials
 BUDGET_NUMEL = 512          # elements of each budget-case tensor
 SETS = ([0, 1], [0, 2])     # one host, two hosts (of local size 2)
+OPS, OP_NUMEL = ("Max", "Min"), 4103    # the Min and Max cases
 
 
 def base(numel, r):
     """Rank r's input of the codec cases (tests/test_data_plane.py:213)."""
     return ((np.arange(numel, dtype=np.float32) % 997) * np.float32(0.123)
             + np.float32(r)).astype(np.float32)
+
+
+def op_input(numel, r):
+    """Rank r's input of the Min and Max cases: seeded, of both signs."""
+    return (np.random.RandomState(50 + r).randn(numel) * 3).astype(
+        np.float32)
 
 
 def exact_ints(numel, r):
@@ -112,6 +119,21 @@ def worker(out):
                                         op=hvt.Average, name="avg")
     _spec()
     res["adasum/off"] = hvt.allreduce(ada, op=hvt.Adasum, name="ada")
+
+    # fp32 Max and Min under none,int8 take the compressed route (the
+    # engine's WireEligible takes every fp32 op but Adasum): quantized as
+    # the reference's are; an integer Max moves raw and stays exact
+    _spec(HVT_WIRE_COMPRESSION="none,int8")
+    for op in OPS:
+        before = _tx()
+        res[f"op/{op}"] = hvt.allreduce(T(op_input(OP_NUMEL, r)),
+                                        op=getattr(hvt, op), name=f"op.{op}")
+        res[f"op_tx/{op}"] = _delta(before, _tx())
+    before = _tx()
+    res["op/int_max"] = hvt.allreduce(
+        (torch.arange(1025, dtype=torch.int32) * (r + 3)) % 11, op=hvt.Max,
+        name="op.int")
+    res["op_tx/int_max"] = _delta(before, _tx())
 
     # error feedback (tests/test_data_plane.py:284-321)
     for ef in ("1", "0"):
