@@ -178,11 +178,27 @@ Phases, each of which exits non-zero on a failure:
    epochs, a FilesystemStore in a temporary directory, on the card and
    then on the CPU: per-epoch losses within 1e-4, every epoch's checkpoint
    published, TorchModel.load predicting on the card as the fitted model.
-22. summary: one JSON line listing the kernels (launches on the main path,
+22. examples: every example of examples/torch_port/ at a small size on
+   the card through python -m horovod_tpu_torch.runner.launch -np 1 (the
+   elastic one through the elastic launcher), all started together; each
+   must exit 0 and print its result line. long_context_train runs twice
+   on a 2,048-token sequence (4 heads, 2 K/V heads, head_dim 64, bf16):
+   through the sm90 flash kernels, which must launch at least once a step
+   each and the SIMT ones never, and through the plain einsum blocks
+   (--no-flash). On the first batch the attention output must agree
+   within 2e-2 and the gradients of Q, K and V, each relative to its
+   largest magnitude, within 5e-2; every step's loss within 2e-2. The
+   Ray and Spark examples are skipped where their packages are absent.
+23. tools: python -m horovod_tpu_torch.tools.hvt_analyze over the fleet
+   phase's merged timeline (its coordinator lanes must give the exec phase
+   of every gradient allreduce), and what the fleet worker's python -m
+   horovod_tpu_torch.tools.hvt_top --once --json printed against the
+   launcher's server (exit 0, one /statusz document).
+24. summary: one JSON line listing the kernels (launches on the main path,
    or the wire phase's route for the codec kernels; the observe,
    accumulation, sequence, checkpoint, fsdp, launch, elastic, fleet,
-   serving, run and estimator phases), the nvidia-smi line, and last the
-   {"ok": true, ...} line.
+   serving, run, estimator and examples phases), the nvidia-smi line, and
+   last the {"ok": true, ...} line.
 """
 
 import json
@@ -325,6 +341,38 @@ RUN_STEPS = 2
 # CPU's (fp32 both, TF32 off)
 ESTIMATOR_ROWS, ESTIMATOR_FEATURES, ESTIMATOR_EPOCHS = 4096, 16, 2
 ESTIMATOR_BATCH, ESTIMATOR_RTOL = 64, 1e-4
+# the examples phase: each example of examples/torch_port/ through the
+# launcher at -np 1 (the launcher's extra flags, the script, its flags, a
+# line its output must hold); long_context_train's steps and the relative
+# tolerance between its flash and einsum losses (bf16, TOL_PLAIN's); its
+# attention output and Q/K/V gradients on the first batch are held to the
+# einsum blocks' at TOL_PLAIN and TOL_AUTOGRAD, as the sequence phase
+# holds the ring's
+LONG_CONTEXT_ARGV = ["--seq", "2048", "--heads", "4", "--kv-heads", "2",
+                     "--head-dim", "64", "--steps", "5"]
+LONG_CONTEXT_STEPS, LONG_CONTEXT_RTOL = 5, 2e-2
+EXAMPLES = [
+    ("synthetic", [], "pytorch_synthetic_benchmark.py",
+     ["--batch-size", "32", "--num-iters", "2", "--num-batches-per-iter",
+      "3"], "Total img/sec on 1 proc(s)"),
+    ("resnet50", [], "pytorch_imagenet_resnet50.py",
+     ["--width", "16", "--image-size", "64", "--batch-size", "8",
+      "--epochs", "1", "--steps-per-epoch", "2", "--batches-per-allreduce",
+      "2"], "img/sec total"),
+    ("elastic", ["--min-np", "1", "--max-np", "1"],
+     "pytorch_elastic_train.py", ["--epochs", "2", "--batches-per-epoch",
+                                  "2"], "done: epochs=2"),
+    ("gpt", [], "gpt_train.py", ["--steps", "3", "--batch", "4", "--seq",
+                                 "256"], "step 2: loss"),
+    ("long_context", [], "long_context_train.py", LONG_CONTEXT_ARGV,
+     "flash=on"),
+    ("long_context_plain", [], "long_context_train.py",
+     LONG_CONTEXT_ARGV + ["--no-flash"], "flash=off"),
+    ("adasum", [], "adasum_train.py", ["--steps", "600"], "step  599"),
+]
+OPTIONAL_EXAMPLES = [("ray", "ray", "ray_train.py"),
+                     ("spark", "pyspark", "spark_train.py"),
+                     ("spark_estimator", "pyspark", "spark_estimator.py")]
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2015,6 +2063,7 @@ def fleet_phase(main_losses):
     env = dict(os.environ, PYTHONPATH=REPO, HVT_TELEMETRY_AGG="1",
                HVT_DEBUGZ_INTERVAL_MS=str(FLEET_INTERVAL_MS))
     t0 = time.perf_counter()
+    kept = tempfile.mkdtemp(prefix="hvt_fleet_timeline_")
     try:
         proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                               timeout=600, env=env)
@@ -2023,6 +2072,9 @@ def fleet_phase(main_losses):
             fail(f"fleet: the launcher exited {proc.returncode}:\n"
                  f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
         res = torch.load(out + ".0.pt", weights_only=False)
+        # the merged timeline, for the tools phase
+        timeline_path = shutil.copy(os.path.join(out_dir, "timeline.json"),
+                                    kept)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     st, dz = res["statusz"], res["debugz"]
@@ -2065,7 +2117,7 @@ def fleet_phase(main_losses):
         fail(f"fleet: losses {res['losses']} are not within {LOSS_RTOL} of "
              f"the main path's {main_losses}")
     _sm90_only("fleet", res["launches"], FLEET_STEPS, MAIN_LAYERS)
-    return res["launches"]
+    return res["launches"], timeline_path, res["hvt_top"]
 
 
 def elastic_launch_phase():
@@ -2313,6 +2365,156 @@ def estimator_phase(hvt, K):
     return fits["cuda"]["launches"]
 
 
+def _start_example(launcher, script, argv, report=None):
+    """One example through the port's launcher at -np 1 on the card,
+    started: its process and start time."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+           "1", *launcher, "--master-port", str(port), sys.executable,
+           os.path.join(REPO, "examples", "torch_port", script), *argv]
+    if report:
+        cmd += ["--report", report]
+    return subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=dict(os.environ, PYTHONPATH=REPO)), \
+        time.perf_counter()
+
+
+def examples_phase():
+    """Every example of examples/torch_port/ on the card (module docstring,
+    phase 22), the launches started together (one card holds them all).
+    Returns long_context_train's launch counts."""
+    import importlib.util
+
+    import torch
+
+    out_dir = tempfile.mkdtemp(prefix="hvt_examples_")
+    started, runs, reports, attention = {}, {}, {}, {}
+    try:
+        for tag, launcher, script, argv, want in EXAMPLES:
+            if tag.startswith("long_context"):
+                reports[tag] = os.path.join(out_dir, tag + ".json")
+                attention[tag] = os.path.join(out_dir, tag + ".pt")
+                argv = argv + ["--attention-report", attention[tag]]
+            started[tag] = (*_start_example(launcher, script, argv,
+                                            reports.get(tag)), script, want)
+        for tag, (proc, t0, script, want) in started.items():
+            log = proc.communicate(timeout=600)[0]
+            runs[tag] = {"seconds": time.perf_counter() - t0,
+                         "tail": log.strip().splitlines()[-3:]}
+            if proc.returncode != 0 or want not in log:
+                fail(f"examples: {script} exited {proc.returncode} without "
+                     f"{want!r}:\n{log[-3000:]}")
+        for tag, path in list(reports.items()):
+            with open(path) as f:
+                reports[tag] = json.load(f)
+            attention[tag] = torch.load(attention[tag])
+    finally:
+        for proc, *_ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    skipped = {}
+    for tag, module, script in OPTIONAL_EXAMPLES:
+        if importlib.util.find_spec(module) is None:
+            skipped[tag] = f"{script}: no {module} here"
+        else:
+            runs[tag] = _run_optional_example(script)
+    flash, plain = reports["long_context"], reports["long_context_plain"]
+    rels = [abs(a - b) / abs(b) for a, b in zip(flash["losses"],
+                                                plain["losses"])]
+    # the first batch's attention and gradients, each gradient relative to
+    # its largest magnitude
+    vs_einsum = {}
+    for t, got in attention["long_context"].items():
+        ref = attention["long_context_plain"][t]
+        unit = 1.0 if t == "o" else float(ref.abs().max())
+        e = check(f"examples: long_context_train's flash {t} vs einsum",
+                  got / unit, ref / unit,
+                  TOL_PLAIN["bfloat16"] if t == "o"
+                  else TOL_AUTOGRAD["bfloat16"])
+        vs_einsum[t] = {"shape": list(got.shape),
+                        "max_abs_err": e[0] * unit, "least_tol": e[2],
+                        "unit": unit}
+    emit({"phase": "examples", "runs": runs, "skipped": skipped,
+          "long_context": {"argv": LONG_CONTEXT_ARGV,
+                           "losses_flash": flash["losses"],
+                           "losses_einsum": plain["losses"],
+                           "max_rel_diff": max(rels),
+                           "attention_vs_einsum": vs_einsum,
+                           "tol": {"o": TOL_PLAIN["bfloat16"],
+                                   "grads": TOL_AUTOGRAD["bfloat16"]},
+                           "launches": flash["launches"]}})
+    if len(rels) != LONG_CONTEXT_STEPS or max(rels) > LONG_CONTEXT_RTOL:
+        fail(f"examples: long_context_train's flash losses "
+             f"{flash['losses']} are not within {LONG_CONTEXT_RTOL} of the "
+             f"einsum blocks' {plain['losses']}")
+    for name, n in flash["launches"].items():
+        if (n < LONG_CONTEXT_STEPS) if name.endswith("_sm90") else n:
+            fail(f"examples: long_context_train launched {name} {n} times "
+                 f"in {LONG_CONTEXT_STEPS} steps")
+    if any(plain["launches"].values()):
+        fail(f"examples: the einsum run launched {plain['launches']}")
+    return flash["launches"]
+
+
+def _run_optional_example(script):
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "examples", "torch_port",
+                                      script)],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    if proc.returncode != 0:
+        fail(f"examples: {script} exited {proc.returncode}:\n"
+             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    return {"seconds": time.perf_counter() - t0}
+
+
+def tools_phase(timeline_path, hvt_top):
+    """hvt_analyze over the fleet phase's timeline, and the fleet worker's
+    hvt_top --once --json (module docstring, phase 23)."""
+    report = timeline_path + ".report.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.tools.hvt_analyze",
+         timeline_path, "-o", report, "--quiet"], cwd=REPO,
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"tools: hvt_analyze exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    with open(report) as f:
+        rep = json.load(f)
+    shutil.rmtree(os.path.dirname(timeline_path), ignore_errors=True)
+    try:
+        statusz = json.loads(hvt_top["stdout"])
+    except ValueError:
+        statusz = {}
+    emit({"phase": "tools", "hvt_analyze_seconds": seconds,
+          "ranks": rep["ranks"], "instances": rep["instances"],
+          "phases": rep["phases"], "lanes": rep["lanes"],
+          "overlap_efficiency": rep["overlap_efficiency"],
+          "metrics": rep["metrics"], "hvt_top_rc": hvt_top["rc"],
+          "hvt_top_ms": hvt_top["ms"],
+          "hvt_top_statusz": {k: statusz.get(k) for k in (
+              "schema", "mode", "ranks_expected", "ranks_covered",
+              "alerts")}})
+    exec_n = (rep["phases"].get("exec") or {}).get("count", 0)
+    if rep["ranks"] != [0] or exec_n < FLEET_STEPS:
+        fail(f"tools: hvt_analyze found ranks {rep['ranks']} and {exec_n} "
+             f"exec spans in the fleet timeline; expected rank 0 and at "
+             f"least {FLEET_STEPS}")
+    if hvt_top["rc"] != 0 or statusz.get("schema") != "hvt-statusz-r1" \
+            or statusz.get("ranks_covered") != 1:
+        fail(f"tools: hvt_top --once --json exited {hvt_top['rc']} with "
+             f"{hvt_top['stdout'][:500]!r} {hvt_top['stderr']!r}")
+
+
 def main():
     import torch
 
@@ -2372,7 +2574,7 @@ def main():
     hvt.shutdown()
     torch.cuda.empty_cache()
     elastic_launch_launches = elastic_launch_phase()
-    fleet_launches = fleet_phase(main_losses)
+    fleet_launches, fleet_timeline, hvt_top = fleet_phase(main_losses)
     wire_launches = wire_phase(hvt, K, timings)
     hvt.shutdown()
     torch.cuda.empty_cache()
@@ -2386,6 +2588,12 @@ def main():
           "estimator": time.perf_counter() - t2})
     hvt.shutdown()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    examples_launches = examples_phase()
+    t1 = time.perf_counter()
+    tools_phase(fleet_timeline, hvt_top)
+    emit({"phase": "slice12_seconds", "examples": t1 - t0,
+          "tools": time.perf_counter() - t1})
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -2410,6 +2618,7 @@ def main():
          "launches_serving": serving_launches[name],
          "launches_run": run_launches[name],
          "launches_estimator": estimator_launches[name],
+         "launches_examples_long_context": examples_launches[name],
          **timings[name]} for name in K.LAUNCHES]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,9 @@ every chip of its host and ``size`` counts chips.
 ``init`` reads the identity env that the ``hvtrun`` launcher gives each slot
 (``HVT_PROCESS_ID``, ``HVT_NUM_PROCESSES``, ``HVT_LOCAL_PROCESS_ID``,
 ``HVT_LOCAL_SIZE``, ``HVT_CROSS_RANK``, ``HVT_CROSS_SIZE``, and
-``HVT_COORDINATOR_ADDR`` as ``host:port``). With more than one process it
+``HVT_COORDINATOR_ADDR`` as ``host:port``); a process that ``mpirun`` or
+``jsrun`` started takes what is missing from their environment
+(``runner/mpi_run.py``). With more than one process it
 joins them on a TCP store at the coordinator's address; without that env it
 starts a world of one process on an in-memory store. The backend is NCCL
 on the GPU, or gloo when the caller passes ``device="cpu"``.
@@ -120,6 +122,7 @@ def _start(device, timeout_s):
     with _lock:
         if _state is not None:
             return
+        _identity_from_mpi()
         size = _env_int("HVT_NUM_PROCESSES", 1)
         rank = _env_int("HVT_PROCESS_ID", 0)
         local_rank = _env_int("HVT_LOCAL_PROCESS_ID", 0)
@@ -153,10 +156,29 @@ def _start(device, timeout_s):
         global_process_set.process_set_id = 0
         _state.process_sets[0] = global_process_set
         from horovod_tpu_torch import compression
-        from horovod_tpu_torch.ops import collective_ops
+        from horovod_tpu_torch.ops import collective_ops, negotiation
 
-        collective_ops._reset_join()
+        collective_ops._reset_world()
+        negotiation.start(rank, size, timeout_s)
         compression.configure()
+
+
+def _identity_from_mpi():
+    """A process that ``mpirun`` or ``jsrun`` started (``launch --use-mpi``
+    / ``--use-jsrun``) has no ``HVT_*`` slot identity: take it from MPI's
+    environment or jsrun's, and derive the cross rank and size from the
+    local size. Variables already set are kept."""
+    from horovod_tpu_torch.runner.js_run import env_from_jsm
+    from horovod_tpu_torch.runner.mpi_run import env_from_mpi
+
+    derived = env_from_mpi() or env_from_jsm()
+    os.environ.update(derived)
+    if derived and "HVT_CROSS_RANK" not in os.environ:
+        local = _env_int("HVT_LOCAL_SIZE", 1)
+        os.environ["HVT_CROSS_RANK"] = str(
+            _env_int("HVT_PROCESS_ID", 0) // local)
+        os.environ["HVT_CROSS_SIZE"] = str(
+            max(1, _env_int("HVT_NUM_PROCESSES", 1) // local))
 
 
 def _env_on(name) -> bool:
@@ -309,8 +331,10 @@ def shutdown():
         if _state is None:
             return
         from horovod_tpu_torch import metrics
+        from horovod_tpu_torch.ops import negotiation
         from horovod_tpu_torch.utils import timeline
 
+        negotiation.stop()
         _stop_push_loop(_state)
         # the timeline resolves the last collectives' device spans first,
         # then closes and uploads its shard
@@ -375,6 +399,9 @@ def abort(reason, elastic_round=None) -> bool:
             and str(elastic_round) != world.elastic_round:
         return False
     world.aborted = str(reason)
+    from horovod_tpu_torch.ops import negotiation
+
+    negotiation.release(world.aborted)
     if world.device.type == "cuda" and dist.is_initialized():
         try:
             _abort_groups()
@@ -474,10 +501,16 @@ def diagnostics() -> dict:
       yet waited for, and collectives waited for that the card has not
       finished), each with its name, op, process set and age in seconds;
     - ``joined``: whether this rank is inside ``join()``;
+    - ``negotiations``: the negotiations the coordinator
+      (``ops/negotiation.py``) sees waiting on the sets this rank is the
+      lowest member of, each with its tensor, op, ``waiting_sec``,
+      ``arrived_ranks`` and ``missing_ranks``, as the engine lays them out
+      (``engine.cc:2652-2675``); ``stalls``: those waiting past
+      ``HVT_STALL_WARN_SEC`` with ranks missing; ``stall_warn_sec``;
     - ``engine``: ``{"running": False}``, as the JAX package reports
-      without its engine: the port has no coordinator, so the JAX dict's
-      engine counters, ``negotiations`` and ``stalls`` are not filled."""
-    from horovod_tpu_torch.ops import collective_ops
+      without its engine: the port has no C++ engine, so the JAX dict's
+      engine counters are not filled."""
+    from horovod_tpu_torch.ops import collective_ops, negotiation
     from horovod_tpu_torch.utils import timeline
 
     world = _state
@@ -486,6 +519,7 @@ def diagnostics() -> dict:
             "timeline_active": timeline.active(),
             "pending": collective_ops.pending(),
             "joined": collective_ops.joined(),
+            **negotiation.diagnostics(),
             "engine": {"running": False}}
 
 

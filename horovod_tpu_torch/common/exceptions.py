@@ -23,3 +23,18 @@ class HostsUpdatedInterrupt(RuntimeError):
     def __init__(self, skip_sync=False):
         super().__init__("Hosts updated; re-initialization required")
         self.skip_sync = skip_sync
+
+
+class HorovodVersionMismatchError(ImportError):
+    """An extension was built against another version of the core (the
+    JAX package's ``common/exceptions.py:40``)."""
+
+
+class TensorShapeMismatchError(ValueError):
+    """A cross-rank shape mismatch of the coordinator's checks
+    (``ops/negotiation.py``). Like the JAX engine, the checks raise a plain
+    ``ValueError``; this subclass is kept for code that names it."""
+
+
+class TensorDtypeMismatchError(ValueError):
+    """A cross-rank dtype mismatch (see :class:`TensorShapeMismatchError`)."""

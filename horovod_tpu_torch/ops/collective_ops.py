@@ -5,13 +5,17 @@ reducescatter, barrier, their in-place and ``*_async`` forms, and
 ``synchronize`` / ``poll`` on the handles those return.
 
 Each call is a collective over a process set (the global one by default):
-NCCL on the GPU, gloo on the CPU. Every member of the set makes the same
-calls in the same order, and a non-member's call raises ``ValueError``
-(``common/process_sets.py``). A collective that the backend fails (a peer
-lost, or one stalled past the process group's timeout) raises
-``HorovodInternalError``, as Horovod's torch ops do; NCCL may instead abort
-the process, as its watchdog decides. After ``basics.abort`` every
-collective raises ``HorovodInternalError`` before it is issued.
+NCCL on the GPU, gloo on the CPU. A non-member's call raises ``ValueError``
+(``common/process_sets.py``). Over a set of more than one process each call
+is first negotiated (``ops/negotiation.py``, the JAX engine's coordinator):
+the members' requests are paired by call order and checked, and a
+disagreement (op, dtype, shape, reduce op, root, scales, fusion group,
+process set) raises the engine's ``ValueError`` on every member before any
+data moves. A collective that the backend fails (a peer lost, or one
+stalled past the process group's timeout) raises ``HorovodInternalError``,
+as Horovod's torch ops do; NCCL may instead abort the process, as its
+watchdog decides. After ``basics.abort`` every collective raises
+``HorovodInternalError`` before it is issued.
 
 The synchronous out-of-place forms (:func:`allreduce`, :func:`allgather`,
 :func:`broadcast`, :func:`alltoall`, :func:`reducescatter`) are
@@ -30,8 +34,8 @@ the post-processing (the Average division, trimming a ragged allgather,
 the grouped allreduce's decompression). On NCCL a finished ``Work`` only
 makes the current stream wait for the collective, so the result is ready
 for work queued on the current stream, as any PyTorch result is.
-Allgather and alltoall exchange their sizes before the data, so their
-``*_async`` forms return once the sizes are known.
+Every member's rows of an allgather, and the splits of an alltoall, come
+with the negotiation, so their ``*_async`` forms return once it is done.
 
 Every eager collective, sync or async, grouped or not, is counted in
 ``hvt_collective_bytes_total{op,process_set}`` and timed in
@@ -50,17 +54,15 @@ semantics (``horovod_tpu/csrc/engine.cc``): a rank out of data calls it,
 and until every rank has, the others' collectives on the global set proceed
 with the joined ranks' stand-ins (zeros for an allreduce, whose Average
 still divides by the set's size; zero rows for an allgather; zero splits
-for an alltoall). The port has no coordinator, so each collective on the
-global set of a world of more than one process is preceded by a header: a
-small allreduce (sum) on the same group, 1 and the collective's descriptor
-(op, dtype, shape, reduce op or root) from each active rank, zeros from a
-joined one. Active ranks never read it back; a joined rank, idle in
-:func:`join`, reads each header and issues the same call with its
-stand-in, until a header sums to no active rank.
+for an alltoall). A joined rank, idle in :func:`join`, takes part in each
+negotiation on the global set with a join record in place of a request; it
+reads the active ranks' request there and issues the same call with its
+stand-in, until every member's record is a join record.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
 import time
 import weakref
@@ -72,6 +74,7 @@ from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
                                                  HorovodTimeoutError)
 from horovod_tpu_torch.common.process_sets import global_process_set
+from horovod_tpu_torch.ops import negotiation
 from horovod_tpu_torch.ops.compression import Compression
 from horovod_tpu_torch.utils import timeline
 
@@ -96,7 +99,7 @@ Product = ReduceOp("Product")
 _DIST_OP = {Average: dist.ReduceOp.SUM, Sum: dist.ReduceOp.SUM,
             Min: dist.ReduceOp.MIN, Max: dist.ReduceOp.MAX,
             Product: dist.ReduceOp.PRODUCT}
-_MAX_DIMS = 8     # the shape exchange of a ragged allgather
+_BY_NAME = {op.name: op for op in (Average, Sum, Adasum, Min, Max, Product)}
 
 
 def _resolve_op(op, average):
@@ -200,17 +203,19 @@ class _Timed:
     for."""
 
     __slots__ = ("op", "ps", "lane", "nbytes", "t0", "wall0", "event",
-                 "device", "__weakref__")
+                 "device", "coord", "__weakref__")
 
 
 _in_flight = weakref.WeakSet()     # _Timed of handles not yet waited for
 _in_flight_lock = threading.Lock()  # collectives run from several threads
 
 
-def _begin(op_name, process_set, tensors, name=None, device=None):
+def _begin(op_name, process_set, tensors, name=None, device=None,
+           outcome=None):
     """Count and start timing one eager collective; None for a joined
     rank's stand-in and under graph capture (counted there in
-    ``hvt_traced_collectives_total``)."""
+    ``hvt_traced_collectives_total``). ``outcome`` is its negotiation's,
+    whose coordinator lane gets the exec span."""
     if _join.serving:
         return None
     _, bytes_total, traced = _metric_handles()
@@ -225,6 +230,13 @@ def _begin(op_name, process_set, tensors, name=None, device=None):
     t.t0, t.wall0 = time.monotonic(), timeline.now_us()
     t.event = (timeline.drainer.start_event(device)
                if device.type == "cuda" else None)
+    t.coord = outcome.lane if outcome is not None else None
+    if t.coord is not None:
+        if not outcome.negotiated:      # a set of one: no ENQUEUED yet
+            timeline.instant(t.coord, "ENQUEUED",
+                             args={"lane": outcome.lane_id})
+        timeline.activity_start(t.coord, op_name,
+                                args={"lane": outcome.lane_id})
     with _in_flight_lock:
         _in_flight.add(t)
     return t
@@ -242,6 +254,9 @@ def _end(t):
         _in_flight.discard(t)
     hist = _metric_handles()[0].labels(op=t.op, process_set=t.ps)
     wall1 = timeline.now_us()
+    if t.coord is not None:
+        timeline.activity_end(t.coord, t.op)
+        timeline.instant(t.coord, "DONE")
     args = {"op": t.op, "bytes": t.nbytes, "process_set": t.ps}
     op = t.op.upper()
     if t.event is None:
@@ -273,127 +288,92 @@ def pending() -> list:
 
 
 # --------------------------------------------------------------------------
-# join's headers (see the module docstring)
+# negotiation and join's stand-ins (see the module docstring)
 # --------------------------------------------------------------------------
-
-_OP_CODES = ("allreduce", "allgather", "broadcast", "alltoall",
-             "reducescatter", "barrier")
-_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16,
-           torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64,
-           torch.bool)
-_WIRE_OPS = (dist.ReduceOp.SUM, dist.ReduceOp.MIN, dist.ReduceOp.MAX,
-             dist.ReduceOp.PRODUCT)
-_WIRE_CODE = {Average: 0, Sum: 0, Min: 1, Max: 2, Product: 3}
-_CODE_OP = (Sum, Min, Max, Product)     # _WIRE_CODE's inverse
-# [active, op, dtype, reduce op or root, ndim, dims...]
-_HEADER_LEN = 5 + _MAX_DIMS
-_HEADER_CACHE_MAX = 256
-
 
 class _JoinState:
     def __init__(self):
         self.joined = False     # this rank is inside join()
         self.serving = False    # ... issuing a stand-in
-        self.headers = 0        # global headers this world has issued
-        self.cache = {}         # (device, descriptor) -> header tensor
 
 
 _join = _JoinState()
 
 
-def _reset_join():
-    """A new world starts with no header issued (``basics.init``)."""
+def _reset_world():
+    """A new world starts with no rank joined and no collective queued
+    (``basics.init``)."""
     global _join
     _join = _JoinState()
+    with _queue_lock:
+        _queue.clear()
 
 
-def _header_tensor(desc, device):
-    """A fresh copy of the header for ``desc``. On CUDA the first is copied
-    from pinned memory without blocking and cached, so an active rank never
-    waits on the card for a header."""
-    key = (device, desc)
-    cached = _join.cache.get(key)
-    if cached is None:
-        cached = torch.tensor(desc, dtype=torch.int64)
-        if device.type == "cuda":
-            cached = cached.pin_memory().to(device, non_blocking=True)
-        if len(_join.cache) >= _HEADER_CACHE_MAX:
-            _join.cache.clear()
-        _join.cache[key] = cached
-    return cached.clone()
+def _host_exchange(op_name):
+    return ValueError(f"{op_name} over more than one process exchanges "
+                      "its sizes on the host and cannot be captured in a "
+                      "CUDA graph")
 
 
-def _announce(op_name, process_set, tensor=None, arg=0, rows=True):
-    """Issue the header of a collective about to be issued on the global
-    set; returns its ``Work``, or None when no header is sent (a world of
-    one, another set, a joined rank's stand-in, graph capture). ``tensor``
-    gives the dtype and shape: the whole shape flattened when ``rows`` (an
-    allreduce, broadcast or reducescatter, where only the element count
-    matters), else the dims after dim 0 (an allgather or alltoall, whose
-    rows differ by rank)."""
-    if process_set.ranks is not None or _join.serving \
-            or basics.size() == 1:
-        return None
-    device = basics.device()
-    if _capturing(device):
-        return None
-    desc = [1, _OP_CODES.index(op_name) + 1, 0, arg, 0] + [0] * _MAX_DIMS
-    if tensor is not None:
-        desc[2] = _DTYPES.index(tensor.dtype) + 1 \
-            if tensor.dtype in _DTYPES else 0
-        shape = [tensor.numel()] if rows else [0, *tensor.shape[1:]]
-        if len(shape) > _MAX_DIMS:
-            raise ValueError(f"{op_name} takes at most {_MAX_DIMS} dims")
-        desc[4] = len(shape)
-        desc[5:5 + len(shape)] = shape
-    header = _header_tensor(tuple(desc), device)
-    _join.headers += 1
-    return _collective(dist.all_reduce, header,
-                       group=global_process_set.group(), async_op=True)
+def _torch_dtype(name):
+    return getattr(torch, name.split(".", 1)[1])
 
 
-def _stand_in(desc, active):
-    """As a joined rank, issue with zeros the collective that the
-    ``active`` ranks announced: the sum of their descriptors is ``active``
-    times each."""
-    if any(v % active for v in desc):
-        raise HorovodInternalError(
-            f"join: the active ranks announced different collectives "
-            f"(descriptor sum {desc} over {active} ranks)")
-    op_code, dtype_code, arg, ndim, *dims = [v // active for v in desc]
-    op = _OP_CODES[op_code - 1]
+def _stand_in(outcome):
+    """As a joined rank, issue with zeros the collective that the active
+    ranks negotiated (their request, in ``outcome``)."""
+    q = outcome.active()
+    negotiation.follow(global_process_set, q)
+    op = q[negotiation.OP]
     group = global_process_set.group()
+    device = basics.device()
+    dtypes = [_torch_dtype(d) if d else None for d in q[negotiation.DTYPES]]
+    shapes = q[negotiation.SHAPES]
     _join.serving = True
     try:
         if op == "barrier":
             _blocking(dist.barrier, group=group)
-            return
-        if dtype_code == 0:
-            raise HorovodInternalError(f"join: cannot stand in for a {op} "
-                                       "of this dtype")
-        zeros = torch.zeros(dims[:ndim], dtype=_DTYPES[dtype_code - 1],
-                            device=basics.device())
-        if op == "allreduce":
-            plan = _wire_plan(zeros, _CODE_OP[arg], global_process_set)
-            if plan is not None:
-                from horovod_tpu_torch.ops import hierarchical
+        elif op == "allreduce":
+            reduce = _BY_NAME[q[negotiation.REDUCE]]
+            if reduce is Adasum:
+                raise HorovodInternalError("join cannot stand in for an "
+                                           "Adasum allreduce")
+            buckets = {}    # as the grouped allreduce fuses: per dtype
+            for dtype, shape in zip(dtypes, shapes):
+                buckets[dtype] = buckets.get(dtype, 0) + \
+                    int(torch.Size(shape).numel())
+            for dtype, numel in buckets.items():
+                zeros = torch.zeros(numel, dtype=dtype, device=device)
+                plan = _wire_plan(zeros, reduce, global_process_set)
+                if plan is not None:
+                    from horovod_tpu_torch.ops import hierarchical
 
-                hierarchical.compressed_allreduce(zeros, global_process_set,
-                                                  plan, op=_CODE_OP[arg])
-            else:
-                _blocking(dist.all_reduce, zeros, op=_WIRE_OPS[arg],
+                    hierarchical.compressed_allreduce(
+                        zeros, global_process_set, plan,
+                        op=Sum if reduce is Average else reduce)
+                else:
+                    _blocking(dist.all_reduce, zeros,
+                              op=_DIST_OP[reduce], group=group)
+        elif op in ("broadcast", "reducescatter"):
+            zeros = torch.zeros(shapes[0], dtype=dtypes[0], device=device)
+            if op == "broadcast":
+                _blocking(dist.broadcast, zeros, src=q[negotiation.ROOT],
                           group=group)
-        elif op == "broadcast":
-            _blocking(dist.broadcast, zeros, src=arg, group=group)
-        elif op == "reducescatter":
-            out = zeros.new_empty(zeros.numel() // basics.size())
-            _blocking(dist.reduce_scatter_tensor, out, zeros,
-                      op=_WIRE_OPS[arg], group=group)
-        elif op == "allgather":
-            _allgather_start(zeros, global_process_set)[0].wait()
+            else:
+                out = zeros.new_empty(zeros.numel() // basics.size())
+                _blocking(dist.reduce_scatter_tensor, out, zeros.reshape(-1),
+                          op=_DIST_OP[_BY_NAME[q[negotiation.REDUCE]]],
+                          group=group)
         else:
-            _alltoall_start(zeros, [0] * basics.size(),
-                            global_process_set).wait()
+            zeros = torch.zeros((0,) + tuple(shapes[0][1:]),
+                                dtype=dtypes[0], device=device)
+            if op == "allgather":
+                _allgather_start(zeros, global_process_set,
+                                 rows=outcome.rows()).wait()
+            else:
+                _alltoall_start(zeros, [0] * basics.size(),
+                                global_process_set,
+                                recv_splits=outcome.recv_splits()).wait()
     finally:
         _join.serving = False
 
@@ -423,7 +403,7 @@ class Handle:
     and returns its result; ``poll(handle)`` says whether it is done."""
 
     def __init__(self, works, finish, timing=None):
-        # the backend's Work objects (a header's among them)
+        # the backend's Work objects
         self._works = [w for w in works if w is not None]
         self._finish = finish         # result from the finished buffers
         self._result = None
@@ -457,6 +437,139 @@ def _done(result, timing=None) -> Handle:
     h = Handle([], None)
     h._result = result
     _end(timing)
+    return h
+
+
+class _Then(Handle):
+    """A handle whose result is ``fn`` of other handles' results."""
+
+    def __init__(self, handles, fn):
+        super().__init__([], None)
+        self._handles, self._fn = handles, fn
+        self._finish = True     # pending until waited for
+
+    def done(self) -> bool:
+        return all(h.done() for h in self._handles)
+
+    def wait(self, timeout=None):
+        if self._finish is None:
+            return self._result
+        deadline = None if timeout is None else time.monotonic() + timeout
+        results = [h.wait(None if deadline is None else
+                          max(0.0, deadline - time.monotonic()))
+                   for h in self._handles]
+        self._result, self._finish = self._fn(*results), None
+        return self._result
+
+
+# --------------------------------------------------------------------------
+# negotiated collectives in call order (ops/negotiation.py)
+# --------------------------------------------------------------------------
+
+_queue = collections.deque()    # _Pending handles whose data is not issued
+_queue_lock = threading.RLock()
+
+
+class _Pending(Handle):
+    """A negotiated collective: its request is posted, and its data is
+    issued (``start(outcome)``, which returns the started collective's
+    handle) once every member's request is there, after every collective
+    called before it. A disagreement is raised by ``wait``."""
+
+    def __init__(self, ticket, start):
+        super().__init__([], None)
+        self._ticket, self._start = ticket, start
+        self._inner = self._error = None
+        with _queue_lock:
+            _queue.append(self)
+
+    def _launch(self):
+        """Read the negotiation and issue the data (the queue's head)."""
+        _queue.popleft()
+        try:
+            self._inner = self._start(negotiation.finish(self._ticket))
+        except Exception as e:
+            self._error = e
+
+    def _launched(self) -> bool:
+        return self._inner is not None or self._error is not None
+
+    def done(self) -> bool:
+        if not self._launched():
+            _pump(verdicts=True)
+            if not self._launched():
+                return False
+        return self._error is not None or self._inner.done()
+
+    def wait(self, timeout=None):
+        deadline = None if timeout is None else time.monotonic() + timeout
+        if not self._launched() and deadline is None:
+            _flush(self)
+        while not self._launched():
+            _pump(verdicts=True)
+            if self._launched():
+                break
+            if time.monotonic() >= deadline:
+                raise HorovodTimeoutError(
+                    f"collective '{self._ticket.name}' still pending after "
+                    f"{timeout} s (its peers have not all submitted it)")
+            time.sleep(1e-3)
+        if self._error is not None:
+            raise self._error
+        return self._inner.wait(None if deadline is None else
+                                max(0.0, deadline - time.monotonic()))
+
+
+def _pump(verdicts=False):
+    """Issue the queued collectives, in order, whose negotiations can be
+    read without waiting."""
+    with _queue_lock:
+        while _queue and negotiation.ready(_queue[0]._ticket, verdicts):
+            _queue[0]._launch()
+
+
+def _flush(upto=None):
+    """Issue every queued collective (up to ``upto``), in order, waiting
+    for their negotiations."""
+    with _queue_lock:
+        while _queue:
+            head = _queue[0]
+            head._launch()
+            if head is upto:
+                return
+
+
+def _issue(op_name, process_set, tensors, start, **request):
+    """Negotiate one collective and start it; returns its handle.
+    ``start(outcome)`` issues the data and returns the started
+    collective's handle; ``outcome`` is the negotiation's
+    (``ops/negotiation.py``). Nothing is negotiated for a joined rank's
+    stand-in and under graph capture (every rank captures the same calls,
+    and a replay runs no Python): ``outcome`` is None; nor over a set of
+    one process, whose ``outcome`` only names the lifecycle's timeline
+    lane. Otherwise the request is posted now and the data issued once
+    every member's request is there: when this handle is waited for or
+    polled, or a later collective is called; always in call order."""
+    if _join.serving:
+        return start(None)
+    if process_set.size() == 1:
+        return start(negotiation.local(op_name, process_set,
+                                       request.get("name")))
+    if _capturing(basics.device()):
+        _flush()
+        return start(None)
+    reason = basics.aborted()
+    if reason is not None:
+        raise HorovodInternalError(f"{op_name}: the process group was "
+                                   f"aborted: {reason}")
+    earlier = bool(_queue)
+    with _queue_lock:   # keep the set's posted and unread positions in
+        while _queue and negotiation.window_full(process_set):  # its window
+            _queue[0]._launch()
+    h = _Pending(negotiation.post(op_name, process_set, tensors, **request),
+                 start)
+    if earlier:     # issue what has become ready
+        _pump()
     return h
 
 
@@ -512,7 +625,8 @@ def _wire_plan(buf, op, process_set):
 
 def _allreduce_start(buf, op, prescale, postscale, process_set,
                      segments=None, name=None, timed=True, names=None):
-    """Reduce ``buf`` (owned by the caller, may be reduced in place) and
+    """Negotiate and reduce ``buf`` (owned by the caller, may be reduced in
+    place) and
     return a Handle whose result is the reduced tensor. Adasum combines
     each of the flat ``segments`` (lengths; default the whole tensor) with
     its own coefficients; ``names`` name them for error feedback. Over a
@@ -521,12 +635,25 @@ def _allreduce_start(buf, op, prescale, postscale, process_set,
     package's single-process path is, and a one-process step holds no
     collective (which a CUDA graph can then capture). An fp32 allreduce
     but Adasum under a lossy wire codec takes the compressed route, which
-    is done when this returns. ``timed`` counts and times it as an
-    ``allreduce``; a grouped allreduce times its parts as one."""
+    is done when this returns. ``timed`` negotiates, counts and times it as
+    an ``allreduce``; a grouped allreduce negotiates and times its parts as
+    one."""
+    if timed:
+        return _issue("allreduce", process_set, buf, lambda outcome:
+                      _allreduce_data(buf, op, prescale, postscale,
+                                      process_set, segments, name, names,
+                                      _begin("allreduce", process_set, buf,
+                                             name, buf.device, outcome)),
+                      name=name, reduce=op.name, prescale=prescale,
+                      postscale=postscale)
+    return _allreduce_data(buf, op, prescale, postscale, process_set,
+                           segments, name, names, None)
+
+
+def _allreduce_data(buf, op, prescale, postscale, process_set, segments,
+                    name, names, timing):
     group = process_set.group()
     n = process_set.size()
-    timing = _begin("allreduce", process_set, buf, name,
-                    buf.device) if timed else None
     _scale_(buf, prescale)
     if op is Adasum:
         from horovod_tpu_torch.ops.adasum import adasum_reduce_flat
@@ -541,7 +668,6 @@ def _allreduce_start(buf, op, prescale, postscale, process_set,
 
     if n == 1:
         return _done(finish(), timing)
-    header = _announce("allreduce", process_set, buf, arg=_WIRE_CODE[op])
     plan = _wire_plan(buf, op, process_set)
     if plan is not None:
         from horovod_tpu_torch.ops import hierarchical
@@ -550,12 +676,10 @@ def _allreduce_start(buf, op, prescale, postscale, process_set,
             buf, process_set, plan, names=names or [name or "allreduce"],
             segments=segments or [buf.numel()],
             op=Sum if op is Average else op)
-        if header is not None:
-            _collective(_wait, header)
         return _done(finish(), timing)
     work = _collective(dist.all_reduce, buf, op=_DIST_OP[op], group=group,
                        async_op=True)
-    return Handle([header, work], finish, timing)
+    return Handle([work], finish, timing)
 
 
 def _own_copy(tensor):
@@ -645,7 +769,7 @@ def _copy_into(tensor, out):
 def _then(handle, fn):
     """A handle on the same collective whose result is ``fn`` of
     ``handle``'s."""
-    return Handle(handle._works, lambda: fn(handle.wait()))
+    return _Then([handle], fn)
 
 
 def grouped_allreduce_async(tensors, average=None, name=None, op=None,
@@ -656,9 +780,26 @@ def grouped_allreduce_async(tensors, average=None, name=None, op=None,
     counted and timed as one ``grouped_allreduce``."""
     op = _resolve_op(op, average)
     tensors = list(tensors)
-    timing = _begin("grouped_allreduce", process_set, tensors, name,
-                    tensors[0].device if tensors else None)
+    process_set.group()
     wires = [compression.compress(t.detach()) for t in tensors]
+
+    def start(outcome):
+        return _grouped_data(tensors, wires, op, name, prescale_factor,
+                             postscale_factor, process_set, compression,
+                             outcome)
+
+    if not tensors:
+        return start(None)
+    return _issue("allreduce", process_set, [w for w, _ in wires], start,
+                  name=name, reduce=op.name, prescale=prescale_factor,
+                  postscale=postscale_factor, grouped=True,
+                  label="grouped_allreduce")
+
+
+def _grouped_data(tensors, wires, op, name, prescale_factor,
+                  postscale_factor, process_set, compression, outcome):
+    timing = _begin("grouped_allreduce", process_set, tensors, name,
+                    tensors[0].device if tensors else None, outcome)
     buckets = {}        # (device, wire dtype) -> indices, in order
     for i, (wire, _) in enumerate(wires):
         buckets.setdefault((wire.device, wire.dtype), []).append(i)
@@ -734,47 +875,54 @@ def grouped_allreduce_(tensors, average=None, name=None, op=None,
 # allgather
 # --------------------------------------------------------------------------
 
-def _allgather_start(tensor, process_set, name=None):
-    """(Handle of the gathered tensor, every member's dim-0 rows)."""
-    group = process_set.group()
-    n = process_set.size()
+def _allgather_start(tensor, process_set, name=None, rows=None):
+    """A handle whose result is ``(gathered tensor, every member's dim-0
+    rows)``. The rows come from the negotiation, or as ``rows`` for a
+    joined rank's stand-in."""
+    process_set.group()
     t = tensor.detach()
     t = (t.reshape(1) if t.dim() == 0 else t).contiguous()
-    if t.dim() > _MAX_DIMS:
-        raise ValueError(f"allgather takes at most {_MAX_DIMS} dims")
-    timing = _begin("allgather", process_set, t, name, t.device)
-    header = _announce("allgather", process_set, t, rows=False)
-    shape = torch.tensor([t.dim(), *t.shape] + [0] * (_MAX_DIMS - t.dim()),
-                         dtype=torch.int64, device=t.device)
-    shapes = torch.empty(n * (1 + _MAX_DIMS), dtype=torch.int64,
-                         device=t.device)
-    _blocking(dist.all_gather_into_tensor, shapes, shape, group=group)
-    shapes = shapes.view(n, 1 + _MAX_DIMS).tolist()
-    rows = [s[1] for s in shapes]
-    if any(s[0] != t.dim() or s[2:1 + t.dim()] != list(t.shape[1:])
-           for s in shapes):
-        raise ValueError(f"allgather needs the same dims after dim 0 on "
-                         f"every rank; got shapes "
-                         f"{[s[1:1 + s[0]] for s in shapes]}")
+
+    def start(outcome):
+        if outcome is not None and outcome.negotiated:
+            got = outcome.rows()
+        elif rows is not None:
+            got = rows
+        elif process_set.size() == 1:
+            got = [t.shape[0]]
+        else:
+            raise _host_exchange("allgather")
+        return _allgather_data(t, process_set, name, got, outcome)
+
+    if rows is not None:
+        return start(None)
+    return _issue("allgather", process_set, t, start, name=name)
+
+
+def _allgather_data(t, process_set, name, rows, outcome):
+    timing = _begin("allgather", process_set, t, name, t.device, outcome)
+    n = process_set.size()
     m = max(rows)
     if m != t.shape[0]:        # pad to the largest, trim after
         t = torch.cat([t, t.new_zeros((m - t.shape[0],) + t.shape[1:])])
     out = t.new_empty((n * m,) + t.shape[1:])
-    work = _collective(dist.all_gather_into_tensor, out, t, group=group,
-                       async_op=True)
+    work = _collective(dist.all_gather_into_tensor, out, t,
+                       group=process_set.group(), async_op=True)
 
     def finish():
         if all(r == m for r in rows):
-            return out
-        return torch.cat([out[i * m:i * m + r] for i, r in enumerate(rows)])
+            return out, rows
+        return torch.cat([out[i * m:i * m + r]
+                          for i, r in enumerate(rows)]), rows
 
-    return Handle([header, work], finish, timing), rows
+    return Handle([work], finish, timing)
 
 
 def allgather_async(tensor, name=None, process_set=global_process_set):
-    """Start :func:`allgather`. The shapes are exchanged before this
-    returns; the data moves asynchronously."""
-    return _allgather_start(tensor, process_set, name)[0]
+    """Start :func:`allgather`. The gathered rows are issued once every
+    member's request is there (see ``_issue``)."""
+    return _then(_allgather_start(tensor, process_set, name),
+                 lambda pair: pair[0])
 
 
 class _Allgather(torch.autograd.Function):
@@ -783,9 +931,9 @@ class _Allgather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, tensor, process_set, name=None):
-        handle, rows = _allgather_start(tensor, process_set, name)
+        out, rows = _allgather_start(tensor, process_set, name).wait()
         ctx.shape, ctx.process_set, ctx.rows = tensor.shape, process_set, rows
-        return handle.wait()
+        return out
 
     @staticmethod
     def backward(ctx, grad):
@@ -807,10 +955,10 @@ def grouped_allgather_async(tensors, name=None,
                             process_set=global_process_set):
     """Start :func:`grouped_allgather`; returns a handle whose result is
     the list (``torch/mpi_ops.py:254``)."""
-    del name
-    handles = [allgather_async(t, process_set=process_set) for t in tensors]
-    return Handle([w for h in handles for w in h._works],
-                  lambda: [h.wait() for h in handles])
+    handles = [allgather_async(t, name=f"{name}.{i}" if name else None,
+                               process_set=process_set)
+               for i, t in enumerate(tensors)]
+    return _Then(handles, lambda *outs: list(outs))
 
 
 def grouped_allgather(tensors, name=None, process_set=global_process_set):
@@ -827,21 +975,27 @@ def broadcast_async_(tensor, root_rank, name=None,
                      process_set=global_process_set):
     """Start :func:`broadcast_`; returns a handle whose result is
     ``tensor``."""
-    if root_rank not in process_set.global_ranks():
-        raise ValueError(f"root_rank {root_rank} is not in {process_set}")
     group = process_set.group()
     buf = tensor if tensor.is_contiguous() else tensor.contiguous()
-    timing = _begin("broadcast", process_set, buf, name, buf.device)
-    header = _announce("broadcast", process_set, buf, arg=root_rank)
-    work = _collective(dist.broadcast, buf, src=root_rank, group=group,
-                       async_op=True)
 
-    def finish():
-        if buf is not tensor:
-            tensor.copy_(buf)
-        return tensor
+    def start(outcome):
+        if root_rank not in process_set.global_ranks():
+            raise ValueError(f"root_rank {root_rank} is not in "
+                             f"{process_set}")
+        timing = _begin("broadcast", process_set, buf, name, buf.device,
+                        outcome)
+        work = _collective(dist.broadcast, buf, src=root_rank, group=group,
+                           async_op=True)
 
-    return Handle([header, work], finish, timing)
+        def finish():
+            if buf is not tensor:
+                tensor.copy_(buf)
+            return tensor
+
+        return Handle([work], finish, timing)
+
+    return _issue("broadcast", process_set, buf, start, name=name,
+                  root=int(root_rank))
 
 
 def broadcast_async(tensor, root_rank=0, name=None,
@@ -886,9 +1040,11 @@ def broadcast(tensor, root_rank=0, name=None,
 # alltoall
 # --------------------------------------------------------------------------
 
-def _alltoall_start(tensor, splits, process_set, name=None):
+def _alltoall_start(tensor, splits, process_set, name=None,
+                    recv_splits=None):
     """A handle whose result is ``(output, received_splits)``, whatever
-    ``splits`` is."""
+    ``splits`` is. The received splits come from the negotiation, or as
+    ``recv_splits`` for a joined rank's stand-in."""
     group = process_set.group()
     n = process_set.size()
     t = tensor.detach().contiguous()
@@ -905,25 +1061,35 @@ def _alltoall_start(tensor, splits, process_set, name=None):
             raise ValueError(
                 f"alltoall splits {splits} must be {n} non-negative counts "
                 f"that sum to dim 0 ({t.shape[0]})")
-    timing = _begin("alltoall", process_set, t, name, t.device)
-    header = _announce("alltoall", process_set, t, rows=False)
-    send = torch.tensor(splits, dtype=torch.int64, device=t.device)
-    recv = torch.empty_like(send)
-    _blocking(dist.all_to_all_single, recv, send, group=group)
-    recv_splits = recv.tolist()
-    out = t.new_empty((sum(recv_splits),) + t.shape[1:])
-    work = _collective(dist.all_to_all_single, out, t,
-                       output_split_sizes=recv_splits,
-                       input_split_sizes=splits, group=group, async_op=True)
-    return Handle([header, work], lambda: (out, torch.tensor(recv_splits)),
-                  timing)
+
+    def start(outcome):
+        if outcome is not None and outcome.negotiated:
+            got = outcome.recv_splits()
+        elif recv_splits is not None:
+            got = recv_splits
+        elif n == 1:
+            got = list(splits)
+        else:
+            raise _host_exchange("alltoall")
+        timing = _begin("alltoall", process_set, t, name, t.device, outcome)
+        out = t.new_empty((sum(got),) + t.shape[1:])
+        work = _collective(dist.all_to_all_single, out, t,
+                           output_split_sizes=got, input_split_sizes=splits,
+                           group=group, async_op=True)
+        return Handle([work], lambda: (out, torch.tensor(got)), timing)
+
+    if recv_splits is not None:
+        return start(None)
+    return _issue("alltoall", process_set, t, start, name=name,
+                  splits=splits)
 
 
 def alltoall_async(tensor, splits=None, name=None,
                    process_set=global_process_set):
     """Start :func:`alltoall`; its result follows :func:`alltoall`'s rule
-    (the output alone without ``splits``). The receive splits are
-    exchanged before this returns; the data moves asynchronously."""
+    (the output alone without ``splits``). The negotiation, which carries
+    the splits, is done before this returns; the data moves
+    asynchronously."""
     h = _alltoall_start(tensor, splits, process_set, name)
     return h if splits is not None else _then(h, lambda pair: pair[0])
 
@@ -967,17 +1133,27 @@ def _reducescatter_start(tensor, op, process_set, prescale_factor,
     op = Average if op is None else op
     if op not in _DIST_OP:
         raise ValueError(f"reducescatter does not support {op}")
-    group = process_set.group()
+    process_set.group()
     n = process_set.size()
     if tensor.dim() == 0 or tensor.shape[0] % n:
         raise ValueError(f"reducescatter dim 0 of shape {tuple(tensor.shape)}"
                          f" must divide by the set's size ({n})")
-    timing = _begin("reducescatter", process_set, tensor, name,
-                    tensor.device)
-    buf = _scale_(_own_copy(tensor), prescale_factor)
+    buf = _own_copy(tensor)
+    return _issue("reducescatter", process_set, buf, lambda outcome:
+                  _reducescatter_data(buf, op, process_set, prescale_factor,
+                                      postscale_factor, _begin(
+                                          "reducescatter", process_set, buf,
+                                          name, buf.device, outcome)),
+                  name=name, reduce=op.name, prescale=prescale_factor,
+                  postscale=postscale_factor)
+
+
+def _reducescatter_data(buf, op, process_set, prescale_factor,
+                        postscale_factor, timing):
+    group = process_set.group()
+    n = process_set.size()
+    _scale_(buf, prescale_factor)
     out = buf.new_empty((buf.shape[0] // n,) + buf.shape[1:])
-    header = _announce("reducescatter", process_set, buf,
-                       arg=_WIRE_CODE[op])
     work = _collective(dist.reduce_scatter_tensor, out, buf,
                        op=_DIST_OP[op], group=group, async_op=True)
 
@@ -988,7 +1164,7 @@ def _reducescatter_start(tensor, op, process_set, prescale_factor,
         return _scale_(_average(out, n) if op is Average else out,
                        postscale_factor)
 
-    h = Handle([header], finish, timing)
+    h = Handle([], finish, timing)
     h._input = buf      # alive until the collective completes
     return h
 
@@ -1036,19 +1212,21 @@ def reducescatter(tensor, op=None, name=None, process_set=global_process_set,
 def grouped_reducescatter(tensors, op=None, name=None,
                           process_set=global_process_set):
     """:func:`reducescatter` of each tensor; returns the list."""
-    del name
-    return [reducescatter(t, op=op, process_set=process_set)
-            for t in tensors]
+    return [reducescatter(t, op=op, name=f"{name}.{i}" if name else None,
+                          process_set=process_set)
+            for i, t in enumerate(tensors)]
 
 
 def barrier(process_set=global_process_set):
     """Block until every member of the set reaches this call."""
-    timing = _begin("barrier", process_set, None)
-    header = _announce("barrier", process_set)
-    _blocking(dist.barrier, group=process_set.group())
-    if header is not None:
-        _collective(_wait, header)
-    _end(timing)
+    group = process_set.group()
+
+    def start(outcome):
+        timing = _begin("barrier", process_set, None, outcome=outcome)
+        _blocking(dist.barrier, group=group)
+        return _done(None, timing)
+
+    _issue("barrier", process_set, None, start).wait()
 
 
 # --------------------------------------------------------------------------
@@ -1064,8 +1242,9 @@ def join(device=None) -> int:
     every worker can e.g. broadcast final state from it (Horovod's
     ``torch/mpi_ops.py:846``; the JAX engine's ``JoinOp``).
 
-    The last rank is the one that joined after the most global-set
-    collectives; ranks that joined after the same number are ordered by
+    The last rank is the one that joined after the most negotiated
+    global-set collectives; ranks that joined after the same number are
+    ordered by
     the launcher-aligned clock at which they called ``join``, then by
     rank. ``device`` is accepted for API parity. A world of one returns 0
     at once. Not covered: collectives on another process set (the joined
@@ -1082,28 +1261,23 @@ def join(device=None) -> int:
 
 
 def _join_loop() -> int:
-    device = basics.device()
-    group = global_process_set.group()
-    joined_at, called_us = _join.headers, int(timeline.now_us())
+    _flush()
+    joined_at = negotiation.position(global_process_set)
+    called_us = int(timeline.now_us())
     _join.joined = True
+    negotiation.mark_joined(True)
     timeline.activity_start("join", "JOIN")
     try:
-        while True:
-            header = torch.zeros(_HEADER_LEN, dtype=torch.int64,
-                                 device=device)
-            _blocking(dist.all_reduce, header, group=group)
-            _join.headers += 1
-            active, *desc = header.tolist()   # this rank is idle: it waits
-            if active == 0:
-                break
-            _stand_in(desc, active)
-        mine = torch.tensor([joined_at, called_us, basics.rank()],
-                            dtype=torch.int64, device=device)
-        keys = mine.new_empty(3 * basics.size())
-        _blocking(dist.all_gather_into_tensor, keys, mine, group=group)
-        return max(tuple(k) for k in keys.view(-1, 3).tolist())[2]
+        while True:     # this rank is idle: it waits in the negotiation
+            outcome = negotiation.join_round(global_process_set, joined_at,
+                                             called_us)
+            if all(q is None for q in outcome.reqs):
+                return max((j[0], j[1], r)
+                           for r, j in enumerate(outcome.joins))[2]
+            _stand_in(outcome)
     finally:
         _join.joined = False
+        negotiation.mark_joined(False)
         timeline.activity_end("join")
 
 

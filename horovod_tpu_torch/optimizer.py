@@ -16,6 +16,7 @@ import warnings
 import torch
 
 from horovod_tpu_torch.common.process_sets import global_process_set
+from horovod_tpu_torch.common.util import split_list as _split_list
 from horovod_tpu_torch.models.convert import flax_path
 from horovod_tpu_torch.ops import collective_ops as C
 from horovod_tpu_torch.ops.compression import Compression
@@ -142,19 +143,6 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._hvt_synchronized = False
         super(self.__class__, self).step()
         return loss
-
-
-def _split_list(xs, num_parts):
-    """At most ``num_parts`` near-equal contiguous non-empty runs of ``xs``,
-    the longer first (``horovod_tpu/common/util.py:6``)."""
-    num_parts = min(num_parts, len(xs))
-    if not num_parts:
-        return []
-    base, extra = divmod(len(xs), num_parts)
-    bounds = [0]
-    for i in range(num_parts):
-        bounds.append(bounds[-1] + base + (i < extra))
-    return [xs[a:b] for a, b in zip(bounds, bounds[1:])]
 
 
 def DistributedOptimizer(optimizer, named_parameters=None, *, op=C.Average,

@@ -31,7 +31,16 @@ merged into ``PATH``, a killed worker's local shard standing in for its
 upload. A static job starts a KV server of its own for this
 (``HVT_DIAG_ADDR``); an elastic one uses the driver's rendezvous.
 ``--metrics-port P`` makes every worker serve ``GET /metrics`` at ``P`` +
-its rank (0: ephemeral ports).
+its rank (0: ephemeral ports). ``--stall-warning-sec S`` sets every
+worker's stall inspector threshold (``HVT_STALL_WARN_SEC``, default 60;
+``ops/negotiation.py``).
+
+``--use-mpi`` starts the job as one ``mpirun`` command and ``--use-jsrun``
+as one ``jsrun`` command (``mpi_run.py``, ``js_run.py``); each rank then
+takes its identity from MPI's environment in ``basics.init``. A job whose
+hosts are not all this one first runs the probe (``probe.py``): a signed
+task service on each host, a ring of reachability checks, and the
+rendezvous on an address of the first host that the ring reached.
 """
 
 from __future__ import annotations
@@ -75,6 +84,13 @@ def parse_args(argv=None):
                    help="serve Prometheus GET /metrics from every worker "
                         "at this base port (rank r binds port+r); 0 binds "
                         "ephemeral ports")
+    p.add_argument("--stall-warning-sec", type=int, default=60,
+                   help="stall inspector warning threshold "
+                        "(HVT_STALL_WARN_SEC)")
+    p.add_argument("--use-mpi", action="store_true",
+                   help="launch through a single mpirun command")
+    p.add_argument("--use-jsrun", action="store_true",
+                   help="launch through IBM LSF jsrun")
     elastic = p.add_argument_group(
         "elastic", "fault-tolerant launch (Horovod's launch.py:392 "
         "--min-np/--max-np/--host-discovery-script)")
@@ -132,6 +148,7 @@ def slot_env(base_env, slot, args, master_addr):
     env = dict(base_env)
     env.update(slot_env_vars(slot))
     env["HVT_COORDINATOR_ADDR"] = f"{master_addr}:{args.master_port}"
+    env["HVT_STALL_WARN_SEC"] = str(getattr(args, "stall_warning_sec", 60))
     if getattr(args, "timeline", None):
         env["HVT_TIMELINE_SHARD"] = args.timeline
     if getattr(args, "metrics_port", None) is not None:
@@ -335,6 +352,8 @@ def check_build(verbose: bool = False) -> int:
     def mark(ok):
         return "X" if ok else " "
 
+    import shutil
+
     cuda = torch.cuda.is_available()
     try:
         nvcc = bool(_kernels._nvcc())
@@ -349,6 +368,8 @@ Available Frameworks:
 Available Controllers:
     [X] TCP store (HVT_COORDINATOR_ADDR)
     [X] Elastic HTTP rendezvous (--min-np, --host-discovery-script)
+    [{mark(shutil.which("mpirun"))}] mpirun on PATH (--use-mpi)
+    [{mark(shutil.which("jsrun"))}] jsrun on PATH (--use-jsrun)
 
 Available Tensor Operations:
     [{mark(basics.nccl_built())}] NCCL
@@ -382,6 +403,21 @@ def main(argv=None) -> int:
     slots = get_host_assignments(hosts, args.num_proc)
     master_addr = ("127.0.0.1" if _is_local(slots[0].hostname)
                    else slots[0].hostname)
+    if args.use_mpi:
+        from horovod_tpu_torch.runner.mpi_run import mpi_run
+
+        return mpi_run(args, slots, master_addr)
+    if args.use_jsrun:
+        from horovod_tpu_torch.runner.js_run import js_run
+
+        return js_run(args, slots, master_addr)
+    names = list(dict.fromkeys(s.hostname for s in slots))
+    if not all(_is_local(h) for h in names):
+        # workers on other hosts: the rendezvous address is one that the
+        # probe's ring reached on the first host
+        from horovod_tpu_torch.runner.probe import rendezvous_address
+
+        master_addr = rendezvous_address(names, _is_local, args.ssh_port)
     if args.verbose:
         for s in slots:
             print(f"[launch] rank {s.rank} -> {s.hostname} "

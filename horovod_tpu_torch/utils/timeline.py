@@ -11,8 +11,11 @@ either package, merge into one clock-aligned view (``merge_files`` /
 
 Producers:
 
-- the **producer API** below (``negotiate_start`` / ``activity_start`` /
-  ``mark_cycle`` / ``record_recovery``), as in the JAX package;
+- the **producer API** below (``negotiate_start`` / ``rank_ready`` /
+  ``instant`` / ``activity_start`` / ``mark_cycle`` / ``record_recovery``),
+  as in the JAX package; the coordinator (``ops/negotiation.py``) writes
+  the engine's per-tensor lifecycle through it on the lane
+  ``<tensor> (coordinator)``;
 - the **eager collectives** (``ops/collective_ops.py``): each collective
   writes an ``EAGER_<OP>`` span (host clock, issue to wait) on its
   tensor's lane and, on CUDA, a ``NCCL_<OP>`` device span on the lane
@@ -186,11 +189,16 @@ class _TimelineState:
     def _emit(self, ev):
         self.queue.append(ev)
 
-    def record(self, tensor_name, phase, name=None):
+    def record(self, tensor_name, phase, name=None, ts=None, args=None):
         tid = self._lane(tensor_name, tensor_name)
-        ev = {"ph": phase, "pid": self.pid, "tid": tid, "ts": now_us()}
+        ev = {"ph": phase, "pid": self.pid, "tid": tid,
+              "ts": now_us() if ts is None else ts}
         if name is not None:
             ev["name"] = name
+        if phase == "i":
+            ev["s"] = "t"
+        if args:
+            ev["args"] = args
         self._emit(ev)
 
     def span(self, lane, name, ts_us, dur_us, args=None):
@@ -341,28 +349,49 @@ def active() -> bool:
 
 # --- producer API -----------------------------------------------------------
 
-def negotiate_start(tensor_name, op_name):
+def negotiate_start(tensor_name, op_name, ts=None):
     s = _state
     if s:
-        s.record(tensor_name, "B", name=f"NEGOTIATE_{op_name}")
+        s.record(tensor_name, "B", name=f"NEGOTIATE_{op_name}", ts=ts)
 
 
-def negotiate_end(tensor_name):
+def negotiate_end(tensor_name, ts=None, op_name=None):
+    """End the negotiation span; ``op_name`` names the end event
+    (``NEGOTIATE_<OP>``), so that it can be told from an exec span's end on
+    the same lane."""
     s = _state
     if s:
-        s.record(tensor_name, "E")
+        s.record(tensor_name, "E", ts=ts,
+                 name=None if op_name is None else f"NEGOTIATE_{op_name}")
 
 
-def activity_start(tensor_name, activity):
+def rank_ready(tensor_name, rank, ts=None):
+    """Rank ``rank``'s request reached the negotiation
+    (``RANK_READY_<rank>``, the engine's ``NegotiateRankReady``)."""
     s = _state
     if s:
-        s.record(tensor_name, "B", name=activity)
+        s.record(tensor_name, "i", name=f"RANK_READY_{rank}", ts=ts)
 
 
-def activity_end(tensor_name):
+def instant(tensor_name, name, args=None, ts=None):
+    """An instant on a tensor's lane (``ENQUEUED``, ``DONE``,
+    ``ERROR``)."""
     s = _state
     if s:
-        s.record(tensor_name, "E")
+        s.record(tensor_name, "i", name=name, ts=ts, args=args)
+
+
+def activity_start(tensor_name, activity, args=None):
+    s = _state
+    if s:
+        s.record(tensor_name, "B", name=activity, args=args)
+
+
+def activity_end(tensor_name, activity=None):
+    """End the activity span; ``activity`` names the end event."""
+    s = _state
+    if s:
+        s.record(tensor_name, "E", name=activity)
 
 
 def span(lane, name, ts_us, dur_us, args=None):

@@ -1,5 +1,6 @@
-"""Guards on horovod_tpu_torch's boundaries: it imports nothing of JAX or of
-the JAX package, imports without jax or triton installed, runs on CUDA by
+"""Guards on horovod_tpu_torch's boundaries: it, its examples
+(``examples/torch_port/``) and chip_smoke.py import nothing of JAX or of
+the JAX package, it imports without jax or triton installed, runs on CUDA by
 default and raises without it, and chip_smoke.py refuses to run without a
 GPU or without the package beside it."""
 
@@ -22,8 +23,10 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "horovod_tpu"}
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(PACKAGE):
-        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for top in (PACKAGE, os.path.join(REPO, "examples", "torch_port")):
+        for root, _, names in os.walk(top):
+            files += [os.path.join(root, n) for n in names
+                      if n.endswith(".py")]
     return files
 
 
@@ -42,6 +45,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             offenders += [f"{os.path.relpath(path, REPO)}: {m}" for m in mods
                           if m.split(".")[0] in FORBIDDEN]
     assert len(_port_files()) > 10
+    assert sum("examples" in p for p in _port_files()) == 9
+    assert sum(os.sep + "tools" + os.sep in p for p in _port_files()) == 3
     assert not offenders, offenders
 
 
@@ -75,7 +80,16 @@ def test_imports_with_jax_and_triton_blocked():
             "horovod_tpu_torch.runner.api, horovod_tpu_torch.runner.codec, "
             "horovod_tpu_torch.runner.task_runner, horovod_tpu_torch.ray, "
             "horovod_tpu_torch.spark, horovod_tpu_torch.spark.torch, "
-            "horovod_tpu_torch.spark.data\n"
+            "horovod_tpu_torch.spark.data, horovod_tpu_torch.ops.negotiation, "
+            "horovod_tpu_torch.runner.mpi_run, "
+            "horovod_tpu_torch.runner.js_run, "
+            "horovod_tpu_torch.runner.network, "
+            "horovod_tpu_torch.runner.secret, "
+            "horovod_tpu_torch.runner.host_hash, "
+            "horovod_tpu_torch.runner.probe, "
+            "horovod_tpu_torch.tools.hvt_top, "
+            "horovod_tpu_torch.tools.hvt_analyze, "
+            "horovod_tpu_torch.common.util\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -146,9 +146,11 @@ def cpu_world():
 
 
 def test_join_in_a_world_of_one_sends_no_header(cpu_world):
+    """A world of one negotiates nothing: no coordinator runs, and join
+    returns at once."""
     import horovod_tpu as jhvt
 
-    from horovod_tpu_torch.ops import collective_ops as C
+    from horovod_tpu_torch.ops import negotiation
 
     hvt = cpu_world
     jhvt.init()
@@ -156,36 +158,44 @@ def test_join_in_a_world_of_one_sends_no_header(cpu_world):
     hvt.allreduce(torch.ones(2))
     hvt.barrier()
     assert hvt.join() == 0
-    assert C._join.headers == 0 and not hvt.diagnostics()["joined"]
+    assert negotiation._coord is None and not hvt.diagnostics()["joined"]
 
 
 def test_a_header_carries_the_collective_descriptor(cpu_world,
                                                    monkeypatch):
-    """What a joined rank learns: the op, dtype, reduce op or root, and
-    the element count (or the dims after the rows for an allgather or
-    alltoall), summed over the active ranks; different descriptors
-    raise."""
-    from horovod_tpu_torch.common import basics
-    from horovod_tpu_torch.ops import collective_ops as C
+    """What a joined rank learns, now from the active ranks' requests in
+    the negotiation that replaced the header: the op, dtype, reduce op or
+    root, and the shape (whose rows an allgather or alltoall may vary);
+    requests that differ raise the engine's error instead of a stand-in."""
+    from horovod_tpu_torch.ops import negotiation as N
 
     hvt = cpu_world
     sent = []
-    monkeypatch.setattr(basics, "size", lambda: 2)
-    monkeypatch.setattr(C, "_collective",
-                        lambda fn, header, **kw: sent.append(
-                            header.tolist()))
+
+    class _Coord:
+        def set_state(self, ps):
+            return N._Set("0", [0, 1])
+
+        def post(self, st, req):
+            sent.append(req)
+
+    monkeypatch.setattr(N, "_coord", _Coord())
     gps = hvt.global_process_set
-    C._announce("allreduce", gps, torch.ones(3, 4, dtype=torch.bfloat16),
-                arg=C._WIRE_CODE[hvt.Max])
-    C._announce("alltoall", gps, torch.ones(5, 2, 3), rows=False)
-    C._announce("broadcast", gps, torch.ones(7, dtype=torch.int32), arg=1)
-    C._announce("barrier", gps)
-    C._announce("allreduce", hvt.ProcessSet([0]), torch.ones(2))
-    pad = [0] * (C._MAX_DIMS - 1)
-    assert sent == [
-        [1, 1, 4, 2, 1, 12] + pad,
-        [1, 4, 1, 0, 3, 0, 2, 3] + pad[2:],
-        [1, 3, 8, 1, 1, 7] + pad,
-        [1, 6, 0, 0, 0, 0] + pad]
-    with pytest.raises(hvt.HorovodInternalError, match="different"):
-        C._stand_in([2, 5, 0, 1, 3] + [0] * (C._MAX_DIMS - 1), 2)
+    N.post("allreduce", gps, torch.ones(3, 4, dtype=torch.bfloat16),
+                name="x", reduce="Max")
+    N.post("alltoall", gps, torch.ones(5, 2, 3), name="y",
+                splits=[5, 0])
+    N.post("broadcast", gps, torch.ones(7, dtype=torch.int32),
+                name="z", root=1)
+    N.post("barrier", gps, None, name="b")
+    assert [(q[N.OP], q[N.DTYPES], q[N.SHAPES], q[N.REDUCE], q[N.ROOT])
+            for q in sent] == [
+        ("allreduce", ("torch.bfloat16",), ((3, 4),), "Max", -1),
+        ("alltoall", ("torch.float32",), ((5, 2, 3),), "", -1),
+        ("broadcast", ("torch.int32",), ((7,),), "", 1),
+        ("barrier", ("",), ((),), "", -1)]
+    out = N.Outcome([sent[1], None], [None, [3, 0]], 1, None, 0)
+    assert out.recv_splits() == [0, 0] and out.rows() == [5, 0]
+    other = sent[0][:N.SHAPES] + (((3, 5),),) + sent[0][N.SHAPES + 1:]
+    assert N.check([sent[0], other]) == \
+        "mismatched shape for tensor 'x' ([3,5] vs [3,4])"

@@ -72,7 +72,8 @@ def test_hostfile_parses_as_the_reference(tmp_path):
 def test_slot_env_equals_the_reference_key_by_key(spec):
     """Every HVT_ key the port writes, against the JAX launcher's
     ``--backend jax`` env (which writes HVT_COORDINATOR_ADDR, the contract
-    of basics.init); the engine tuning keys are the reference's alone."""
+    of basics.init, and the stall inspector's HVT_STALL_WARN_SEC); the
+    engine tuning keys are the reference's alone."""
     n = sum(int(p.split(":")[1]) for p in spec.split(","))
     base = {"PATH": "/bin", "KEEP": "1"}
     argv = ["-np", str(n), "-H", spec, "--master-port", "31000", "python",
@@ -83,8 +84,7 @@ def test_slot_env_equals_the_reference_key_by_key(spec):
     slots = hosts.get_host_assignments(hosts.parse_hosts(spec), n)
     got = launch.build_commands(args, slots, "10.0.0.1", base_env=base)
     want = jlaunch.build_commands(jargs, slots, "10.0.0.1", base_env=base)
-    engine_only = {"HVT_CYCLE_TIME_MS", "HVT_FUSION_THRESHOLD",
-                   "HVT_STALL_WARN_SEC"}
+    engine_only = {"HVT_CYCLE_TIME_MS", "HVT_FUSION_THRESHOLD"}
     for (cmd, env, rank), (jcmd, jenv, jrank) in zip(got, want):
         assert rank == jrank
         if cmd[0] == "ssh":     # the env rides inline, as the reference's

@@ -472,11 +472,11 @@ def _nccl_kernels(prof):
 
 
 def _profiled_collectives(op, call, calls):
-    """``calls`` calls of ``call`` (one collective on the global set, a
-    header and its data each) under torch.profiler, behind a barrier that
-    lines the ranks up: the latency the histogram ``op`` holds for them
-    beside their NCCL kernels (the last 2·calls kernels; the barrier's two
-    come first)."""
+    """``calls`` calls of ``call`` (one collective on the global set, one
+    NCCL kernel each) under torch.profiler, behind a barrier that lines the
+    ranks up: the latency the histogram ``op`` holds for them beside their
+    NCCL kernels (the last ``calls`` kernels; the barrier's comes
+    first)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -491,74 +491,12 @@ def _profiled_collectives(op, call, calls):
         torch.cuda.synchronize()
         after = _latency_sum(op)
     kernels = _nccl_kernels(prof)
-    mine = kernels[-2 * calls:]
+    mine = kernels[-calls:]
     return {"calls": calls, "event_ms": (after[0] - before[0]) * 1e3,
             "observations": after[1] - before[1],
             "nccl_kernel_ms": sum(k[2] for k in mine),
             "nccl_kernels": len(kernels),
             "kernels": [[n[:60], round(ms, 4)] for n, _, ms in kernels]}
-
-
-def _header_cost(calls=100):
-    """Device and host time per call of an in-place 1 KiB allreduce: through
-    torch.distributed alone; through torch.distributed preceded by a
-    header-sized int64 allreduce; through hvt on a process set of every
-    rank (timed, no header); and through hvt on the global set (timed, a
-    header); the last two again once the timeline is stopped. And the host
-    µs of timing alone (``collective_ops._begin`` and ``_end``)."""
-    import torch
-    import torch.distributed as dist
-
-    import horovod_tpu_torch as hvt
-    from horovod_tpu_torch.ops import collective_ops as C
-    from horovod_tpu_torch.utils import timeline
-
-    x = torch.zeros(256, device=hvt.device())
-    h = torch.zeros(C._HEADER_LEN, dtype=torch.int64, device=hvt.device())
-    every = hvt.add_process_set(list(range(hvt.size())))
-
-    def two():
-        dist.all_reduce(h)
-        dist.all_reduce(x)
-
-    def timing_only():
-        C._end(C._begin("allreduce", every, x))
-
-    out = {}
-    for name, call in (
-            ("torch_distributed", lambda: dist.all_reduce(x)),
-            ("torch_distributed_two", two),
-            ("hvt_no_header", lambda: hvt.allreduce_(x, op=hvt.Sum,
-                                                     process_set=every)),
-            ("hvt", lambda: hvt.allreduce_(x, op=hvt.Sum)),
-            ("stop_timeline", None),
-            ("hvt_no_header_no_timeline",
-             lambda: hvt.allreduce_(x, op=hvt.Sum, process_set=every)),
-            ("hvt_no_timeline", lambda: hvt.allreduce_(x, op=hvt.Sum)),
-            ("timing_only", timing_only)):
-        if call is None:
-            timeline.stop()
-            continue
-        for _ in range(10):
-            call()
-        torch.cuda.synchronize()
-        hvt.barrier()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            call()
-        host = (time.perf_counter() - t0) / calls
-        end.record()
-        torch.cuda.synchronize()
-        out[name] = {"device_ms_per_call": start.elapsed_time(end) / calls,
-                     "host_us_per_call": host * 1e6}
-    out["header_host_us"] = (out["hvt"]["host_us_per_call"]
-                             - out["hvt_no_header"]["host_us_per_call"])
-    out["header_device_ms"] = (out["hvt"]["device_ms_per_call"]
-                               - out["hvt_no_header"]["device_ms_per_call"])
-    return out
 
 
 def mode_join_gpt(args):
@@ -571,8 +509,8 @@ def mode_join_gpt(args):
     ``GET /metrics`` after step ``scrape_at``; a barrier after each keeps
     them out of the next step's time. Then, with every rank active again,
     the step's gradient allreduce three times under torch.profiler (the
-    histogram's time beside the NCCL kernels') and the header's cost per
-    collective (:func:`_header_cost`)."""
+    histogram's time beside the NCCL kernels') and the negotiation's cost
+    per collective (``torch_port_coord_program.negotiation_cost``)."""
     import hashlib
     import urllib.request
 
@@ -630,7 +568,10 @@ def mode_join_gpt(args):
         grads = [p.grad for p in model.parameters()]
         out["window"] = _profiled_collectives(
             "grouped_allreduce", lambda: hvt.grouped_allreduce_(grads), 3)
-        out["header_cost"] = _header_cost()
+        import torch_port_coord_program
+
+        out["negotiation_cost"] = torch_port_coord_program.negotiation_cost(
+            hvt)
         out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     out["diagnostics"] = hvt.diagnostics()
     return out
@@ -666,8 +607,10 @@ def mode_fleet(args):
     telemetry push loop runs; from step ``args["poll_from"]`` on, each step
     reads ``GET /statusz`` and ``GET /debugz`` from the launcher's server
     (``HVT_DIAG_ADDR``). Returns the last reads, each read's ms, the
-    snapshot's bytes, and the host ms of building a snapshot and of PUTting
-    it to a scratch scope (one push's work)."""
+    snapshot's bytes, the host ms of building a snapshot and of PUTting
+    it to a scratch scope (one push's work), and what ``python -m
+    horovod_tpu_torch.tools.hvt_top --once --json`` printed against the
+    server after the last step."""
     import horovod_tpu_torch as hvt
     from horovod_tpu_torch.common import basics
     from horovod_tpu_torch.ops import _kernels as K
@@ -706,6 +649,15 @@ def mode_fleet(args):
     K.reset_launches()
     res = train(cfg, args["steps"], args["batch"], args["seq"],
                 device=args["device"], seed=0, callbacks=Poll())
+    # the port's hvt_top against the same server, as a user would run it
+    t0 = time.perf_counter()
+    top = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.tools.hvt_top", "--addr",
+         addr, "--once", "--json"], capture_output=True, text=True,
+        timeout=120)
+    reads["hvt_top"] = {"rc": top.returncode, "stdout": top.stdout,
+                        "stderr": top.stderr[-2000:],
+                        "ms": (time.perf_counter() - t0) * 1e3}
     return {**_identity(), "losses": res["loss"], "step_s": res["step_s"],
             "launches": dict(K.LAUNCHES), **reads}
 

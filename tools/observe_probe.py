@@ -24,6 +24,16 @@ port (e.g. the parent commit, unpacked with ``git archive``).
     step (``DistributedOptimizer(AdamW)``, 8 rows a card) for each tree in
     turns (parent, this tree, this tree, parent).
 
+``python tools/observe_probe.py bench4 --parent DIR [--model resnet50]
+[--out DIR]``
+    Four cards. The port's launcher runs ``-np 4`` of ``python -m
+    horovod_tpu_torch.bench --model M`` (ResNet-50 by default, whose
+    TpuBatchNorm allreduces its statistics over the world in every norm
+    layer's forward and backward: one eager collective each) for each tree
+    in turns (parent, this tree, this tree, parent), ``--rounds`` timed
+    blocks of ``--steps`` steps. ``--also TAG=DIR`` adds another tree
+    beside the parent (parent, TAG, this tree, this tree, TAG, parent).
+
 Each prints one JSON line a process or a job, and a summary line last;
 the details go to ``--out`` (default ``chiprun_out/observe_probe``).
 Needs CUDA; imports the port of the tree given to each process.
@@ -271,12 +281,17 @@ def _turns(parent):
 
 
 def _summary(rows, key):
-    by = collections.defaultdict(list)
+    """Each tree's per-process step medians, the difference of their means,
+    and each tree's spread: the range of its processes' step times."""
+    by, spread = collections.defaultdict(list), collections.defaultdict(list)
     for r in rows:
-        by[r["tag"]].append(r[key]["step_ms_median"]
-                            if key else r["step_ms_median"])
+        rec = r[key] if key else r
+        by[r["tag"]].append(rec["step_ms_median"])
+        spread[r["tag"]] += rec.get("step_ms", [])
     means = {t: statistics.mean(v) for t, v in by.items()}
     return {"step_ms_median": dict(by),
+            "step_ms_range": {t: [min(v), max(v)] for t, v in spread.items()
+                              if v},
             "change_minus_parent_ms": means["change"] - means["parent"]}
 
 
@@ -352,6 +367,61 @@ def cmd_compare4(a):
                       **_summary(rows, None)}))
 
 
+def cmd_bench4(a):
+    os.makedirs(a.out, exist_ok=True)
+    rows = []
+    turns = _turns(a.parent)
+    for spec in a.also:
+        tag, root = spec.split("=", 1)
+        turns = turns[:1] + [(tag, os.path.abspath(root))] + turns[1:-1] + \
+            [(tag, os.path.abspath(root))] + turns[-1:]
+    for i, (tag, root) in enumerate(turns):
+        log_path = os.path.join(a.out, f"bench{i}_{tag}.log")
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+               "-np", "4", "--master-port", str(_free_port()),
+               sys.executable, "-m", "horovod_tpu_torch.bench", "--model",
+               a.model, "--num-iters", str(a.rounds),
+               "--num-batches-per-iter", str(a.steps), "--device", a.device]
+        if a.batch_size:
+            cmd += ["--batch-size", str(a.batch_size)]
+        if a.image_size:
+            cmd += ["--image-size", str(a.image_size)]
+        with open(log_path, "w") as log:
+            rc = subprocess.run(cmd, cwd=root, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                env=dict(os.environ, PYTHONPATH=root,
+                                         OMP_NUM_THREADS="1"),
+                                timeout=a.timeout).returncode
+        with open(log_path) as f:
+            text = f.read()
+        if rc:
+            sys.stderr.write(text[-6000:])
+            raise SystemExit(f"{tag} job {i} failed with {rc}")
+        record = json.loads([line.split("] ", 1)[-1] for line in
+                             text.splitlines() if '{"metric"' in line][-1])
+        eager = record["eager"]
+        row = {"tag": tag, "img_sec_per_chip": eager["img_sec_per_chip"],
+               "img_sec_std": eager["img_sec_std"],
+               "step_ms_median": eager["step_ms_median"],
+               "losses": eager["losses"], "suspect": eager["suspect"]}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    by = collections.defaultdict(list)
+    for r in rows:
+        by[r["tag"]].append(r["step_ms_median"])
+    print(json.dumps({
+        "summary": f"bench.py --model {a.model}, four cards",
+        "nvidia_smi": _smi() if a.device == "cuda" else "no GPU",
+        "losses_equal": all(r["losses"] == rows[0]["losses"]
+                            for r in rows),
+        "step_ms_median": dict(by),
+        "img_sec_per_chip": {t: [r["img_sec_per_chip"] for r in rows
+                                 if r["tag"] == t] for t in by},
+        "minus_parent_ms": {t: statistics.mean(v) -
+                            statistics.mean(by["parent"])
+                            for t, v in by.items() if t != "parent"}}))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -365,6 +435,17 @@ def main(argv=None):
         c.add_argument("--windows", type=int, default=4)
         c.add_argument("--replays", type=int, default=2)
         c.add_argument("--timeout", type=int, default=900)
+    c = sub.add_parser("bench4")
+    c.add_argument("--parent", required=True)
+    c.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
+                                                 "observe_probe"))
+    c.add_argument("--model", default="resnet50")
+    c.add_argument("--also", action="append", default=[])
+    c.add_argument("--steps", type=int, default=8)
+    c.add_argument("--rounds", type=int, default=3)
+    c.add_argument("--batch-size", type=int, default=None)
+    c.add_argument("--image-size", type=int, default=None)
+    c.add_argument("--timeout", type=int, default=900)
     for name in ("run", "worker"):
         c = sub.add_parser(name)
         c.add_argument("--root", required=True)
@@ -384,8 +465,8 @@ def main(argv=None):
     a = p.parse_args(argv)
     a.parent = os.path.abspath(a.parent) if getattr(a, "parent", None) \
         else None
-    {"compare": cmd_compare, "compare4": cmd_compare4, "run": cmd_run,
-     "worker": cmd_worker}[a.cmd](a)
+    {"compare": cmd_compare, "compare4": cmd_compare4, "bench4": cmd_bench4,
+     "run": cmd_run, "worker": cmd_worker}[a.cmd](a)
 
 
 if __name__ == "__main__":
