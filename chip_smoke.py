@@ -10,21 +10,28 @@ Phases, each of which exits non-zero on a failure:
    from csrc/ with nvcc, one process per source, in parallel.
 3. kernels: hold every kernel against its plain PyTorch version, and the
    autograd Function built on them (cotangents on o and on lse) against
-   autograd of flash_attention_reference, at eleven shapes: the main
+   autograd of flash_attention_reference, at twenty shapes: the main
    path's (B 8, H 12, S 1024, D 64, bf16, causal), the accumulation
    phase's micro-batch (the same with B 4), non-causal, GQA (H 12,
    H_kv 4), ragged (S 1000, D 32, fp32), bf16 ragged (S 1000, D 64), bf16
-   GQA at D 128 (B 2, S 2048, H 8, H_kv 2), bf16 D 32, the ring's blocks
-   at sp 2 (S 512, causal and not, o in fp32) and Ulysses' local
-   attention at sp 2 (H 6). bf16 at D 64 and 128 routes
-   fwd, dq and dkv to the tensor-core (sm90) kernels, fp32 and D 32 to the
-   SIMT ones; at the main shape both designs run. The sm90 dq and dkv are
-   also held against the plain versions that keep their operands in fp32,
-   as the TPU kernels do, and a second launch of dq on the same inputs
-   must give the same bits. At the main shape, time each
-   kernel, its plain version and the PyTorch library call that computes the
-   same attention (scaled_dot_product_attention, timed only as a
-   yardstick), beside the kernel's bound on an H100.
+   GQA at D 128 (B 2, S 2048, H 8, H_kv 2), bf16 D 32, bf16 GQA ragged at
+   D 96 (S 1000, H 8, H_kv 2), fp32 GQA at S 4096 (D 64, H 4, H_kv 2), the
+   ring's blocks at sp 2 (S 512, causal and not, o in fp32), Ulysses'
+   local attention at sp 2 (H 6), and the timed shapes below. Each kernel has its own route (_kernels._variant):
+   fwd and dkv take the tensor-core (sm90) kernels at bf16 and fp32 with
+   D 32, 64, 96 or 128 (fp32 as 3xTF32), dq at bf16 with D 64 or 128; the
+   rest goes to the SIMT kernels. Each shape runs its route, and where
+   that reaches an sm90 kernel the SIMT design too; the route's launches
+   must be exactly its three kernels once each. The bf16 sm90 dq and dkv
+   are also held against the plain versions that keep their operands in
+   fp32, as the TPU kernels do, and a second launch of dq on the same
+   inputs must give the same bits. At the timed shapes (the main path's;
+   d_model 768 at B 8, S 1024, causal: fp32 at D 32, 64, 96 and 128, bf16
+   at D 32, 96 and 48, the last the SIMT fwd and dkv's own route) time
+   each kernel that runs there, its plain version and the PyTorch library
+   call that computes the same attention in the same dtype
+   (scaled_dot_product_attention, timed only as a yardstick), beside the
+   kernel's bound on an H100.
 4. main path: hvt.init() (a one-process NCCL world), then
    horovod_tpu_torch.train.train on the bench.py GPT (vocab 32768, 12
    layers, d_model 768, 12 heads, d_ff 3072, seq 1024, bf16, flash
@@ -194,11 +201,20 @@ Phases, each of which exits non-zero on a failure:
    of every gradient allreduce), and what the fleet worker's python -m
    horovod_tpu_torch.tools.hvt_top --once --json printed against the
    launcher's server (exit 0, one /statusz document).
-24. summary: one JSON line listing the kernels (launches on the main path,
+24. entry (run after the profile phase): the repo's entry model
+   (gpt_config("entry", use_flash=True): d_model 128, 4 heads of
+   head_dim 32, 2 layers) through train.train, fp32 and bf16, ENTRY_STEPS
+   steps on a seeded batch of 8 x 128: losses finite and falling,
+   flash_fwd_sm90, flash_dkv_sm90 and the SIMT flash_dq launching once a
+   layer a step and nothing else, and the einsum-attention model from the
+   same seed within ENTRY_RTOL of each loss (fp32: dryrun.py's entry
+   tolerance; bf16: LOSS_RTOL).
+25. summary: one JSON line listing the kernels (launches on the main path,
    or the wire phase's route for the codec kernels; the observe,
    accumulation, sequence, checkpoint, fsdp, launch, elastic, fleet,
-   serving, run, estimator and examples phases), the nvidia-smi line, and
-   last the {"ok": true, ...} line.
+   serving, run, estimator, examples and entry phases; the timings at the
+   kernel's own route's shape, and at every timed shape in by_shape), the
+   nvidia-smi line, and last the {"ok": true, ...} line.
 """
 
 import json
@@ -215,7 +231,9 @@ import time
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time the card could
 # take for a kernel's work is max(bytes / HBM rate, FLOPs / peak rate).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# fp32 inputs: the tensor cores' TF32 rate (the sm90 kernels' 3xTF32 split
+# does three times the work: bound_3xtf32_ms)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
 
 CSRC = "horovod_tpu_torch/csrc/"
 SOURCE = {"flash_fwd_sm90": CSRC + "flash_fwd_sm90.cu",
@@ -256,6 +274,16 @@ RING_CASES = [(8, 1024 // SP, 12, 12, 64, "bfloat16", causal, "float32")
               for causal in (True, False)]
 ULYSSES_CASE = (8, 1024, 12 // SP, 12 // SP, 64, "bfloat16", True,
                 "bfloat16")
+# timed besides the main shape: d_model 768 at B 8, S 1024, causal, on the
+# routes the tensor-core fwd and dkv took over from the SIMT kernels (fp32
+# at every sm90 head_dim, bf16 at D 32 and 96), and bf16 D 48, which the
+# SIMT fwd and dkv still serve
+ROUTE_SHAPES = [(8, 1024, 768 // d, 768 // d, d, dtype, True, dtype)
+                for d, dtype in ((32, "float32"), (64, "float32"),
+                                 (96, "float32"), (128, "float32"),
+                                 (32, "bfloat16"), (96, "bfloat16"),
+                                 (48, "bfloat16"))]
+TIMED = [MAIN_SHAPE, *ROUTE_SHAPES]
 CASES = [MAIN_SHAPE,
          MICRO_SHAPE,
          (8, 1024, 12, 12, 64, "bfloat16", False, "bfloat16"),
@@ -264,13 +292,22 @@ CASES = [MAIN_SHAPE,
          (2, 1000, 4, 4, 64, "bfloat16", True, "bfloat16"),
          (2, 2048, 8, 2, 128, "bfloat16", True, "bfloat16"),
          (4, 1024, 8, 8, 32, "bfloat16", True, "bfloat16"),
-         *RING_CASES, ULYSSES_CASE]
+         (2, 1000, 8, 2, 96, "bfloat16", True, "bfloat16"),
+         (1, 4096, 4, 2, 64, "float32", True, "float32"),
+         *RING_CASES, ULYSSES_CASE, *ROUTE_SHAPES]
+# the shape whose timing stands in the kernels line for each SIMT kernel:
+# one its route sends it (fwd and dkv: bf16 D 48; dq: fp32 D 64)
+SIMT_LINE_SHAPE = {"flash_fwd": ROUTE_SHAPES[-1],
+                   "flash_dkv": ROUTE_SHAPES[-1],
+                   "flash_dq": ROUTE_SHAPES[1]}
+BASES = ("flash_fwd", "flash_dq", "flash_dkv")
 # the sequence phase: ring blocks of the main shape at these sp layouts
 SEQUENCE_LAYOUTS = (2, 4)
 # kernel vs its plain version: the same arithmetic, summed in another
 # order; bf16 outputs may differ by about one bf16 ulp (2^-8 relative).
 TOL_PLAIN = {"float32": 1e-4, "bfloat16": 2e-2}
-# flash_dkv_sm90 rounds p and ds to bf16 before p^T dO and ds^T q, where
+# flash_dkv_sm90 rounds p and ds to bf16 before p^T dO and ds^T q (bf16
+# inputs; fp32 ones keep them fp32, as 3xTF32), where
 # flash_dkv and the TPU kernel keep them fp32. Against that fp32-operand
 # plain version it is held to the same 2e-2: on the card the least
 # tolerance that holds was at most 0.010 over the bf16 cases (about one
@@ -286,6 +323,10 @@ ROUNDED = {"flash_dq_sm90": "dO and ds", "flash_dkv_sm90": "p and ds"}
 # the autograd Function vs autograd of the dense reference: in bf16 the
 # reference's autograd also rounds dp through the p cast, so allow more.
 TOL_AUTOGRAD = {"float32": 1e-4, "bfloat16": 5e-2}
+# the entry phase: steps, and each dtype's tolerance between the flash and
+# einsum losses (fp32: dryrun.py's entry loss rtol; bf16: LOSS_RTOL's 1e-2)
+ENTRY_STEPS, ENTRY_BATCH = 5, 8
+ENTRY_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 STEPS_WARMUP, STEPS_TIMED = 2, 5
 # the bench phase: timed blocks of BENCH_STEPS steps after one warm-up
 # block; the losses compared are those of steps 1 and LOSS_STEPS
@@ -444,10 +485,10 @@ def host_issue(run, calls=3):
             "syncs_inside": syncs / calls}
 
 
-def bound(name, b, s, h, h_kv, d, dtype, causal, out_dtype):
-    """(bound_ms, bound_by) for one kernel's work at this shape: each input
-    read once, each output written once (o and dO in ``out_dtype``); FLOPs
-    of the visible (q, k) pairs."""
+def work(name, b, s, h, h_kv, d, dtype, causal, out_dtype):
+    """(FLOPs, bytes) of one kernel's work at this shape: each input read
+    once, each output written once (o and dO in ``out_dtype``); FLOPs of
+    the visible (q, k) pairs."""
     item = 2 if dtype == "bfloat16" else 4
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     q_bytes, kv_bytes, vec = b * s * h * d * item, b * s * h_kv * d * item, \
@@ -458,10 +499,22 @@ def bound(name, b, s, h, h_kv, d, dtype, causal, out_dtype):
     nbytes = {"flash_fwd": q_bytes + o_bytes + 2 * kv_bytes + vec,
               "flash_dq": 2 * q_bytes + o_bytes + 2 * kv_bytes + 2 * vec,
               "flash_dkv": q_bytes + o_bytes + 4 * kv_bytes + 2 * vec}[name]
-    t_ops = flops / PEAK_FLOPS[dtype]
+    return flops, nbytes
+
+
+def bound(name, b, s, h, h_kv, d, dtype, causal, out_dtype, passes=1):
+    """(bound_ms, bound_by) for one kernel's work at this shape (``work``)
+    with ``passes`` times its products (3 for the 3xTF32 split)."""
+    flops, nbytes = work(name, b, s, h, h_kv, d, dtype, causal, out_dtype)
+    t_ops = passes * flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
+
+
+def route_launches(K, q):
+    """{kernel: 1} for the kernel of each base that q's route takes."""
+    return {K._kernel(base, q, None): 1 for base in BASES}
 
 
 def ptxas_summary(log):
@@ -504,8 +557,9 @@ def check(tag, got, want, tol):
 
 def kernel_phase(case, K, ref_fn, timings):
     """Hold the kernels that take this shape against their plain versions
-    and autograd of the reference; at the main shape run both designs of
-    each kernel, and time every kernel."""
+    and autograd of the reference: each kernel's route and, where that
+    reaches a tensor-core kernel, the SIMT design too. At a TIMED shape,
+    time every kernel that ran, into timings[name][shape]."""
     import torch
     import torch.nn.functional as F
 
@@ -518,10 +572,13 @@ def kernel_phase(case, K, ref_fn, timings):
     dlse = torch.randn(b, s, h, generator=gen, device="cuda")
     scale = d ** -0.5
     tol = TOL_PLAIN[dtype_name]
+    bf16 = dtype == torch.bfloat16
     shape = {"B": b, "S": s, "H": h, "H_kv": h_kv, "D": d,
              "dtype": dtype_name, "causal": causal, "o": out_name}
-    main = case == MAIN_SHAPE
-    variants = ("sm90", "simt") if main else (K._variant(dtype, d),)
+    route = route_launches(K, q)
+    # None: each kernel's own route
+    variants = (None, "simt") if any(n.endswith("_sm90") for n in route) \
+        else (None,)
 
     # both designs get the same inputs: the backward starts from the plain
     # forward's o and lse
@@ -530,29 +587,39 @@ def kernel_phase(case, K, ref_fn, timings):
     args = (q, k, v, do, rlse, delta, scale, causal)
     fp32_operands = {"dq": K.flash_dq_plain(*args),
                      **dict(zip(("dk", "dv"), K.flash_dkv_plain(*args)))}
-    errs = {}
+    errs, rounds = {}, {}
     for variant in variants:
-        sm90 = variant == "sm90"
-        fwd, dqn, dkv = (K._kernel(base, q, variant)
-                         for base in ("flash_fwd", "flash_dq", "flash_dkv"))
+        fwd, dqn, dkv = (K._kernel(base, q, variant) for base in BASES)
+        # the kernels that round operands to bf16 where the TPU kernels
+        # keep fp32: sm90 dq always, sm90 dkv on bf16 inputs
+        rounds[dqn] = dqn.endswith("_sm90")
+        rounds[dkv] = dkv.endswith("_sm90") and bf16
+        before = dict(K.LAUNCHES)
         o, lse = K.flash_fwd(q, k, v, scale, causal, out_dtype,
                              variant=variant)
         got = {"dq": K.flash_dq(*args, variant=variant),
                **dict(zip(("dk", "dv"), K.flash_dkv(*args, variant=variant)))}
         torch.cuda.synchronize()
+        ran = {n: K.LAUNCHES[n] - before[n] for n in before
+               if K.LAUNCHES[n] != before[n]}
+        want_ran = {fwd: 1, dqn: 1, dkv: 1}
+        if variant is None and ran != route:
+            fail(f"kernels at {shape}: the route launched {ran}, expected "
+                 f"{route}")
+        if ran != want_ran:
+            fail(f"kernels at {shape}: variant {variant} launched {ran}, "
+                 f"expected {want_ran}")
         errs[fwd] = [check(f"{fwd} o", o, ro, tol),
                      check(f"{fwd} lse", lse, rlse, 1e-4)]
         if not torch.equal(K.flash_dq(*args, variant=variant), got["dq"]):
             fail(f"{dqn}: a second launch on the same inputs gave other bits")
-        want = fp32_operands
-        if sm90:    # the plain versions that round where the kernels do
-            want = {"dq": K.flash_dq_plain(*args, round_operands=True),
-                    **dict(zip(("dk", "dv"), K.flash_dkv_plain(
-                        *args, round_operands=True)))}
+        want = {"dq": K.flash_dq_plain(*args, round_operands=rounds[dqn]),
+                **dict(zip(("dk", "dv"), K.flash_dkv_plain(
+                    *args, round_operands=rounds[dkv])))}
         for name, outs in ((dqn, ("dq",)), (dkv, ("dk", "dv"))):
             errs[name] = [check(f"{name} {n}", got[n], want[n], tol)
                           for n in outs]
-            if not sm90:
+            if not rounds[name]:
                 continue
             tol32 = (TOL_DQ_FP32_OPERANDS if name == dqn
                      else TOL_DKV_FP32_OPERANDS)
@@ -566,8 +633,9 @@ def kernel_phase(case, K, ref_fn, timings):
         del o, lse, got, want
     for name, found in errs.items():
         emit({"phase": "kernel", "kernel": name, "shape": shape,
+              "on_route": name in route,
               "vs": "plain version" + (f" with bf16 {ROUNDED[name]} operands"
-                                       if name in ROUNDED else ""),
+                                       if rounds.get(name) else ""),
               "max_abs_err": max(e[0] for e in found),
               "max_rel_err": max(e[1] for e in found),
               "least_tol": max(e[2] for e in found), "tol": tol})
@@ -589,7 +657,7 @@ def kernel_phase(case, K, ref_fn, timings):
     ag = [check(f"autograd {n}", a, r, 1e-4 if n == "lse" else tol_ag)
           for n, a, r in zip(("o", "lse", "dq", "dk", "dv"),
                              grads["kernels"], grads["reference"])]
-    emit({"phase": "autograd", "shape": shape,
+    emit({"phase": "autograd", "shape": shape, "route": sorted(route),
           "vs": "autograd of flash_attention_reference, cotangents on o "
                 "and lse",
           "max_abs_err": max(e[0] for e in ag),
@@ -597,7 +665,7 @@ def kernel_phase(case, K, ref_fn, timings):
           "least_tol": max(e[2] for e in ag), "tol": tol_ag})
     del grads
 
-    if not main:
+    if case not in TIMED:
         return
     # SDPA takes [B, H, S, D]; its K/V carry the full head count
     qh = q.transpose(1, 2).contiguous()
@@ -621,7 +689,6 @@ def kernel_phase(case, K, ref_fn, timings):
     del out
     timed = {}
     for variant in variants:
-        sm90 = variant == "sm90"
         timed[K._kernel("flash_fwd", q, variant)] = (
             lambda vr=variant: K.flash_fwd(q, k, v, scale, causal, out_dtype,
                                            variant=vr),
@@ -629,27 +696,35 @@ def kernel_phase(case, K, ref_fn, timings):
             sdpa_fwd)
         # dq and dkv: SDPA's backward alone (on a retained graph), the one
         # call that computes them
-        timed[K._kernel("flash_dq", q, variant)] = (
+        dqn, dkv = (K._kernel(base, q, variant) for base in BASES[1:])
+        timed[dqn] = (
             lambda vr=variant: K.flash_dq(*args, variant=vr),
-            lambda r=sm90: K.flash_dq_plain(*args, round_operands=r),
+            lambda r=rounds[dqn]: K.flash_dq_plain(*args, round_operands=r),
             sdpa_bwd)
-        timed[K._kernel("flash_dkv", q, variant)] = (
+        timed[dkv] = (
             lambda vr=variant: K.flash_dkv(*args, variant=vr),
-            lambda r=sm90: K.flash_dkv_plain(*args, round_operands=r),
+            lambda r=rounds[dkv]: K.flash_dkv_plain(*args, round_operands=r),
             sdpa_bwd)
     for name, (kern, plain, lib) in timed.items():
         bound_ms, bound_by = bound(name, b, s, h, h_kv, d, dtype_name,
                                    causal, out_name)
         ms, host_ms = cuda_ms(kern, 20)
-        timings[name] = {"max_abs_err": max(e[0] for e in errs[name]),
-                         "ms": ms, "plain_ms": cuda_ms(plain, 5)[0],
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": lib}
-        emit({"phase": "timing", "kernel": name, "shape": shape,
-              **timings[name], "wrapper_host_ms": host_ms,
+        record = {"shape": shape, "on_route": name in route,
+                  "max_abs_err": max(e[0] for e in errs[name]),
+                  "ms": ms, "plain_ms": cuda_ms(plain, 5)[0],
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "library_ms": lib}
+        if not bf16:   # the split's three TF32 products
+            record["bound_3xtf32_ms"] = bound(name, b, s, h, h_kv, d,
+                                              dtype_name, causal, out_name,
+                                              passes=3)[0]
+        timings.setdefault(name, {})[case] = record
+        emit({"phase": "timing", "kernel": name, **record,
+              "wrapper_host_ms": host_ms,
               "library": "scaled_dot_product_attention "
                          + ("forward" if name.startswith("flash_fwd")
-                            else "backward on a retained graph"),
+                            else "backward on a retained graph")
+                         + f" in {dtype_name}",
               "library_forward_backward_ms": sdpa_pair})
 
 
@@ -682,10 +757,9 @@ def main_path(hvt, K):
 
     losses = res["loss"]
     per_step = cfg.n_layers
-    suffix = "_sm90" if K._variant(cfg.dtype,
-                                   cfg.d_model // cfg.n_heads) == "sm90" else ""
-    on_path = {base + suffix for base in ("flash_fwd", "flash_dq",
-                                          "flash_dkv")}
+    on_path = {base + ("_sm90" if K._variant(
+        base, cfg.dtype, cfg.d_model // cfg.n_heads) == "sm90" else "")
+        for base in BASES}
     for name, n in launches.items():
         want = per_step * steps if name in on_path else 0
         if n != want:
@@ -726,6 +800,68 @@ def main_path(hvt, K):
     del einsum
     return (launches, res["model"], res["optimizer"], cfg, batch, seq, step_s,
             losses)
+
+
+def entry_phase(K):
+    """The repo's entry model with flash attention at fp32 and bf16
+    (module docstring, phase 24). Returns the launches of both runs."""
+    import dataclasses
+
+    import torch
+
+    from horovod_tpu_torch.train import gpt_config, train
+
+    launches = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dtype_name = str(dtype).split(".")[1]
+        cfg = gpt_config("entry", use_flash=True, dtype=dtype)
+        d = cfg.d_model // cfg.n_heads
+        seq, steps = cfg.max_seq_len, ENTRY_STEPS
+        K.reset_launches()
+        res = train(cfg, steps, ENTRY_BATCH, seq, seed=0, lr=1e-3)
+        ran = dict(K.LAUNCHES)
+        launches.update({f"{n}@{dtype_name}": c for n, c in ran.items()})
+        q = torch.empty(1, 1, cfg.n_heads, d, dtype=dtype, device="meta")
+        want = {n: cfg.n_layers * steps
+                for n in route_launches(K, q)}
+        if {n: c for n, c in ran.items() if c} != want:
+            fail(f"entry {dtype_name}: launched {ran}, expected {want}")
+        losses = res["loss"]
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            fail(f"entry {dtype_name}: losses {losses} are not finite and "
+                 f"falling")
+        before = dict(K.LAUNCHES)
+        einsum = train(dataclasses.replace(cfg, use_flash=False), steps,
+                       ENTRY_BATCH, seq, seed=0, lr=1e-3)
+        if dict(K.LAUNCHES) != before:
+            fail("entry: the einsum-attention step launched flash kernels")
+        rels = [abs(a - e) / abs(e) for a, e in zip(losses, einsum["loss"])]
+        emit({"phase": "entry", "dtype": dtype_name, "head_dim": d,
+              "batch": ENTRY_BATCH, "seq": seq, "losses": losses,
+              "einsum_losses": einsum["loss"], "rel_diff": rels,
+              "rtol": ENTRY_RTOL[dtype_name], "launches": ran,
+              "step_ms_median": statistics.median(res["step_s"][1:]) * 1e3,
+              "einsum_step_ms_median":
+              statistics.median(einsum["step_s"][1:]) * 1e3})
+        if max(rels) > ENTRY_RTOL[dtype_name]:
+            fail(f"entry {dtype_name}: flash losses {losses} are not within "
+                 f"{ENTRY_RTOL[dtype_name]} of the einsum model's "
+                 f"{einsum['loss']}")
+        del res, einsum
+    return launches
+
+
+def line_timing(K, name, timings):
+    """The timing that stands in the kernels line for kernel ``name``: an
+    sm90 kernel's at the main shape, a SIMT kernel's at SIMT_LINE_SHAPE,
+    with every timed shape in ``by_shape``; a codec kernel's as the wire
+    phase recorded it."""
+    if name in K.CODEC_KERNELS:
+        return timings[name]
+    by_case = timings[name]
+    case = MAIN_SHAPE if name.endswith("_sm90") else SIMT_LINE_SHAPE[name]
+    return {**by_case[case], "by_shape": list(by_case.values())}
 
 
 # the sm90 names first: _category matches by substring
@@ -2552,6 +2688,10 @@ def main():
     profile_phase(*trained, launches)
     main_step_s = trained[-1]
     del trained
+    t0 = time.perf_counter()
+    entry_launches = entry_phase(K)
+    emit({"phase": "slice13_seconds", "entry": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
     observe_launches = observe_phase(hvt, K, main_losses, main_step_s)
     acc_launches, model, optimizer = accumulation_phase(hvt, K, main_losses)
     collectives_phase(hvt, model, optimizer)
@@ -2619,7 +2759,9 @@ def main():
          "launches_run": run_launches[name],
          "launches_estimator": estimator_launches[name],
          "launches_examples_long_context": examples_launches[name],
-         **timings[name]} for name in K.LAUNCHES]})
+         "launches_entry_fp32": entry_launches[f"{name}@float32"],
+         "launches_entry_bf16": entry_launches[f"{name}@bfloat16"],
+         **line_timing(K, name, timings)} for name in K.LAUNCHES]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

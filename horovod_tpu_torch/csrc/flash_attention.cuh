@@ -1,6 +1,6 @@
 // Shared pieces of the flash-attention kernels of horovod_tpu_torch, written
 // for Hopper (sm_90a): the layout contract, constants and launch helper of
-// all five, and the tile staging of the three SIMT kernels (flash_fwd.cu,
+// all six, and the tile staging of the three SIMT kernels (flash_fwd.cu,
 // flash_dq.cu, flash_dkv.cu). The tensor-core kernels' own pieces are in
 // sm90.cuh.
 //
@@ -77,14 +77,21 @@ inline bool valid_shape(int B, int S, int H, int Hkv, int D) {
 }
 
 // Raises the kernel's dynamic shared-memory limit (needed above 48 KB), then
-// launches it and reports the launch's error, if any.
+// launches it with `threads` threads a block and reports the launch's error,
+// if any.
 template <typename Kernel, typename... Args>
-inline int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
+inline int launch_n(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                    Args... args) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+template <typename Kernel, typename... Args>
+inline int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
+  return launch_n(kernel, grid, kThreads, smem, stream, args...);
 }
 
 }  // namespace hvt

@@ -2,25 +2,28 @@
 // tensor cores (wgmma, TMA, mbarriers; sm_90a only).
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_dkv_kernel (pl.pallas_call in
-// _flash_bwd) for bf16 q/k/v/dO with head_dim 64 or 128; flash_dkv.cu stays
-// the route for fp32 and other head dims. For each key tile:
+// _flash_bwd) for q/k/v/dO in bf16 or fp32 with head_dim 32, 64, 96 or 128;
+// flash_dkv.cu stays the route for other head dims. For each key tile:
 //   p = exp(scale q k^T - lse) with the causal fill, dv += p^T dO,
 //   dp = dO v^T, ds = p (dp - delta), dk += ds^T q * scale,
 // with query tiles before the first one that can see the key tile skipped
 // (the TPU kernel's `start`).
 //
-// Numerics differ from _dkv_kernel in one place. It takes p^T dO and ds^T q
-// on fp32 operands (:244-253); on the tensor cores p and ds are rounded to
-// bf16 first, as in FlashAttention-2/3. Everything else matches: the scores,
-// p and ds are fp32, every product sums in fp32. The plain version with
-// round_operands=True (ops/_kernels.py) rounds at the same two points.
+// Numerics. In bf16 they differ from _dkv_kernel in one place: it takes
+// p^T dO and ds^T q on fp32 operands (:244-253); on the tensor cores p and ds
+// are rounded to bf16 first, as in FlashAttention-2/3. Everything else
+// matches: the scores, p and ds are fp32, every product sums in fp32. The
+// plain version with round_operands=True (ops/_kernels.py) rounds at the
+// same two points. In fp32 every product, p^T dO and ds^T q included, runs
+// as 3xTF32 (sm90.cuh) on fp32 operands, within about 2^-21 of fp32
+// products: the plain version keeps fp32 operands.
 //
-// Design. One block of 256 threads owns a 128-key tile of one (b, h_kv): two
-// warpgroups of 64 keys each, with K and V resident in shared memory. Thread 0
-// issues every TMA load: K and V once, then 64-row Q/dO tiles of each query
-// head of the group through a ring of kStages stages behind "full" and
-// "empty" mbarriers. Each warpgroup computes the transposed products, so that
-// every intermediate stays in registers:
+// Design, bf16. One block of 256 threads owns a 128-key tile of one
+// (b, h_kv): two warpgroups of 64 keys each, with K and V resident in shared
+// memory. Thread 0 issues every TMA load: K and V once, then 64-row Q/dO
+// tiles of each query head of the group through a ring of kStages stages
+// behind "full" and "empty" mbarriers. Each warpgroup computes the transposed
+// products, so that every intermediate stays in registers:
 //   S^T  = K Q^T     wgmma m64n64k16, K and Q K-major from shared memory;
 //   dP^T = V dO^T    the same with V and dO;
 //   P^T  = exp2(S^T scale log2(e) - lse log2(e)),  dS^T = P^T (dP^T - delta)
@@ -28,50 +31,84 @@
 //   dV  += P^T dO    wgmma m64nDk16, P^T as bf16 register A operand, dO MN-major;
 //   dK  += dS^T Q    the same with dS^T and Q.
 // dK and dV stay in fp32 registers across the whole loop, so the GQA group
-// sum happens in the kernel and each is written once, in bf16. lse and delta
-// of a query tile come with plain loads into the warpgroup's shared memory:
-// their rows of S floats need not meet TMA's 16-byte stride rule.
+// sum happens in the kernel and each is written once, in k's dtype. lse and
+// delta of a query tile come with plain loads into the warpgroup's shared
+// memory: their rows of S floats need not meet TMA's 16-byte stride rule.
+// head_dim 32 and 96 run as 64 and 128 with zero columns (TMA's fill): a
+// quarter or half of the products are of zeros; only D columns are written.
 //
-// Bound. At the main path's shape (B 8, H 12, S 1024, D 64, bf16, causal)
-// the work is 25.8 GFLOP of bf16 products and 76.3 MB: 26 us of tensor-core
-// time, 23 us of HBM time.
+// Design, fp32 (3xTF32). Two warpgroups own a 128-key tile at D 64, one
+// warpgroup a 64-key tile at D 32 (three such blocks fit an SM's registers,
+// which won on the card) and at D 96 and 128 (K, V and their lo would not fit
+// twice); Q/dO tiles are kBQ rows (32 at D 32 and 64, 16 at D 96 and 128),
+// one stage. K and V are split once (hi in place, lo beside); each Q
+// and dO tile is split into hi/lo and also written transposed (hi and lo),
+// since dV += P^T dO and dK += dS^T Q need them K-major. Each product is
+// three wgmmas a k-step of 8 (a_lo b_hi, a_hi b_lo, a_hi b_hi), P^T and dS^T
+// split in registers; a Q tile's dV and dK are summed in a fresh
+// accumulator, then added to dV and dK in fp32 (the tensor cores truncate
+// as they accumulate). Shared memory: K, V and their lo 4 * kBKV * D * 4 B, a
+// stage four kBQ * D * 4 B tiles and four transposed ones of D * 128 B:
+// 224 KB at D 128, 168 KB at D 96, 192 KB at D 64, 64 KB at D 32.
+//
+// Bound. At B 8, S 1024, causal, d_model 768 (H = 768 / D) every head_dim
+// does the same 25.8 GFLOP of products. bf16 moves 76.3 MB (23 us) against
+// 26 us of tensor-core time (operations bound); this kernel's padded
+// products at D 32 and D 96 take 52 us and 35 us. fp32 moves 152 MB (45 us)
+// against 52 us at TF32's 495 TFLOP/s, and its 3xTF32 products take
+// 156 us: the three products bound every fp32 instantiation; the
+// transposed splits and the 16-query products at D 96/128 come on top.
+// Registers: 154-253 a thread at fp32, 173 and 247 at bf16 D 32 and 96.
 #include "flash_attention.cuh"
 #include "sm90.cuh"
 
 namespace hvt {
 namespace {
 
-constexpr int kBKV = 128;  // keys per block (two warpgroups of 64)
-constexpr int kBQ = 64;    // query rows per streamed tile
-constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
-struct DkvSmem {
-  static constexpr int kKV = kBKV * D * 2;  // bytes of the K (or V) tile
-  static constexpr int kQ = kBQ * D * 2;    // bytes of one Q (or dO) tile
-  static constexpr int kVec = 2 * 2 * kBQ * 4;  // per warpgroup: lse, delta of kBQ rows
+// Tile sizes and the shared-memory layout of one instantiation.
+template <int D, typename T>
+struct DkvCfg {
+  static constexpr bool kTf32 = std::is_same<T, float>::value;
+  static constexpr int DP = sm90::padded_d<D, T>();
+  // warpgroups, 64 keys each; fp32 at D 32, 96, 128: one (see Design, fp32)
+  static constexpr int kWG = kTf32 && D != 64 ? 1 : 2;
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kBKV = 64 * kWG;        // keys per block
+  static constexpr int kBQ = !kTf32 ? 64 : D <= 64 ? 32 : 16;  // query rows a tile
+  static constexpr int kStages = kTf32 ? 1 : 2;
+  static constexpr int kKV = kBKV * DP * (int)sizeof(T);  // bytes of the K (or V) tile
+  static constexpr int kQ = kBQ * DP * (int)sizeof(T);    // of one Q (or dO) tile
+  // a transposed Q or dO tile: DP rows of 128 B per 32 queries
+  static constexpr int kT = kTf32 ? DP * sm90::kRowBytes * ((kBQ + 31) / 32) : 0;
+  static constexpr int kResident = (kTf32 ? 4 : 2) * kKV;  // K, V (, K lo, V lo)
+  // a stage: Q, dO (, Q lo, dO lo, Q^T hi, Q^T lo, dO^T hi, dO^T lo)
+  static constexpr int kStage = kTf32 ? 4 * kQ + 4 * kT : 2 * kQ;
+  static constexpr int kVec = kWG * 2 * kBQ * 4;  // per warpgroup: lse, delta of kBQ rows
   static constexpr int kBarriers = (1 + 2 * kStages) * 8;
-  static constexpr int kBytes = 2 * kKV + 2 * kStages * kQ + kVec + kBarriers + sm90::kAtomBytes;
+  static constexpr int kBytes =
+      kResident + kStages * kStage + kVec + kBarriers + sm90::kAtomBytes;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int D, typename T>
+__global__ void __launch_bounds__(DkvCfg<D, T>::kThreads, 1)
     flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S,
-                          int H, int Hkv, float scale, float scale_log2, int causal) {
+                          T* __restrict__ dk, T* __restrict__ dv, int S, int H, int Hkv,
+                          float scale, float scale_log2, int causal) {
   using namespace sm90;
-  using L = DkvSmem<D>;
+  using L = DkvCfg<D, T>;
+  constexpr int DP = L::DP, kBKV = L::kBKV, kBQ = L::kBQ, kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1k(smem_raw);
   uint8_t* k_s = smem;
-  uint8_t* v_s = smem + L::kKV;
-  uint8_t* qdo_s = smem + 2 * L::kKV;  // stage s: Q at qdo_s + 2 s kQ, dO right after it
-  float* vec = reinterpret_cast<float*>(qdo_s + 2 * kStages * L::kQ);
+  uint8_t* v_s = smem + L::kKV;          // fp32: K lo, V lo follow V
+  uint8_t* qdo_s = smem + L::kResident;  // stage s at qdo_s + s kStage: Q, dO (, ...)
+  float* vec = reinterpret_cast<float*>(qdo_s + kStages * L::kStage);
   uint64_t* bar_kv = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(vec) + L::kVec);
   uint64_t* full = bar_kv + 1;
   uint64_t* empty = full + kStages;
@@ -83,13 +120,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int qt_start = causal ? k0 / kBQ : 0;  // earlier query tiles see none of these keys
   const int per_head = n_qt - qt_start;
   const int n_iter = group * per_head;
-  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = (tid % 128) / 32, lane = tid % 32;
+  const int wg = L::kWG == 1 ? 0 : tid / 128;
 
   if (tid == 0) {
     mbar_init(bar_kv, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kThreads);
+      mbar_init(&empty[s], L::kThreads);
     }
     mbar_init_fence();
   }
@@ -97,15 +135,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   auto load_q = [&](int t, int s) {
     const int h = hk * group + t / per_head, q0 = (qt_start + t % per_head) * kBQ;
-    uint8_t* dst = qdo_s + 2 * s * L::kQ;
+    uint8_t* dst = qdo_s + s * L::kStage;
     mbar_expect_tx(&full[s], 2 * L::kQ);
-    tma_load_rows<D>(dst, &tq, &full[s], kBQ, q0, h, b);
-    tma_load_rows<D>(dst + L::kQ, &tdo, &full[s], kBQ, q0, h, b);
+    tma_load_rows<DP, T>(dst, &tq, &full[s], kBQ, q0, h, b);
+    tma_load_rows<DP, T>(dst + L::kQ, &tdo, &full[s], kBQ, q0, h, b);
   };
   if (tid == 0) {
     mbar_expect_tx(bar_kv, 2 * L::kKV);
-    tma_load_rows<D>(k_s, &tk, bar_kv, kBKV, k0, hk, b);
-    tma_load_rows<D>(v_s, &tv, bar_kv, kBKV, k0, hk, b);
+    tma_load_rows<DP, T>(k_s, &tk, bar_kv, kBKV, k0, hk, b);
+    tma_load_rows<DP, T>(v_s, &tv, bar_kv, kBKV, k0, hk, b);
     for (int t = 0; t < kStages && t < n_iter; ++t) load_q(t, t);
   }
 
@@ -113,15 +151,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int key_lo = k0 + 64 * wg + 16 * warp + lane / 4;  // keys key_lo and key_lo + 8
   float* lse_s = vec + wg * 2 * kBQ;                         // this warpgroup's lse * log2(e)
   float* delta_s = lse_s + kBQ;
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[DP / 2], dv_acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   mbar_wait(bar_kv, 0);
+  if constexpr (L::kTf32) {
+    split_tile<DP, kBKV, true, false>(k_s, k_s + 2 * L::kKV, nullptr, nullptr, tid, L::kThreads);
+    split_tile<DP, kBKV, true, false>(v_s, v_s + 2 * L::kKV, nullptr, nullptr, tid, L::kThreads);
+  }
   for (int t = 0; t < n_iter; ++t) {
     const int s = t % kStages;
     const int h = hk * group + t / per_head, q0 = (qt_start + t % per_head) * kBQ;
-    const uint32_t q_addr = qdo_addr + 2 * s * L::kQ, do_addr = q_addr + L::kQ;
+    const uint32_t q_addr = qdo_addr + s * L::kStage, do_addr = q_addr + L::kQ;
 
     warpgroup_sync(wg);  // the previous tile's readers of lse_s, delta_s are done
     {
@@ -136,15 +178,46 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(&full[s], (t / kStages) & 1);
 
     float sc[kBQ / 2], dp[kBQ / 2];
-    wgmma_fence();
+    if constexpr (L::kTf32) {
+      uint8_t* q_p = qdo_s + s * L::kStage;
+      uint8_t* t_p = q_p + 4 * L::kQ;  // Q^T hi, Q^T lo, dO^T hi, dO^T lo
+      split_tile<DP, kBQ, true, true>(q_p, q_p + 2 * L::kQ, t_p, t_p + L::kT, tid, L::kThreads);
+      split_tile<DP, kBQ, true, true>(q_p + L::kQ, q_p + 3 * L::kQ, t_p + 2 * L::kT,
+                                      t_p + 3 * L::kT, tid, L::kThreads);
+      fence_proxy_async();
+      __syncthreads();
+      const uint32_t klo = k_addr + 2 * L::kKV, vlo = v_addr + 2 * L::kKV;
+      const uint32_t qlo = q_addr + 2 * L::kQ, dolo = q_addr + 3 * L::kQ;
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<0>(sc, desc_kmajor(k_addr, kBKV, 64 * wg, kk), desc_kmajor(q_addr, kBQ, 0, kk),
-                  kk > 0);
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        const uint64_t ah = desc_kmajor(k_addr, kBKV, 64 * wg, kk),
+                       al = desc_kmajor(klo, kBKV, 64 * wg, kk);
+        const uint64_t bh = desc_kmajor(q_addr, kBQ, 0, kk), bl = desc_kmajor(qlo, kBQ, 0, kk);
+        wgmma_ss_tf32(sc, al, bh, kk > 0);
+        wgmma_ss_tf32(sc, ah, bl, 1);
+        wgmma_ss_tf32(sc, ah, bh, 1);
+      }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<0>(dp, desc_kmajor(v_addr, kBKV, 64 * wg, kk), desc_kmajor(do_addr, kBQ, 0, kk),
-                  kk > 0);
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        const uint64_t ah = desc_kmajor(v_addr, kBKV, 64 * wg, kk),
+                       al = desc_kmajor(vlo, kBKV, 64 * wg, kk);
+        const uint64_t bh = desc_kmajor(do_addr, kBQ, 0, kk), bl = desc_kmajor(dolo, kBQ, 0, kk);
+        wgmma_ss_tf32(dp, al, bh, kk > 0);
+        wgmma_ss_tf32(dp, ah, bl, 1);
+        wgmma_ss_tf32(dp, ah, bh, 1);
+      }
+    } else {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss<0>(sc, desc_kmajor(k_addr, kBKV, 64 * wg, kk), desc_kmajor(q_addr, kBQ, 0, kk),
+                    kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss<0>(dp, desc_kmajor(v_addr, kBKV, 64 * wg, kk), desc_kmajor(do_addr, kBQ, 0, kk),
+                    kk > 0);
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -164,27 +237,70 @@ __global__ void __launch_bounds__(kThreads, 1)
       dp[i] = p * (dp[i] - delta_s[c]);    // dS^T
     }
 
-    wgmma_fence();
+    if constexpr (L::kTf32) {
+      const uint32_t t_addr = q_addr + 4 * L::kQ;  // Q^T hi, Q^T lo, dO^T hi, dO^T lo
+      uint32_t ph[kBQ / 8][4], pl[kBQ / 8][4], sh[kBQ / 8][4], sl[kBQ / 8][4];
 #pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk) {
-      uint32_t a[4];
-      a_fragment(a, sc, kk);
-      wgmma_rs<1>(dv_acc, a, desc_mnmajor(do_addr, kBQ, kk), 1);
-    }
+      for (int kk = 0; kk < kBQ / 8; ++kk) {
+        a_fragment_tf32(ph[kk], pl[kk], sc, kk);
+        a_fragment_tf32(sh[kk], sl[kk], dp, kk);
+      }
+      // each tile's dV and dK sum in a fresh accumulator that is then added
+      // to dv_acc, dk_acc in fp32: the tensor cores' accumulation truncates,
+      // and over a whole key tile's loop (hundreds of wgmmas into one
+      // register) that drifted 7e-5 from fp32 sums on the card
+      float tile[DP / 2];
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk) {
-      uint32_t a[4];
-      a_fragment(a, dp, kk);
-      wgmma_rs<1>(dk_acc, a, desc_mnmajor(q_addr, kBQ, kk), 1);
+      for (int kk = 0; kk < kBQ / 8; ++kk) {
+        const uint64_t bh = desc_kmajor(t_addr + 2 * L::kT, DP, 0, kk),
+                       bl = desc_kmajor(t_addr + 3 * L::kT, DP, 0, kk);
+        wgmma_rs_tf32(tile, pl[kk], bh, kk > 0);
+        wgmma_rs_tf32(tile, ph[kk], bl, 1);
+        wgmma_rs_tf32(tile, ph[kk], bh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(tile);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) dv_acc[i] += tile[i];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 8; ++kk) {
+        const uint64_t bh = desc_kmajor(t_addr, DP, 0, kk),
+                       bl = desc_kmajor(t_addr + L::kT, DP, 0, kk);
+        wgmma_rs_tf32(tile, sl[kk], bh, kk > 0);
+        wgmma_rs_tf32(tile, sh[kk], bl, 1);
+        wgmma_rs_tf32(tile, sh[kk], bh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(tile);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) dk_acc[i] += tile[i];
+    } else {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+        uint32_t a[4];
+        a_fragment(a, sc, kk);
+        wgmma_rs<1>(dv_acc, a, desc_mnmajor(do_addr, kBQ, kk), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+        uint32_t a[4];
+        a_fragment(a, dp, kk);
+        wgmma_rs<1>(dk_acc, a, desc_mnmajor(q_addr, kBQ, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(dv_acc);
-    fence_regs(dk_acc);
 
     mbar_arrive(&empty[s]);
     if (tid == 0 && t + kStages < n_iter) {
-      mbar_wait(&empty[s], (t / kStages) & 1);  // both warpgroups are done with stage s
+      mbar_wait(&empty[s], (t / kStages) & 1);  // every warpgroup is done with stage s
       load_q(t + kStages, s);
     }
   }
@@ -198,47 +314,71 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
       const int col = 8 * c + 2 * (lane % 4), i = 4 * c + 2 * r;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + col) =
-          __floats2bfloat162_rn(dk_acc[i] * scale, dk_acc[i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + col) =
-          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+      store2(dk + off + col, dk_acc[i] * scale, dk_acc[i + 1] * scale);
+      store2(dv + off + col, dv_acc[i], dv_acc[i + 1]);
     }
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
                     int Hkv, float scale, int causal, cudaStream_t stream) {
+  using L = DkvCfg<D, T>;
+  constexpr int e = (int)sizeof(T);
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_bshd_map(&tq, q, B, S, H, D, kBQ);
-  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, kBQ);
-  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, kBKV);
-  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, kBKV);
+  int err = make_bshd_map(&tq, q, B, S, H, D, L::kBQ, e);
+  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, L::kBQ, e);
+  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, L::kBKV, e);
+  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, L::kBKV, e);
   if (err != 0) return err;
-  const dim3 grid((S + kBKV - 1) / kBKV, Hkv, B);
-  return launch(flash_dkv_sm90_kernel<D>, grid, DkvSmem<D>::kBytes, stream, tq, tk, tv, tdo,
-                (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
-                S, H, Hkv, scale, scale * kLog2e, causal);
+  const dim3 grid((S + L::kBKV - 1) / L::kBKV, Hkv, B);
+  return launch_n(flash_dkv_sm90_kernel<D, T>, grid, L::kThreads, L::kBytes, stream, tq, tk, tv,
+                  tdo, (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, S, H, Hkv, scale,
+                  scale * kLog2e, causal);
+}
+
+template <typename T>
+int launch_dkv_sm90_d(int D, const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dk, void* dv, int B, int S,
+                      int H, int Hkv, float scale, int causal, cudaStream_t st) {
+  switch (D) {
+    case 32:
+      return launch_dkv_sm90<32, T>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, scale,
+                                    causal, st);
+    case 64:
+      return launch_dkv_sm90<64, T>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, scale,
+                                    causal, st);
+    case 96:
+      return launch_dkv_sm90<96, T>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, scale,
+                                    causal, st);
+    case 128:
+      return launch_dkv_sm90<128, T>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, scale,
+                                     causal, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace hvt
 
-// Returns 0 or the CUDA error of the launch. q, k, v, dO bf16 (dtype and
-// dout_dtype 1) with D 64 or 128; dk, dv [B, S, H_kv, D] bf16.
+// Returns 0 or the CUDA error of the launch. q, k, v, dO all bf16 (dtype and
+// dout_dtype 1) or all fp32 (0) with D 32, 64, 96 or 128; dk, dv
+// [B, S, H_kv, D] in k's dtype.
 extern "C" int hvt_flash_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv, int B,
                                   int S, int H, int Hkv, int D, float scale, int causal,
                                   int dtype, int dout_dtype, void* stream) {
   using namespace hvt;
-  if (!valid_shape(B, S, H, Hkv, D) || dtype != kBF16 || dout_dtype != kBF16 ||
-      (D != 64 && D != 128))
+  if (!valid_shape(B, S, H, Hkv, D) || D % 32 != 0 || dout_dtype != dtype)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return D == 64 ? launch_dkv_sm90<64>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, scale,
-                                       causal, st)
-                 : launch_dkv_sm90<128>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, scale,
-                                        causal, st);
+  if (dtype == kBF16)
+    return launch_dkv_sm90_d<__nv_bfloat16>(D, q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
+                                            scale, causal, st);
+  if (dtype == kF32)
+    return launch_dkv_sm90_d<float>(D, q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, scale,
+                                    causal, st);
+  return (int)cudaErrorInvalidValue;
 }

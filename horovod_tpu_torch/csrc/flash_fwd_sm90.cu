@@ -2,19 +2,21 @@
 // tensor cores (wgmma, TMA, mbarriers; sm_90a only).
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_fwd_kernel (launched by
-// _flash_fwd_impl through pl.pallas_call) for bf16 q/k/v with head_dim 64 or
-// 128; flash_fwd.cu stays the route for fp32 and other head dims. Same
-// arithmetic: scores scale * q k^T summed in fp32 (bf16 products are exact in
-// fp32), causal fill -1e30 where k_pos > q_pos, keys past S weigh 0, an online
-// softmax with a running max m and sum l, p rounded to bf16 before p v (where
+// _flash_fwd_impl through pl.pallas_call) for q/k/v in bf16 or fp32 with
+// head_dim 32, 64, 96 or 128; flash_fwd.cu stays the route for other head
+// dims. Same arithmetic: scores scale * q k^T summed in fp32, causal fill
+// -1e30 where k_pos > q_pos, keys past S weigh 0, an online softmax with a
+// running max m and sum l, p rounded to v's dtype before p v (where
 // _fwd_kernel rounds it, :127-129), o = acc / max(l, 1e-30), lse = m + log l.
+// bf16 products are exact in fp32; fp32 products run as 3xTF32 (sm90.cuh),
+// within about 2^-21 of fp32 products.
 //
-// Design. One block of 256 threads owns a 128-row query tile of one (b, h):
-// two warpgroups of 64 rows each. Thread 0 issues every TMA load: Q once, then
-// 128-key K/V tiles through a ring of kStages shared-memory stages, each
-// behind a "full" mbarrier (TMA bytes arrive) and an "empty" one (all 256
-// threads are done reading), so the next tile streams in while this one is
-// multiplied. Per K/V tile, each warpgroup
+// Design, bf16. One block of 256 threads owns a 128-row query tile of one
+// (b, h): two warpgroups of 64 rows each. Thread 0 issues every TMA load: Q
+// once, then 128-key K/V tiles through a ring of kStages shared-memory
+// stages, each behind a "full" mbarrier (TMA bytes arrive) and an "empty" one
+// (all threads are done reading), so the next tile streams in while this one
+// is multiplied. Per K/V tile, each warpgroup
 //   S = Q K^T     wgmma m64n128k16, Q and K K-major from shared memory;
 //   softmax       in registers on the accumulator fragment: a row lives on
 //                 the 4 lanes of a quad, reduced with two shuffles; exp2 with
@@ -24,59 +26,94 @@
 // Only tiles that meet the ragged end or the causal diagonal pay for masks;
 // tiles wholly above the diagonal are never loaded. GQA reads K/V head
 // h / (H / H_kv) through the tensor map's coordinates; TMA zero-fills rows
-// past S, and rows past S are not written.
+// past S, and rows past S are not written. head_dim 32 and 96 run as 64 and
+// 128: TMA zero-fills the columns past D, so a quarter (D 96) or half (D 32)
+// of the products are of zeros, and only D columns are written.
 //
-// Occupancy. At D 64 the kernel is held to 128 registers a thread, so two
-// blocks share an SM and one block's softmax runs under the other's
-// products; on the card that beat one block per SM with more registers. At
-// D 128 the accumulators need about 200 registers: one block per SM.
+// Design, fp32 (3xTF32). The same two warpgroups and 128-row query tile
+// (one warpgroup, 64 rows, at D 32); K/V tiles are 64 keys (32 at D 128).
+// After TMA lands a tile the block's threads split it (sm90.cuh,
+// split_tile): Q and K into hi in place and lo beside it, V into a
+// transposed hi/lo pair (tf32 B operands are K-major only); the warpgroups
+// share the split. Then each warpgroup
+//   S = Q K^T     three wgmma m64nNk8 a k-step (q_lo k_hi, q_hi k_lo, q_hi k_hi);
+//   O += P V      three wgmma m64nDk8 with P's hi and lo as register A
+//                 operands and V^T's hi and lo from shared memory.
+// Shared memory: Q and its lo 2 * kBM * D * 4 B, a stage five kBN * D * 4 B
+// tiles (K, K lo, V, V^T hi, V^T lo): one stage, 216 KB at D 96 and 208 KB
+// at D 128 (kBN 32); two stages, 224 KB, at D 64, whose block is its SM's
+// only one either way; 56 KB at D 32, where a second stage would cost one
+// of three resident blocks (on the card that lost). 164-226 registers a
+// thread. At D 32 three one-warpgroup blocks fit an SM's registers where
+// one two-warpgroup block would, and on the card that won; from D 64
+// shared memory allows at most two one-warpgroup blocks, and sharing the
+// split and the K/V loads between two warpgroups won (PERF.md).
 //
-// Bound. At the main path's shape (B 8, H 12, S 1024, D 64, bf16, causal) the
-// work is 12.9 GFLOP of bf16 products and 50.7 MB: 13 us of tensor-core time,
-// 15 us of HBM time. What this version still leaves on the table: no
-// producer warp or register reallocation (setmaxnreg), and no overlap of a
-// tile's softmax with the next tile's QK^T inside a warpgroup; both are
-// queued in ROADMAP.
+// Occupancy, bf16. At D 64 (and 32) the kernel is held to 128 registers a
+// thread, so two blocks share an SM and one block's softmax runs under the
+// other's products; on the card that beat one block per SM with more
+// registers. At D 128 (and 96) the accumulators need about 200 registers: one
+// block per SM.
+//
+// Bound. At B 8, S 1024, causal, d_model 768 (H = 768 / D) every head_dim
+// does the same 12.9 GFLOP of products. bf16 moves 50.7 MB: 15 us of HBM
+// time against 13 us of tensor-core time (bytes bound); this kernel's
+// padded products at D 32 and D 96 take 26 us and 17 us of it. fp32 moves
+// 101 MB (30 us) against 26 us of TF32 time, but the 3xTF32 split makes it
+// 38.7 GFLOP (78 us): the three products bound every fp32 instantiation.
+// What this version still leaves on the table: no producer warp or
+// register reallocation (setmaxnreg), no overlap of a tile's softmax with
+// the next tile's QK^T inside a warpgroup, and for fp32 the split runs in
+// line with the products and, but at D 64, the one stage leaves each load
+// exposed; all queued in ROADMAP.
 #include "flash_attention.cuh"
 #include "sm90.cuh"
 
 namespace hvt {
 namespace {
 
-constexpr int kBM = 128;  // query rows per block (two warpgroups of 64)
-constexpr int kBN = 128;  // keys per K/V tile
-constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
-struct FwdSmem {
-  static constexpr int kTile = kBN * D * 2;  // bytes of one 128-row bf16 tile
+// Tile sizes and the shared-memory layout of one instantiation: q/k/v of T
+// (bf16 or fp32) with head_dim D.
+template <int D, typename T>
+struct FwdCfg {
+  static constexpr bool kTf32 = std::is_same<T, float>::value;
+  static constexpr int DP = sm90::padded_d<D, T>();
+  // warpgroups, 64 query rows each; fp32 at D 32: one (see Design, fp32)
+  static constexpr int kWG = kTf32 && D == 32 ? 1 : 2;
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kBM = 64 * kWG;               // query rows per block
+  static constexpr int kBN = !kTf32 ? 128 : D <= 96 ? 64 : 32;  // keys per K/V tile
+  // fp32: one stage but at D 64 (see Design, fp32)
+  static constexpr int kStages = kTf32 && D != 64 ? 1 : 2;
+  static constexpr int kQ = kBM * DP * (int)sizeof(T);   // bytes of the Q tile
+  static constexpr int kKV = kBN * DP * (int)sizeof(T);  // of one K or V tile (or V^T)
+  // a stage: K, V; for fp32 also K lo, V^T hi, V^T lo
+  static constexpr int kStage = (kTf32 ? 5 : 2) * kKV;
+  static constexpr int kQAll = (kTf32 ? 2 : 1) * kQ;     // Q (and its lo)
   static constexpr int kBarriers = (1 + 2 * kStages) * 8;
-  static constexpr int kBytes = (1 + 2 * kStages) * kTile + kBarriers + sm90::kAtomBytes;
+  static constexpr int kBytes = kQAll + kStages * kStage + kBarriers + sm90::kAtomBytes;
+  static constexpr int kMinBlocks = !kTf32 && DP == 64 ? 2 : 1;
 };
 
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-template <int D, typename TO>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+template <int D, typename T, typename TO>
+__global__ void __launch_bounds__(FwdCfg<D, T>::kThreads, FwdCfg<D, T>::kMinBlocks)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, TO* __restrict__ o,
                           float* __restrict__ lse, int S, int H, int Hkv, float scale_log2,
                           int causal) {
   using namespace sm90;
-  constexpr int kTile = FwdSmem<D>::kTile;
+  using C = FwdCfg<D, T>;
+  constexpr int DP = C::DP, kBM = C::kBM, kBN = C::kBN, kStages = C::kStages;
+  constexpr int kKV = C::kKV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1k(smem_raw);
-  uint8_t* q_s = smem;
-  uint8_t* kv_s = smem + kTile;  // stage s: K at kv_s + 2 s kTile, V right after it
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + (1 + 2 * kStages) * kTile);
+  uint8_t* q_s = smem;                // fp32: Q's lo at q_s + kQ
+  uint8_t* kv_s = smem + C::kQAll;    // stage s at kv_s + s kStage: K, V (, K lo, V^T hi, lo)
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(kv_s + kStages * C::kStage);
   uint64_t* full = bar_q + 1;
   uint64_t* empty = full + kStages;
 
@@ -85,49 +122,75 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
   const int q0 = qt * kBM;
   int n_kt = (S + kBN - 1) / kBN;
   if (causal) n_kt = min(n_kt, (q0 + kBM - 1) / kBN + 1);
-  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = (tid % 128) / 32, lane = tid % 32;
+  const int wg = C::kWG == 1 ? 0 : tid / 128;
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kThreads);
+      mbar_init(&empty[s], C::kThreads);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   auto load_kv = [&](int j, int s) {
-    uint8_t* dst = kv_s + 2 * s * kTile;
-    mbar_expect_tx(&full[s], 2 * kTile);
-    tma_load_rows<D>(dst, &tk, &full[s], kBN, j * kBN, hk, b);
-    tma_load_rows<D>(dst + kTile, &tv, &full[s], kBN, j * kBN, hk, b);
+    uint8_t* dst = kv_s + s * C::kStage;
+    mbar_expect_tx(&full[s], 2 * kKV);
+    tma_load_rows<DP, T>(dst, &tk, &full[s], kBN, j * kBN, hk, b);
+    tma_load_rows<DP, T>(dst + kKV, &tv, &full[s], kBN, j * kBN, hk, b);
   };
   if (tid == 0) {
-    mbar_expect_tx(bar_q, kTile);
-    tma_load_rows<D>(q_s, &tq, bar_q, kBM, q0, h, b);
+    mbar_expect_tx(bar_q, C::kQ);
+    tma_load_rows<DP, T>(q_s, &tq, bar_q, kBM, q0, h, b);
     for (int j = 0; j < kStages && j < n_kt; ++j) load_kv(j, j);
   }
 
   const uint32_t q_addr = smem_u32(q_s), kv_addr = smem_u32(kv_s);
   const int row_lo = q0 + 64 * wg + 16 * warp + lane / 4;  // rows row_lo and row_lo + 8
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // per thread: partial l
 
   mbar_wait(bar_q, 0);
+  if constexpr (C::kTf32) {
+    split_tile<DP, kBM, true, false>(q_s, q_s + C::kQ, nullptr, nullptr, tid, C::kThreads);
+    fence_proxy_async();
+    __syncthreads();
+  }
   for (int j = 0; j < n_kt; ++j) {
     const int s = j % kStages;
-    const uint32_t k_addr = kv_addr + 2 * s * kTile, v_addr = k_addr + kTile;
+    const uint32_t k_addr = kv_addr + s * C::kStage, v_addr = k_addr + kKV;
     mbar_wait(&full[s], (j / kStages) & 1);
 
     float sc[kBN / 2];
-    wgmma_fence();
+    if constexpr (C::kTf32) {
+      uint8_t* k_s = kv_s + s * C::kStage;
+      split_tile<DP, kBN, true, false>(k_s, k_s + 2 * kKV, nullptr, nullptr, tid, C::kThreads);
+      split_tile<DP, kBN, false, true>(k_s + kKV, nullptr, k_s + 3 * kKV, k_s + 4 * kKV, tid,
+                                       C::kThreads);
+      fence_proxy_async();
+      __syncthreads();
+      const uint32_t qlo_addr = q_addr + C::kQ, klo_addr = k_addr + 2 * kKV;
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<0>(sc, desc_kmajor(q_addr, kBM, 64 * wg, kk), desc_kmajor(k_addr, kBN, 0, kk),
-                  kk > 0);
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        const uint64_t qh = desc_kmajor(q_addr, kBM, 64 * wg, kk),
+                       ql = desc_kmajor(qlo_addr, kBM, 64 * wg, kk);
+        const uint64_t kh = desc_kmajor(k_addr, kBN, 0, kk), kl = desc_kmajor(klo_addr, kBN, 0, kk);
+        wgmma_ss_tf32(sc, ql, kh, kk > 0);
+        wgmma_ss_tf32(sc, qh, kl, 1);
+        wgmma_ss_tf32(sc, qh, kh, 1);
+      }
+    } else {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss<0>(sc, desc_kmajor(q_addr, kBM, 64 * wg, kk), desc_kmajor(k_addr, kBN, 0, kk),
+                    kk > 0);
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -163,14 +226,29 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
       sc[i] = p;
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i / 2) % 2];
 
-    wgmma_fence();
+    if constexpr (C::kTf32) {
+      const uint32_t vt_addr = k_addr + 3 * kKV, vtlo_addr = k_addr + 4 * kKV;
+      uint32_t ph[kBN / 8][4], pl[kBN / 8][4];
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      uint32_t a[4];
-      a_fragment(a, sc, kk);
-      wgmma_rs<1>(acc, a, desc_mnmajor(v_addr, kBN, kk), 1);
+      for (int kk = 0; kk < kBN / 8; ++kk) a_fragment_tf32(ph[kk], pl[kk], sc, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 8; ++kk) {
+        const uint64_t vh = desc_kmajor(vt_addr, DP, 0, kk), vl = desc_kmajor(vtlo_addr, DP, 0, kk);
+        wgmma_rs_tf32(acc, pl[kk], vh, 1);
+        wgmma_rs_tf32(acc, ph[kk], vl, 1);
+        wgmma_rs_tf32(acc, ph[kk], vh, 1);
+      }
+    } else {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        uint32_t a[4];
+        a_fragment(a, sc, kk);
+        wgmma_rs<1>(acc, a, desc_mnmajor(v_addr, kBN, kk), 1);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -178,7 +256,7 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
 
     mbar_arrive(&empty[s]);
     if (tid == 0 && j + kStages < n_kt) {
-      mbar_wait(&empty[s], (j / kStages) & 1);  // both warpgroups are done with stage s
+      mbar_wait(&empty[s], (j / kStages) & 1);  // every warpgroup is done with stage s
       load_kv(j + kStages, s);
     }
   }
@@ -199,24 +277,31 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
   }
 }
 
-template <int D, typename TO>
+template <int D, typename T, typename TO>
 int launch_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                     int S, int H, int Hkv, float scale, int causal, cudaStream_t stream) {
+  using C = FwdCfg<D, T>;
+  constexpr int e = (int)sizeof(T);
   CUtensorMap tq, tk, tv;
-  int err = make_bshd_map(&tq, q, B, S, H, D, kBM);
-  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, kBN);
-  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, kBN);
+  int err = make_bshd_map(&tq, q, B, S, H, D, C::kBM, e);
+  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, C::kBN, e);
+  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, C::kBN, e);
   if (err != 0) return err;
-  const dim3 grid((S + kBM - 1) / kBM, H, B);
-  return launch(flash_fwd_sm90_kernel<D, TO>, grid, FwdSmem<D>::kBytes, stream, tq, tk, tv,
-                (TO*)o, (float*)lse, S, H, Hkv, scale * kLog2e, causal);
+  const dim3 grid((S + C::kBM - 1) / C::kBM, H, B);
+  return launch_n(flash_fwd_sm90_kernel<D, T, TO>, grid, C::kThreads, C::kBytes, stream, tq, tk,
+                  tv, (TO*)o, (float*)lse, S, H, Hkv, scale * kLog2e, causal);
 }
 
-template <typename TO>
+template <typename T, typename TO>
 int launch_fwd_sm90_d(int D, const void* q, const void* k, const void* v, void* o, void* lse,
                       int B, int S, int H, int Hkv, float scale, int causal, cudaStream_t st) {
-  return D == 64 ? launch_fwd_sm90<64, TO>(q, k, v, o, lse, B, S, H, Hkv, scale, causal, st)
-                 : launch_fwd_sm90<128, TO>(q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
+  switch (D) {
+    case 32: return launch_fwd_sm90<32, T, TO>(q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
+    case 64: return launch_fwd_sm90<64, T, TO>(q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
+    case 96: return launch_fwd_sm90<96, T, TO>(q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
+    case 128: return launch_fwd_sm90<128, T, TO>(q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // One warpgroup checks the wgmma building blocks on a single 64 x 64 x 64
@@ -270,33 +355,110 @@ __global__ void __launch_bounds__(128, 1)
   }
 }
 
+// The same product in fp32 through the 3xTF32 building blocks: a and b split
+// in place with their lo beside them, b also transposed (split_tile);
+// c1 = a b^T from shared memory, then c2 = c1 b with c1's fragment split into
+// the hi and lo register A operands against b^T.
+__global__ void __launch_bounds__(128, 1)
+    wgmma_probe_tf32_kernel(const __grid_constant__ CUtensorMap ta,
+                            const __grid_constant__ CUtensorMap tb, float* c1, float* c2) {
+  using namespace sm90;
+  constexpr int kTile = 64 * 64 * 4;  // a, a lo, b, b lo, b^T hi, b^T lo
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1k(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 6 * kTile);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, 2 * kTile);
+    tma_load_rows<64, float>(smem, &ta, bar, 64, 0, 0, 0);
+    tma_load_rows<64, float>(smem + 2 * kTile, &tb, bar, 64, 0, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  split_tile<64, 64, true, false>(smem, smem + kTile, nullptr, nullptr, tid, 128);
+  split_tile<64, 64, true, true>(smem + 2 * kTile, smem + 3 * kTile, smem + 4 * kTile,
+                                 smem + 5 * kTile, tid, 128);
+  fence_proxy_async();
+  __syncthreads();
+  const uint32_t a_addr = smem_u32(smem);
+  float d[32], e[32];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t ah = desc_kmajor(a_addr, 64, 0, kk), al = desc_kmajor(a_addr + kTile, 64, 0, kk);
+    const uint64_t bh = desc_kmajor(a_addr + 2 * kTile, 64, 0, kk),
+                   bl = desc_kmajor(a_addr + 3 * kTile, 64, 0, kk);
+    wgmma_ss_tf32(d, al, bh, kk > 0);
+    wgmma_ss_tf32(d, ah, bl, 1);
+    wgmma_ss_tf32(d, ah, bh, 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(d);
+  uint32_t hi[8][4], lo[8][4];
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) a_fragment_tf32(hi[kk], lo[kk], d, kk);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t th = desc_kmajor(a_addr + 4 * kTile, 64, 0, kk),
+                   tl = desc_kmajor(a_addr + 5 * kTile, 64, 0, kk);
+    wgmma_rs_tf32(e, lo[kk], th, kk > 0);
+    wgmma_rs_tf32(e, hi[kk], tl, 1);
+    wgmma_rs_tf32(e, hi[kk], th, 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(e);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int row = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+    const int col = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+    c1[row * 64 + col] = d[i];
+    c2[row * 64 + col] = e[i];
+  }
+}
+
 }  // namespace
 }  // namespace hvt
 
-// Returns 0 or the CUDA error of the launch. q, k, v bf16 (dtype 1) with
-// D 64 or 128; out_dtype: the dtype of o, bf16 (1) or fp32 (0).
+// Returns 0 or the CUDA error of the launch. q, k, v bf16 (dtype 1) or fp32
+// (0) with D 32, 64, 96 or 128; out_dtype: the dtype of o, q's or fp32 (0).
 extern "C" int hvt_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int B, int S, int H, int Hkv, int D, float scale,
                                   int causal, int dtype, int out_dtype, void* stream) {
   using namespace hvt;
-  if (!valid_shape(B, S, H, Hkv, D) || dtype != kBF16 || (D != 64 && D != 128))
-    return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, S, H, Hkv, D) || D % 32 != 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (out_dtype == kBF16)
-    return launch_fwd_sm90_d<__nv_bfloat16>(D, q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
-  if (out_dtype == kF32)
-    return launch_fwd_sm90_d<float>(D, q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
+  if (dtype == kBF16 && out_dtype == kBF16)
+    return launch_fwd_sm90_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, v, o, lse, B, S, H, Hkv,
+                                                           scale, causal, st);
+  if (dtype == kBF16 && out_dtype == kF32)
+    return launch_fwd_sm90_d<__nv_bfloat16, float>(D, q, k, v, o, lse, B, S, H, Hkv, scale,
+                                                   causal, st);
+  if (dtype == kF32 && out_dtype == kF32)
+    return launch_fwd_sm90_d<float, float>(D, q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// a, b: bf16 [64, 64] row-major; c1, c2: fp32 [64, 64] (see wgmma_probe_kernel).
-extern "C" int hvt_wgmma_probe(const void* a, const void* b, void* c1, void* c2, void* stream) {
+// a, b: bf16 (dtype 1) or fp32 (0) [64, 64] row-major; c1, c2: fp32 [64, 64]
+// (see wgmma_probe_kernel and wgmma_probe_tf32_kernel).
+extern "C" int hvt_wgmma_probe(const void* a, const void* b, void* c1, void* c2, int dtype,
+                               void* stream) {
   using namespace hvt;
+  const int e = dtype == kF32 ? 4 : 2;
   CUtensorMap ta, tb;
-  int err = make_bshd_map(&ta, a, 1, 64, 1, 64, 64);
-  if (err == 0) err = make_bshd_map(&tb, b, 1, 64, 1, 64, 64);
+  int err = make_bshd_map(&ta, a, 1, 64, 1, 64, 64, e);
+  if (err == 0) err = make_bshd_map(&tb, b, 1, 64, 1, 64, 64, e);
   if (err != 0) return err;
+  if (dtype == kF32)
+    return launch_n(wgmma_probe_tf32_kernel, dim3(1), 128, 6 * 64 * 64 * 4 + 8 + sm90::kAtomBytes,
+                    (cudaStream_t)stream, ta, tb, (float*)c1, (float*)c2);
   wgmma_probe_kernel<<<1, 128, 2 * 64 * 64 * 2 + 8 + sm90::kAtomBytes, (cudaStream_t)stream>>>(
       ta, tb, (float*)c1, (float*)c2);
   return (int)cudaGetLastError();

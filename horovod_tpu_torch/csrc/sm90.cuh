@@ -1,29 +1,49 @@
 // Hopper building blocks of the tensor-core flash kernels (flash_fwd_sm90.cu,
-// flash_dkv_sm90.cu): raw PTX for mbarriers, TMA loads, wgmma descriptors and
-// wgmma products, plus the host code that encodes a TMA tensor map. sm_90a
-// only: wgmma does not exist on plain sm_90.
+// flash_dq_sm90.cu, flash_dkv_sm90.cu): raw PTX for mbarriers, TMA loads,
+// wgmma descriptors and wgmma products in bf16 and tf32, the 3xTF32 split,
+// plus the host code that encodes a TMA tensor map. sm_90a only: wgmma does
+// not exist on plain sm_90.
 //
-// Shared-memory tiles. Every tile is a stack of "panels" of 64 bf16 columns
-// (128 bytes a row), one panel per 64 columns of the head dimension. TMA
-// writes a panel with the 128-byte swizzle (the 16-byte chunk c of row r lands
-// at chunk c ^ (r % 8)), so eight rows make one 1024-byte swizzle atom and
-// every panel starts on a 1024-byte boundary. wgmma reads the same panels
-// through a matrix descriptor with the 128-byte swizzle mode:
+// Shared-memory tiles. Every tile is a stack of "panels" of 128 bytes a row:
+// 64 bf16 or 32 fp32 columns, one panel per 128 bytes of the head dimension
+// (a bf16 head_dim of 32 or 96 is padded to whole panels: TMA fills the
+// columns past D with zeros, which add nothing to any product). TMA writes a
+// panel with the 128-byte swizzle (the 16-byte chunk c of row r lands at
+// chunk c ^ (r % 8)), so eight rows make one 1024-byte swizzle atom and every
+// panel starts on a 1024-byte boundary. wgmma reads the same panels through a
+// matrix descriptor with the 128-byte swizzle mode:
 //   K-major operand (the reduced dimension is the contiguous one, e.g. q or k
 //     in q k^T): SBO = 1024 B between 8-row groups, LBO unused (16 B); the
-//     k-th 16-column step starts 32 B further into the row.
+//     k-th step (16 bf16 or 8 tf32 columns, 32 bytes either way) starts
+//     32 B further into the row.
 //   MN-major operand (the contiguous dimension is the output's, e.g. v in
-//     p v): SBO = 1024 B between groups of 8 reduced rows, LBO = the bytes
-//     between two 64-column panels; the k-th 16-row step starts 2048 B on.
+//     p v; bf16 only): SBO = 1024 B between groups of 8 reduced rows, LBO =
+//     the bytes between two 64-column panels; the k-th 16-row step starts
+//     2048 B on.
 //
-// Accumulator fragment of wgmma.m64nNk16 with fp32 d (PTX ISA, "wgmma
-// register fragments"): thread t of the warpgroup (warp w = t / 32, lane l)
-// holds d[i], i < N / 2, at
+// Accumulator fragment of wgmma.m64nNk16 (and m64nNk8) with fp32 d (PTX ISA,
+// "wgmma register fragments"): thread t of the warpgroup (warp w = t / 32,
+// lane l) holds d[i], i < N / 2, at
 //   row = 16 w + l / 4 + 8 ((i / 2) % 2),   col = 8 (i / 4) + 2 (l % 4) + i % 2.
 // The bf16 A fragment of m64k16 taken from registers has the same map for
 // its 16 columns, so columns 16 kk..16 kk + 15 of an accumulator, rounded to
 // bf16 and packed in pairs (d[8 kk + 2 j], d[8 kk + 2 j + 1]), j < 4, are the
 // A operand of the next product as they stand: no shuffle.
+//
+// fp32 through 3xTF32. tf32 wgmma reads both shared-memory operands K-major
+// only, and its products keep 11 bits of each operand. So each fp32 operand x
+// is split into hi = tf32(x) and lo = tf32(x - hi) (round to nearest), and a
+// product is a_lo b_hi + a_hi b_lo + a_hi b_hi in fp32 accumulators (CUTLASS's
+// 3xTF32); a_lo b_lo, below 2^-22 of a b, is dropped. A tile that TMA brought
+// is split by the consumer threads: hi in place, lo into a tile of the same
+// layout (split_tile). An operand the product needs MN-major (v in p v; dO and
+// q in dV and dK) is written transposed instead, reduced index contiguous.
+// The tf32 A fragment of m64k8 taken from registers holds (row l / 4 [+ 8],
+// col l % 4 [+ 4]) in a0..a3 (rows first), where the accumulator holds
+// columns 2 (l % 4) and 2 (l % 4) + 1: the fragment is used as it stands and
+// the reduced index of the B tile is permuted instead, within each group of 8:
+// column 2 c + e of the accumulator is position c + 4 e of the k-step
+// (permute8), which the transposed write applies.
 #pragma once
 
 #include <cuda.h>
@@ -31,10 +51,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace hvt {
 namespace sm90 {
 
-constexpr int kPanelCols = 64;        // bf16 columns of one 128-byte swizzled panel
 constexpr int kRowBytes = 128;
 constexpr int kAtomBytes = 1024;      // 8 rows of 128 bytes
 
@@ -98,14 +119,25 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// Loads rows [row0, row0 + rows) of head h, batch b of a [B, S, H, D] bf16
-// tensor as D / 64 panels of `rows` x 64, panel p at dst + p * rows * 128 B.
-template <int D>
+// Columns of one panel, and a head_dim padded to whole panels.
+template <typename T>
+__host__ __device__ constexpr int panel_cols() {
+  return kRowBytes / (int)sizeof(T);
+}
+template <int D, typename T>
+__host__ __device__ constexpr int padded_d() {
+  return (D + panel_cols<T>() - 1) / panel_cols<T>() * panel_cols<T>();
+}
+
+// Loads rows [row0, row0 + rows) of head h, batch b of a [B, S, H, D] tensor
+// of T as panels of `rows` x 128 bytes, panel p at dst + p * rows * 128 B; D
+// is the padded head_dim (columns past the tensor's arrive as zeros).
+template <int D, typename T = __nv_bfloat16>
 __device__ __forceinline__ void tma_load_rows(uint8_t* dst, const CUtensorMap* map,
                                               uint64_t* bar, int rows, int row0, int h, int b) {
 #pragma unroll
-  for (int p = 0; p < D / kPanelCols; ++p)
-    tma_load_4d(dst + p * rows * kRowBytes, map, bar, p * kPanelCols, h, row0, b);
+  for (int p = 0; p < D / panel_cols<T>(); ++p)
+    tma_load_4d(dst + p * rows * kRowBytes, map, bar, p * panel_cols<T>(), h, row0, b);
 }
 
 // ---- wgmma -------------------------------------------------------------------
@@ -147,6 +179,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -157,6 +196,84 @@ template <int N>
 __device__ __forceinline__ void a_fragment(uint32_t (&a)[4], const float (&d)[N], int kk) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) a[j] = pack_bf16(d[8 * kk + 2 * j], d[8 * kk + 2 * j + 1]);
+}
+
+// ---- 3xTF32 ------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + (below 2^-22 x), both tf32 bit patterns.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// Columns 8 kk..8 kk + 7 of an accumulator as the hi and lo tf32 A operands,
+// the reduced index permuted by permute8.
+template <int N>
+__device__ __forceinline__ void a_fragment_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                                const float (&d)[N], int kk) {
+  split_tf32(d[4 * kk], hi[0], lo[0]);
+  split_tf32(d[4 * kk + 2], hi[1], lo[1]);
+  split_tf32(d[4 * kk + 1], hi[2], lo[2]);
+  split_tf32(d[4 * kk + 3], hi[3], lo[3]);
+}
+
+// Where the accumulator's column r of a k-step group of 8 sits in the B tile.
+__device__ __forceinline__ int permute8(int r) {
+  return (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
+}
+
+// Makes this thread's plain shared-memory writes visible to wgmma (the async
+// proxy); a barrier must follow before another thread's wgmma reads them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Splits an fp32 tile that TMA brought: kRows rows of D columns in 32-column
+// panels at `raw`. kKeep: hi replaces each value in place and lo goes to the
+// same offset of `lo`. kTranspose: hi and lo also go to t_hi and t_lo as the
+// transposed tile, D rows of kRows columns (32-column panels of D rows each),
+// the columns permuted by permute8, i.e. the K-major B operand of a product
+// that reduces over the tile's rows. The block's nthreads threads share it:
+// consecutive threads take one 16-byte chunk of consecutive rows, so the
+// 16-byte reads and writes and the transposed 4-byte writes (one row of the
+// transposed tile for up to 32 threads) are free of bank conflicts.
+template <int D, int kRows, bool kKeep, bool kTranspose>
+__device__ __forceinline__ void split_tile(uint8_t* raw, uint8_t* lo, uint8_t* t_hi,
+                                           uint8_t* t_lo, int tid, int nthreads) {
+  constexpr int kChunks = kRows * D / 4;  // 16-byte chunks
+  for (int i = tid; i < kChunks; i += nthreads) {
+    // row r, chunk c (of 8 in the row's 128 bytes) of panel p
+    const int r = i % kRows, c = (i / kRows) % 8, p = i / (kRows * 8);
+    const int off = p * kRows * kRowBytes + r * kRowBytes + ((c ^ (r % 8)) * 16);
+    const float4 x = *reinterpret_cast<const float4*>(raw + off);
+    uint32_t h[4], l[4];
+    split_tf32(x.x, h[0], l[0]);
+    split_tf32(x.y, h[1], l[1]);
+    split_tf32(x.z, h[2], l[2]);
+    split_tf32(x.w, h[3], l[3]);
+    if (kKeep) {
+      *reinterpret_cast<uint4*>(raw + off) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+    }
+    if (kTranspose) {
+      const int d0 = 32 * p + 4 * c;
+      const int pos = permute8(r);
+      const int base = (pos / 32) * D * kRowBytes + (pos % 4) * 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int d = d0 + j;
+        const int t_off = base + d * kRowBytes + ((((pos % 32) / 4) ^ (d % 8)) * 16);
+        *reinterpret_cast<uint32_t*>(t_hi + t_off) = h[j];
+        *reinterpret_cast<uint32_t*>(t_lo + t_off) = l[j];
+      }
+    }
+  }
 }
 
 // Synchronises the 128 threads of one warpgroup (barrier 0 is __syncthreads).
@@ -245,6 +362,119 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
 }
+
+// Generated operand lists: m64nNk8, tf32 in, fp32 out; both operands
+// K-major (tf32 takes no transpose). scale_d = 0 overwrites d.
+// d[0:8] (+)= A[64 x 8] B[8 x 16]; A and B from shared memory.
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[0:16] (+)= A[64 x 8] B[8 x 32]; A and B from shared memory.
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[0:32] (+)= A[64 x 8] B[8 x 64]; A and B from shared memory.
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[0:16] (+)= A[64 x 8] B[8 x 32]; A from registers (tf32), B from shared memory.
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[0:32] (+)= A[64 x 8] B[8 x 64]; A from registers (tf32), B from shared memory.
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[0:48] (+)= A[64 x 8] B[8 x 96]; A from registers (tf32), B from shared memory.
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[48], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[0:64] (+)= A[64 x 8] B[8 x 128]; A from registers (tf32), B from shared memory.
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
 }  // namespace sm90
 
 // ---- host: TMA tensor maps -----------------------------------------------------
@@ -275,19 +505,24 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A map of a contiguous bf16 [B, S, H, D] tensor whose box is one 64-column
-// panel of `rows` rows of one (b, h), with the 128-byte swizzle. Returns 0 or
+// A map of a contiguous [B, S, H, D] tensor of bf16 (elem_bytes 2) or fp32
+// (4) whose box is one 128-byte panel of `rows` rows of one (b, h), with the
+// 128-byte swizzle; a box past D (a padded head_dim) reads zeros. Returns 0 or
 // a CUDA error code.
 static int make_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
-                         int rows) {
+                         int rows, int elem_bytes = 2) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t e = (cuuint64_t)elem_bytes;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)sm90::kPanelCols, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * e, (cuuint64_t)H * D * e,
+                                 (cuuint64_t)S * H * D * e};
+  const cuuint32_t box[4] = {(cuuint32_t)(sm90::kRowBytes / elem_bytes), 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+  CUresult r = encode(map,
+                      elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      4, const_cast<void*>(ptr), dims,
                       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

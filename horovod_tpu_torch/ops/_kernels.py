@@ -17,10 +17,13 @@ kernel              source (``csrc/``)        replaces
 ==================  ========================  ==============================
 
 The ``*_sm90`` kernels run their products on the tensor cores (``wgmma``,
-tiles brought by TMA) and take bf16 with head_dim 64 or 128; the others do
-fp32 FMAs on the CUDA cores and take fp32 or bf16 with any head_dim up to
-128. ``_variant`` chooses between the two designs of each kernel from the
-dtype and head_dim alone; a kernel that fails to build or launch raises.
+tiles brought by TMA): ``flash_fwd_sm90`` and ``flash_dkv_sm90`` take bf16
+and fp32 (fp32 products as 3xTF32: each operand split into two TF32 terms,
+three products summed in fp32) with head_dim 32, 64, 96 or 128,
+``flash_dq_sm90`` bf16 with head_dim 64 or 128. The others do fp32 FMAs on
+the CUDA cores and take fp32 or bf16 with any head_dim up to 128.
+``_variant`` chooses between the two designs of each kernel from the dtype
+and head_dim alone; a kernel that fails to build or launch raises.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface and loaded with ``ctypes``. The build runs at first use,
@@ -158,7 +161,7 @@ def _lib(name: str):
                     fn.argtypes = args
                     fn.restype = ctypes.c_int
                 if n == "flash_fwd_sm90":
-                    lib.hvt_wgmma_probe.argtypes = [ptr] * 5
+                    lib.hvt_wgmma_probe.argtypes = [ptr] * 4 + [i32, ptr]
                     lib.hvt_wgmma_probe.restype = ctypes.c_int
                 lib.hvt_cuda_error_string.argtypes = [ctypes.c_int]
                 lib.hvt_cuda_error_string.restype = ctypes.c_char_p
@@ -291,10 +294,11 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
     """Plain version of ``flash_dkv``: dk, dv [B, S, H_kv, D] in k's dtype,
     each K/V head's gradient summed over its query group.
 
-    ``round_operands=True`` is the plain version of ``flash_dkv_sm90``: the
-    operands of p^T dO and ds^T q are rounded to bf16 (dO is bf16 already
-    on that route), as the tensor cores take them. Without it, both products
-    take fp32 p and ds, as ``_dkv_kernel`` and ``flash_dkv`` do."""
+    ``round_operands=True`` is the plain version of ``flash_dkv_sm90`` on
+    bf16: the operands of p^T dO and ds^T q are rounded to bf16 (dO is bf16
+    already on that route), as the tensor cores take them. Without it, both
+    products take fp32 p and ds, as ``_dkv_kernel``, ``flash_dkv`` and
+    ``flash_dkv_sm90`` on fp32 (3xTF32) do."""
     b, s, h, d = q.shape
     h_kv = k.shape[2]
     if round_operands:
@@ -316,25 +320,38 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
 # wrappers
 # --------------------------------------------------------------------------
 
-def _variant(dtype, d) -> str:
-    """Which design of each kernel takes q/k/v of this dtype and head_dim:
-    "sm90" (tensor cores) for bf16 with D 64 or 128, else "simt"."""
-    return "sm90" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+# the dtypes and head_dims each tensor-core kernel takes
+SM90_ROUTES = {
+    "flash_fwd": ((torch.bfloat16, torch.float32), (32, 64, 96, 128)),
+    "flash_dq": ((torch.bfloat16,), (64, 128)),
+    "flash_dkv": ((torch.bfloat16, torch.float32), (32, 64, 96, 128)),
+}
+
+
+def _variant(base, dtype, d) -> str:
+    """Which design of kernel ``base`` ("flash_fwd", "flash_dq" or
+    "flash_dkv") takes q/k/v of this dtype and head_dim: "sm90" (tensor
+    cores) where ``SM90_ROUTES`` lists both, else "simt"."""
+    dtypes, dims = SM90_ROUTES[base]
+    return "sm90" if dtype in dtypes and d in dims else "simt"
 
 
 def _kernel(base, q, variant):
-    """The kernel of ``base`` ("flash_fwd", "flash_dq" or "flash_dkv") that
-    takes q: ``variant`` None chooses by ``_variant``; "sm90" or "simt" asks
-    for one design and raises if it does not take q."""
-    chosen = _variant(q.dtype, q.shape[-1])
+    """The kernel of ``base`` that takes q: ``variant`` None chooses by
+    ``_variant``; "sm90" or "simt" asks for one design and raises if it does
+    not take q."""
+    chosen = _variant(base, q.dtype, q.shape[-1])
     if variant is not None:
         if variant not in ("sm90", "simt"):
             raise ValueError(f"variant must be None, 'sm90' or 'simt'; got "
                              f"{variant!r}")
         if variant == "sm90" and chosen != "sm90":
-            raise ValueError(f"the sm90 kernels take bf16 with head_dim 64 "
-                             f"or 128; got {q.dtype}, head_dim "
-                             f"{q.shape[-1]}")
+            dtypes, dims = SM90_ROUTES[base]
+            raise ValueError(
+                f"{base}_sm90 takes "
+                f"{' or '.join(str(t).split('.')[-1] for t in dtypes)} with "
+                f"head_dim {', '.join(map(str, dims))}; got {q.dtype}, "
+                f"head_dim {q.shape[-1]}")
         chosen = variant
     return base + "_sm90" if chosen == "sm90" else base
 
@@ -372,15 +389,16 @@ def flash_dq(q, k, v, dout, lse, delta, scale, causal, variant=None):
 
 def flash_dkv(q, k, v, dout, lse, delta, scale, causal, variant=None):
     """Key and value gradients: dk, dv [B, S, H_kv, D] in k's dtype. On the
-    sm90 route p and ds are rounded to bf16 before their products, and an
-    fp32 dO is rounded to bf16 (see ``flash_dkv_plain``)."""
+    sm90 route with bf16 q, p and ds are rounded to bf16 before their
+    products, and an fp32 dO is rounded to bf16 (see ``flash_dkv_plain``);
+    with fp32 q every operand stays fp32 (3xTF32)."""
     name = _kernel("flash_dkv", q, variant)
-    sm90 = name.endswith("_sm90")
+    bf16_operands = name.endswith("_sm90") and q.dtype == torch.bfloat16
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
-                               round_operands=sm90)
+                               round_operands=bf16_operands)
     _check(q, k, v, dout.dtype, dout, lse, delta)
-    if sm90:
+    if bf16_operands:
         dout = dout.to(torch.bfloat16)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _run(name, (q, k, v, dout, lse, delta, dk, dv), q, k, scale, causal,
@@ -391,18 +409,22 @@ def flash_dkv(q, k, v, dout, lse, delta, scale, causal, variant=None):
 def wgmma_probe(a, b):
     """One 64 x 64 x 64 product on the tensor cores through the building
     blocks of the sm90 kernels (TMA, wgmma descriptors, the register A
-    operand): returns (a @ b^T, bf16(a @ b^T) @ b) in fp32 for bf16 [64, 64]
-    CUDA tensors. A check for the card tests; not on any path."""
+    operand) for [64, 64] CUDA tensors a, b of one dtype: returns
+    (a @ b^T, r(a @ b^T) @ b) in fp32, where r rounds to bf16 for bf16
+    inputs and is the identity for fp32 ones, whose products run as 3xTF32
+    (split, transposed B tile, hi and lo register operands). A check for
+    the card tests; not on any path."""
     if a.shape != (64, 64) or b.shape != (64, 64) or a.device.type != "cuda" \
-            or a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        raise ValueError("wgmma_probe takes bf16 [64, 64] CUDA tensors")
+            or a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
+        raise ValueError("wgmma_probe takes bf16 or fp32 [64, 64] CUDA "
+                         "tensors of one dtype")
     a, b = a.contiguous(), b.contiguous()
     c1 = torch.empty((64, 64), dtype=torch.float32, device=a.device)
     c2 = torch.empty_like(c1)
     lib = _lib("flash_fwd_sm90")
     with torch.cuda.device(a.device):
         rc = lib.hvt_wgmma_probe(a.data_ptr(), b.data_ptr(), c1.data_ptr(),
-                                 c2.data_ptr(),
+                                 c2.data_ptr(), _DTYPE_CODE[a.dtype],
                                  torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wgmma probe launch failed: "

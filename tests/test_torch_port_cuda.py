@@ -7,10 +7,11 @@ repo's conftest imports JAX, so on such a machine run it as
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Tolerances: fp32 1e-5 (the same fp32 arithmetic summed in another order);
-bf16 2e-2, about two bf16 ulps at the outputs' magnitude. The sm90 dq and
-dkv kernels are held to the plain versions that round dO, p and ds to bf16
-where the tensor cores take them (``round_operands=True``).
+Tolerances: fp32 1e-5 (the same fp32 arithmetic summed in another order;
+the sm90 fwd and dkv kernels take fp32 as 3xTF32, within about 2^-21 of fp32
+products); bf16 2e-2, about two bf16 ulps at the outputs' magnitude. The
+sm90 dq and bf16 dkv kernels are held to the plain versions that round dO,
+p and ds to bf16 where the tensor cores take them (``round_operands=True``).
 """
 
 import numpy as np
@@ -33,11 +34,23 @@ CASES = [
     (2, 130, 2, 2, 8, torch.float32, False, torch.float32),      # smallest D
     (2, 192, 4, 2, 64, torch.bfloat16, True, torch.float32),     # fp32 o
     (2, 100, 4, 2, 64, torch.bfloat16, True, torch.bfloat16),    # ragged, GQA
+    # the tensor-core fwd and dkv at fp32 (3xTF32) and at bf16 D 32 / 96
+    (2, 1000, 4, 2, 32, torch.float32, True, torch.float32),     # ragged, GQA
+    (2, 256, 4, 4, 64, torch.float32, False, torch.float32),
+    (1, 300, 4, 1, 96, torch.float32, True, torch.float32),      # MQA, D 96
+    (2, 192, 2, 2, 128, torch.float32, True, torch.float32),
+    (2, 1000, 4, 2, 32, torch.bfloat16, True, torch.bfloat16),   # ragged, GQA
+    (2, 256, 4, 4, 32, torch.bfloat16, False, torch.float32),    # fp32 o
+    (1, 300, 8, 2, 96, torch.bfloat16, True, torch.bfloat16),    # GQA, D 96
+    (2, 1000, 2, 2, 96, torch.bfloat16, False, torch.bfloat16),  # ragged
+    (2, 130, 4, 2, 48, torch.bfloat16, True, torch.bfloat16),    # SIMT only
 ]
-# every case on the SIMT kernels; the bf16 D 64/128 cases also on sm90
+# every case on the SIMT kernels, and on each kernel's own route (None:
+# _variant's choice) where that reaches a tensor-core kernel
 VARIANT_CASES = [(c, "simt") for c in CASES] + [
-    (c, "sm90") for c in CASES
-    if _kernels._variant(c[5], c[4]) == "sm90"]
+    (c, None) for c in CASES
+    if any(_kernels._variant(base, c[5], c[4]) == "sm90"
+           for base in ("flash_fwd", "flash_dq", "flash_dkv"))]
 
 
 @pytest.fixture()
@@ -59,12 +72,14 @@ def _inputs(case, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,variant", VARIANT_CASES,
-                         ids=lambda c: "-".join(map(str, c[:5]))
-                         if isinstance(c, tuple) else c)
+                         ids=lambda c: "-".join(map(str, c[:6]))
+                         if isinstance(c, tuple) else str(c or "route"))
 def test_kernels_match_plain_versions(cuda, case, variant):
     q, k, v, do = _inputs(case, cuda)
     causal, out_dtype, tol = case[6], case[7], TOL[case[5]]
     scale = q.shape[-1] ** -0.5
+    names = {base: _kernels._kernel(base, q, variant)
+             for base in ("flash_fwd", "flash_dq", "flash_dkv")}
     before = dict(_kernels.LAUNCHES)
     o, lse = _kernels.flash_fwd(q, k, v, scale, causal, out_dtype,
                                 variant=variant)
@@ -74,23 +89,24 @@ def test_kernels_match_plain_versions(cuda, case, variant):
     torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-5)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse, delta, scale, causal)
-    sm90 = variant == "sm90"
+    bf16 = q.dtype == torch.bfloat16
     dq = _kernels.flash_dq(*args, variant=variant)
     assert dq.dtype == q.dtype
     torch.testing.assert_close(
         dq.float(),
-        _kernels.flash_dq_plain(*args, round_operands=sm90).float(),
+        _kernels.flash_dq_plain(
+            *args, round_operands=names["flash_dq"].endswith("_sm90")
+        ).float(),
         rtol=tol, atol=tol)
     for got, want in zip(_kernels.flash_dkv(*args, variant=variant),
-                         _kernels.flash_dkv_plain(*args,
-                                                  round_operands=sm90)):
-        assert got.shape == k.shape
+                         _kernels.flash_dkv_plain(
+                             *args, round_operands=bf16 and names[
+                                 "flash_dkv"].endswith("_sm90"))):
+        assert got.shape == k.shape and got.dtype == k.dtype
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
-    suffix = "_sm90" if sm90 else ""
     want_launches = {n: 0 for n in before}
-    want_launches.update({"flash_fwd" + suffix: 1, "flash_dq" + suffix: 1,
-                          "flash_dkv" + suffix: 1})
+    want_launches.update({n: 1 for n in names.values()})
     assert {n: _kernels.LAUNCHES[n] - before[n] for n in before} == \
         want_launches
 
@@ -109,6 +125,26 @@ def test_single_wgmma_product_matches_matmul(cuda):
                                atol=1e-4)
     torch.testing.assert_close(c2, c1.to(torch.bfloat16).float() @ b.float(),
                                rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_single_tf32_wgmma_product_matches_fp32_matmul(cuda):
+    """The 3xTF32 building blocks on one 64 x 64 x 64 fp32 product: TMA into
+    32-column fp32 panels, the hi/lo split in place, the transposed and
+    permuted B tile, and an accumulator split into the hi and lo tf32
+    register A operands. Held to fp64 products within 2^-18 of the sum of
+    |products| of each element: 3xTF32 keeps about 2^-21 (dropped lo·lo
+    terms and the lo terms' rounding), plain TF32 only 2^-11."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a, b = (torch.randn(64, 64, generator=gen, device=cuda)
+            for _ in range(2))
+    c1, c2 = _kernels.wgmma_probe(a, b)
+    a64, b64, c64 = a.double(), b.double(), c1.double()
+    for got, want, mass in ((c1, a64 @ b64.T, a64.abs() @ b64.abs().T),
+                            (c2, c64 @ b64, c64.abs() @ b64.abs())):
+        err = (got.double() - want).abs()
+        assert bool((err <= 2.0 ** -18 * mass + 1e-6).all()), \
+            float((err / mass).max())
 
 
 @pytest.mark.cuda

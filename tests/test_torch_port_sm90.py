@@ -32,26 +32,33 @@ from horovod_tpu_torch.ops import _kernels
 BF16_OPERANDS = 2e-2
 
 
-@pytest.mark.parametrize("dtype,d,want", [
-    (torch.bfloat16, 64, "sm90"),
-    (torch.bfloat16, 128, "sm90"),
-    (torch.bfloat16, 32, "simt"),      # the entry config's head_dim
-    (torch.bfloat16, 96, "simt"),
-    (torch.float32, 64, "simt"),
-    (torch.float32, 128, "simt"),
+@pytest.mark.parametrize("dtype,d,fwd_dkv,dq", [
+    (torch.bfloat16, 8, "simt", "simt"),
+    (torch.bfloat16, 32, "sm90", "simt"),      # the entry config's head_dim
+    (torch.bfloat16, 64, "sm90", "sm90"),
+    (torch.bfloat16, 96, "sm90", "simt"),
+    (torch.bfloat16, 128, "sm90", "sm90"),
+    (torch.float32, 8, "simt", "simt"),
+    (torch.float32, 32, "sm90", "simt"),
+    (torch.float32, 64, "sm90", "simt"),
+    (torch.float32, 96, "sm90", "simt"),
+    (torch.float32, 128, "sm90", "simt"),
 ])
-def test_variant_routes_by_dtype_and_head_dim(dtype, d, want):
-    assert _kernels._variant(dtype, d) == want
+def test_variant_routes_by_dtype_and_head_dim(dtype, d, fwd_dkv, dq):
+    want = {"flash_fwd": fwd_dkv, "flash_dq": dq, "flash_dkv": fwd_dkv}
     q = torch.zeros(1, 4, 2, d, dtype=dtype)
-    suffix = "_sm90" if want == "sm90" else ""
-    for base in ("flash_fwd", "flash_dq", "flash_dkv"):
+    for base, route in want.items():
+        assert _kernels._variant(base, dtype, d) == route
+        suffix = "_sm90" if route == "sm90" else ""
         assert _kernels._kernel(base, q, None) == base + suffix
         assert _kernels._kernel(base, q, "simt") == base
 
 
 @pytest.mark.parametrize("dtype,d,variant,match", [
-    (torch.float32, 64, "sm90", "bf16 with head_dim 64 or 128"),
-    (torch.bfloat16, 32, "sm90", "bf16 with head_dim 64 or 128"),
+    (torch.float32, 48, "sm90",
+     "flash_fwd_sm90 takes bfloat16 or float32 with head_dim 32, 64, 96, "
+     "128"),
+    (torch.bfloat16, 40, "sm90", "flash_fwd_sm90 takes"),
     (torch.bfloat16, 64, "wgmma", "variant must be"),
 ])
 def test_explicit_variant_must_take_the_inputs(dtype, d, variant, match):
