@@ -17,19 +17,22 @@ Phases, each of which exits non-zero on a failure:
    GQA at D 128 (B 2, S 2048, H 8, H_kv 2), bf16 D 32, bf16 GQA ragged at
    D 96 (S 1000, H 8, H_kv 2), fp32 GQA at S 4096 (D 64, H 4, H_kv 2), the
    ring's blocks at sp 2 (S 512, causal and not, o in fp32), Ulysses'
-   local attention at sp 2 (H 6), and the timed shapes below. Each kernel has its own route (_kernels._variant):
-   fwd and dkv take the tensor-core (sm90) kernels at bf16 and fp32 with
-   D 32, 64, 96 or 128 (fp32 as 3xTF32), dq at bf16 with D 64 or 128; the
-   rest goes to the SIMT kernels. Each shape runs its route, and where
-   that reaches an sm90 kernel the SIMT design too; the route's launches
-   must be exactly its three kernels once each. The bf16 sm90 dq and dkv
-   are also held against the plain versions that keep their operands in
-   fp32, as the TPU kernels do, and a second launch of dq on the same
-   inputs must give the same bits. At the timed shapes (the main path's;
-   d_model 768 at B 8, S 1024, causal: fp32 at D 32, 64, 96 and 128, bf16
-   at D 32, 96 and 48, the last the SIMT fwd and dkv's own route) time
-   each kernel that runs there, its plain version and the PyTorch library
-   call that computes the same attention in the same dtype
+   local attention at sp 2 (H 6), and the timed shapes below. Each kernel
+   has its own route (_kernels._variant): fwd and dq take the tensor-core
+   (sm90) kernels at bf16 and fp32 with every head_dim (fp32 as 3xTF32;
+   head_dims off the 128-byte panels padded), dkv at bf16 and fp32 with
+   D 32, 64, 96 or 128; the rest of dkv goes to the SIMT kernel. Each
+   shape runs its route and the SIMT design (variant="simt") too; the
+   route's launches must be exactly its three kernels once each. The bf16
+   sm90 dq and dkv are also held against the plain versions that keep
+   their operands in fp32, as the TPU kernels do, and a second launch of
+   dq on the same inputs must give the same bits. At the timed shapes (the
+   main path's; the ring's causal block, whose fp32 dO dq takes as two
+   bf16 terms; d_model 768 at B 8, S 1024, causal: fp32 at D 32, 64, 96,
+   128 and 48, bf16 at D 32, 96, 48 and 80; at D 48 and 80 dkv's route is
+   the SIMT kernel, and bf16 D 48 is where each SIMT kernel's line is
+   taken) time each kernel that runs there, its plain version and the
+   PyTorch library call that computes the same attention in the same dtype
    (scaled_dot_product_attention, timed only as a yardstick), beside the
    kernel's bound on an H100.
 4. main path: hvt.init() (a one-process NCCL world), then
@@ -205,8 +208,8 @@ Phases, each of which exits non-zero on a failure:
    (gpt_config("entry", use_flash=True): d_model 128, 4 heads of
    head_dim 32, 2 layers) through train.train, fp32 and bf16, ENTRY_STEPS
    steps on a seeded batch of 8 x 128: losses finite and falling,
-   flash_fwd_sm90, flash_dkv_sm90 and the SIMT flash_dq launching once a
-   layer a step and nothing else, and the einsum-attention model from the
+   flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90 launching once a
+   layer a step and no SIMT kernel, and the einsum-attention model from the
    same seed within ENTRY_RTOL of each loss (fp32: dryrun.py's entry
    tolerance; bf16: LOSS_RTOL).
 25. summary: one JSON line listing the kernels (launches on the main path,
@@ -275,15 +278,19 @@ RING_CASES = [(8, 1024 // SP, 12, 12, 64, "bfloat16", causal, "float32")
 ULYSSES_CASE = (8, 1024, 12 // SP, 12 // SP, 64, "bfloat16", True,
                 "bfloat16")
 # timed besides the main shape: d_model 768 at B 8, S 1024, causal, on the
-# routes the tensor-core fwd and dkv took over from the SIMT kernels (fp32
-# at every sm90 head_dim, bf16 at D 32 and 96), and bf16 D 48, which the
-# SIMT fwd and dkv still serve
+# routes the tensor-core kernels took over from the SIMT ones (fp32 at
+# D 32, 64, 96 and 128, bf16 at D 32 and 96), and at head_dims off the
+# 32-grid, where fwd and dq run padded and dkv on its SIMT kernel (fp32
+# D 48, bf16 D 48 and 80)
 ROUTE_SHAPES = [(8, 1024, 768 // d, 768 // d, d, dtype, True, dtype)
                 for d, dtype in ((32, "float32"), (64, "float32"),
                                  (96, "float32"), (128, "float32"),
                                  (32, "bfloat16"), (96, "bfloat16"),
-                                 (48, "bfloat16"))]
-TIMED = [MAIN_SHAPE, *ROUTE_SHAPES]
+                                 (48, "bfloat16"), (48, "float32"),
+                                 (80, "bfloat16"))]
+# and the ring's causal block: bf16 q with an fp32 dO, which flash_dq_sm90
+# splits into two bf16 terms in shared memory
+TIMED = [MAIN_SHAPE, RING_CASES[0], *ROUTE_SHAPES]
 CASES = [MAIN_SHAPE,
          MICRO_SHAPE,
          (8, 1024, 12, 12, 64, "bfloat16", False, "bfloat16"),
@@ -296,10 +303,12 @@ CASES = [MAIN_SHAPE,
          (1, 4096, 4, 2, 64, "float32", True, "float32"),
          *RING_CASES, ULYSSES_CASE, *ROUTE_SHAPES]
 # the shape whose timing stands in the kernels line for each SIMT kernel:
-# one its route sends it (fwd and dkv: bf16 D 48; dq: fp32 D 64)
-SIMT_LINE_SHAPE = {"flash_fwd": ROUTE_SHAPES[-1],
-                   "flash_dkv": ROUTE_SHAPES[-1],
-                   "flash_dq": ROUTE_SHAPES[1]}
+# bf16 D 48 at d_model 768, dkv's own route there and, since no route
+# sends fwd or dq to the SIMT kernels, where they are timed as
+# variant="simt" beside the padded sm90 fwd and dq
+SIMT_LINE_SHAPE = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"),
+                                (8, 1024, 16, 16, 48, "bfloat16", True,
+                                 "bfloat16"))
 BASES = ("flash_fwd", "flash_dq", "flash_dkv")
 # the sequence phase: ring blocks of the main shape at these sp layouts
 SEQUENCE_LAYOUTS = (2, 4)
@@ -313,13 +322,25 @@ TOL_PLAIN = {"float32": 1e-4, "bfloat16": 2e-2}
 # tolerance that holds was at most 0.010 over the bf16 cases (about one
 # bf16 ulp of dk and dv; PERF.md), so 2e-2 keeps a factor of two.
 TOL_DKV_FP32_OPERANDS = 2e-2
-# flash_dq_sm90 rounds ds (and an fp32 dO) to bf16 before ds k, where
-# flash_dq and the TPU kernel keep ds fp32. On the card the least tolerance
-# that holds against that fp32-operand plain version was at most 0.0069
-# over the bf16 cases (PERF.md), so 1.4e-2 keeps a factor of two.
+# flash_dq_sm90 on bf16 rounds ds to bf16 before ds k, where flash_dq and
+# the TPU kernel keep ds fp32 (an fp32 dO it carries as two bf16 terms). On
+# the card the least tolerance that holds against that fp32-operand plain
+# version was at most 0.0069 over the bf16 cases; at the ring's causal
+# block (fp32 dO) 0.0061, 0.0136 while that dO was rounded to one bf16 term
+# (PERF.md). 1.4e-2 keeps a factor of two.
 TOL_DQ_FP32_OPERANDS = 1.4e-2
-# what the sm90 kernels round to bf16, where the TPU kernels keep fp32
-ROUNDED = {"flash_dq_sm90": "dO and ds", "flash_dkv_sm90": "p and ds"}
+# The ring's blocks (bf16 q, fp32 dO) are held tighter: a kernel that drops
+# dO's lo term reads 0.0136 there, within TOL_DQ_FP32_OPERANDS, so their
+# least tolerance must stay under this limit, between that reading and the
+# two terms' 0.0061, and no larger than the main shape's (bf16 dO); and the
+# kernel's dq must lie nearer the two-term plain version than the one-term
+# one, by RING_NEARER in the Frobenius norm.
+TOL_DQ_RING = 9.5e-3
+RING_NEARER = 0.5
+# what the sm90 kernels round to bf16 (bf16 inputs), where the TPU kernels
+# keep fp32; flash_dq_sm90 carries an fp32 dO as two bf16 terms, and
+# flash_dkv_sm90 rounds it to one
+ROUNDED = {"flash_dq_sm90": "ds", "flash_dkv_sm90": "p and ds"}
 # the autograd Function vs autograd of the dense reference: in bf16 the
 # reference's autograd also rounds dp through the p cast, so allow more.
 TOL_AUTOGRAD = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -555,6 +576,44 @@ def check(tag, got, want, tol):
     return err, rel, need
 
 
+# flash_dq_sm90's least tolerance against the fp32-operand plain version at
+# MAIN_SHAPE, once its kernels phase has run
+DQ_MAIN_LEAST = {}
+
+
+def dq_ring_checks(case, K, args, got, two_term, least):
+    """At MAIN_SHAPE record flash_dq_sm90's least tolerance against the
+    fp32-operand plain version; at a ring block (bf16 q, fp32 dO) hold it to
+    TOL_DQ_RING and to the main shape's, and hold the kernel's dq nearer the
+    plain version that takes dO as two bf16 terms than the one that rounds
+    it to one: a kernel that dropped dO's lo term passes TOL_PLAIN and
+    TOL_DQ_FP32_OPERANDS alike."""
+    import torch
+
+    if case == MAIN_SHAPE:
+        DQ_MAIN_LEAST["least_tol"] = least
+    if case[5] != "bfloat16" or case[7] != "float32":
+        return
+    q, k, v, do, *rest = args
+    one_term = K.flash_dq_plain(q, k, v, do.to(torch.bfloat16), *rest,
+                                round_ds=True)
+    near = float((got.float() - two_term.float()).norm())
+    far = float((got.float() - one_term.float()).norm())
+    main = DQ_MAIN_LEAST.get("least_tol")
+    emit({"phase": "kernel", "kernel": "flash_dq_sm90", "ring": case,
+          "least_tol_vs_fp32_operands": least, "limit": TOL_DQ_RING,
+          "main_shape_least_tol": main, "norm_to_two_terms": near,
+          "norm_to_one_term": far})
+    if least > TOL_DQ_RING or (main is not None and least > main):
+        fail(f"flash_dq_sm90 at the ring block {case}: least tolerance "
+             f"{least:.4g} against the fp32-operand plain version, over "
+             f"{TOL_DQ_RING} or the main shape's {main}")
+    if not near < RING_NEARER * far:
+        fail(f"flash_dq_sm90 at the ring block {case}: dq is {near:.4g} "
+             f"from the two-term plain version and {far:.4g} from the "
+             f"one-term one (dO's lo term dropped?)")
+
+
 def kernel_phase(case, K, ref_fn, timings):
     """Hold the kernels that take this shape against their plain versions
     and autograd of the reference: each kernel's route and, where that
@@ -576,9 +635,8 @@ def kernel_phase(case, K, ref_fn, timings):
     shape = {"B": b, "S": s, "H": h, "H_kv": h_kv, "D": d,
              "dtype": dtype_name, "causal": causal, "o": out_name}
     route = route_launches(K, q)
-    # None: each kernel's own route
-    variants = (None, "simt") if any(n.endswith("_sm90") for n in route) \
-        else (None,)
+    # None: each kernel's own route; every route reaches an sm90 kernel
+    variants = (None, "simt")
 
     # both designs get the same inputs: the backward starts from the plain
     # forward's o and lse
@@ -591,8 +649,8 @@ def kernel_phase(case, K, ref_fn, timings):
     for variant in variants:
         fwd, dqn, dkv = (K._kernel(base, q, variant) for base in BASES)
         # the kernels that round operands to bf16 where the TPU kernels
-        # keep fp32: sm90 dq always, sm90 dkv on bf16 inputs
-        rounds[dqn] = dqn.endswith("_sm90")
+        # keep fp32: sm90 dq and dkv on bf16 inputs
+        rounds[dqn] = dqn.endswith("_sm90") and bf16
         rounds[dkv] = dkv.endswith("_sm90") and bf16
         before = dict(K.LAUNCHES)
         o, lse = K.flash_fwd(q, k, v, scale, causal, out_dtype,
@@ -613,7 +671,8 @@ def kernel_phase(case, K, ref_fn, timings):
                      check(f"{fwd} lse", lse, rlse, 1e-4)]
         if not torch.equal(K.flash_dq(*args, variant=variant), got["dq"]):
             fail(f"{dqn}: a second launch on the same inputs gave other bits")
-        want = {"dq": K.flash_dq_plain(*args, round_operands=rounds[dqn]),
+        want = {"dq": K.flash_dq_plain(*args, split_dout=rounds[dqn],
+                                       round_ds=rounds[dqn]),
                 **dict(zip(("dk", "dv"), K.flash_dkv_plain(
                     *args, round_operands=rounds[dkv])))}
         for name, outs in ((dqn, ("dq",)), (dkv, ("dk", "dv"))):
@@ -630,6 +689,9 @@ def kernel_phase(case, K, ref_fn, timings):
                   "max_abs_err": max(e[0] for e in vs32),
                   "max_rel_err": max(e[1] for e in vs32),
                   "least_tol": max(e[2] for e in vs32), "tol": tol32})
+            if name == dqn:
+                dq_ring_checks(case, K, args, got["dq"], want["dq"],
+                               vs32[0][2])
         del o, lse, got, want
     for name, found in errs.items():
         emit({"phase": "kernel", "kernel": name, "shape": shape,
@@ -699,7 +761,8 @@ def kernel_phase(case, K, ref_fn, timings):
         dqn, dkv = (K._kernel(base, q, variant) for base in BASES[1:])
         timed[dqn] = (
             lambda vr=variant: K.flash_dq(*args, variant=vr),
-            lambda r=rounds[dqn]: K.flash_dq_plain(*args, round_operands=r),
+            lambda r=rounds[dqn]: K.flash_dq_plain(*args, split_dout=r,
+                                                   round_ds=r),
             sdpa_bwd)
         timed[dkv] = (
             lambda vr=variant: K.flash_dkv(*args, variant=vr),
@@ -824,7 +887,8 @@ def entry_phase(K):
         q = torch.empty(1, 1, cfg.n_heads, d, dtype=dtype, device="meta")
         want = {n: cfg.n_layers * steps
                 for n in route_launches(K, q)}
-        if {n: c for n, c in ran.items() if c} != want:
+        if not all(n.endswith("_sm90") for n in want) or \
+                {n: c for n, c in ran.items() if c} != want:
             fail(f"entry {dtype_name}: launched {ran}, expected {want}")
         losses = res["loss"]
         if not all(math.isfinite(x) for x in losses) or \

@@ -71,7 +71,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D, typename T>
 struct DkvCfg {
   static constexpr bool kTf32 = std::is_same<T, float>::value;
-  static constexpr int DP = sm90::padded_d<D, T>();
+  static constexpr int DP = sm90::padded_width<T>(D);
   // warpgroups, 64 keys each; fp32 at D 32, 96, 128: one (see Design, fp32)
   static constexpr int kWG = kTf32 && D != 64 ? 1 : 2;
   static constexpr int kThreads = 128 * kWG;

@@ -2,37 +2,71 @@
 // (wgmma, TMA, mbarriers; sm_90a only).
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_dq_kernel (pl.pallas_call in
-// _flash_bwd) for bf16 q/k/v/dO with head_dim 64 or 128; flash_dq.cu stays
-// the route for fp32 and other head dims. Same function:
+// _flash_bwd) for q/k/v in bf16 or fp32 with any head_dim the port takes
+// (8..128 in steps of 8); flash_dq.cu stays built and checked as the SIMT
+// design, on no route. Same function:
 //   p = exp(scale q k^T - lse) with the causal fill, keys past S weigh 0,
 //   dp = dO v^T, ds = p (dp - delta), dq = sum over keys of ds k * scale,
 // with delta = rowsum(dO o) - dlse passed in precomputed.
 //
-// Numerics differ from _dq_kernel in one place. It takes ds k on fp32 ds
-// (:189-192); on the tensor cores ds is rounded to bf16 first, as in
-// FlashAttention-2/3. dO v^T is unchanged: products of bf16 values are exact
-// in fp32. The plain version with round_operands=True (ops/_kernels.py)
-// rounds at the same point.
+// Numerics. With bf16 q they differ from _dq_kernel in one place: it takes
+// ds k on fp32 ds (:189-192); on the tensor cores ds is rounded to bf16
+// first, as in FlashAttention-2/3. dO v^T keeps dO as _dq_kernel reads it
+// (:165): a bf16 dO is exact, and an fp32 dO (the sequence ring writes an
+// fp32 o) is split, once per query tile in shared memory, into two bf16
+// terms, hi = bf16(dO) and lo = bf16(dO - hi), so dP = dO_hi v^T +
+// dO_lo v^T carries 16 bits of dO's mantissa; products of bf16 values are
+// exact in fp32. The plain version with split_dout and round_ds
+// (ops/_kernels.py) rounds at the same points. With fp32 q every product
+// runs as 3xTF32 (sm90.cuh) on fp32 operands, within about 2^-21 of fp32
+// products: the plain version rounds nothing.
 //
-// Design. The TPU kernel carries dq in VMEM scratch across the grid's
+// Head dims. A kernel is instantiated per padded width DP (64 or 128 in
+// bf16; 32, 64, 96 or 128 in fp32): TMA zero-fills the columns past D,
+// which add nothing to any product, and only D columns of dq are written.
+// The bf16 instances at D 64 and 128 with a bf16 dO (the main path's and
+// its twin) fix D at compile time; every other head_dim comes at run time.
+//
+// Design, bf16. The TPU kernel carries dq in VMEM scratch across the grid's
 // sequential last axis. Here one block of 256 threads owns a 128-row query
-// tile of one (b, h): two warpgroups of 64 rows each, with Q and dO resident
-// in shared memory and dq in fp32 registers for the whole K/V loop. Thread 0
-// issues every TMA load: Q and dO once, then 64-key K/V tiles through a ring
-// of kStages stages behind "full" (TMA bytes) and "empty" (256 consumers)
-// mbarriers. Each thread keeps lse * log2(e) and delta of its two rows in
-// registers. Per K/V tile, each warpgroup runs
+// tile of one (b, h): two warpgroups of 64 rows each, with Q and dO (its two
+// terms) resident in shared memory and dq in fp32 registers for the whole
+// K/V loop. Thread 0 issues every TMA load: Q and dO once, then 64-key K/V
+// tiles through a ring of kStages stages behind "full" (TMA bytes) and
+// "empty" (256 consumers) mbarriers. An fp32 dO lands in the K/V ring (its
+// kBM x DP x 4 bytes are the ring's size), the block splits it into the two
+// bf16 tiles, and only then are the first K/V tiles loaded. Each thread
+// keeps lse * log2(e) and delta of its two rows in registers. Per K/V tile, each warpgroup runs
 //   S  = Q K^T      wgmma m64n64k16, Q and K K-major from shared memory;
-//   dP = dO V^T     the same with dO and V, in the same commit group;
+//   dP = dO V^T     the same with dO (and dO lo) and V, in the same commit
+//                   group;
 //   P  = exp2(S scale log2(e) - lse log2(e)),  dS = P (dP - delta)
 //                   on the accumulator fragments;
-//   dQ += dS K      wgmma m64nDk16, dS as bf16 register A operand (the
+//   dQ += dS K      wgmma m64nDPk16, dS as bf16 register A operand (the
 //                   accumulator fragment is the A fragment), K MN-major.
 // Only tiles that meet the ragged end or the causal diagonal pay for masks.
 // Causal tiles wholly above the block's diagonal are never loaded, and a
 // warpgroup skips the products of tiles wholly above its own. GQA reads K/V
 // head h / (H / H_kv) through the tensor map's coordinates; TMA zero-fills
 // rows past S, and rows past S are not written.
+//
+// Design, fp32 (3xTF32). The same loop with tf32 products: each operand is
+// split into hi and lo (sm90.cuh, split_tile) and a product is three
+// wgmma m64nNk8 a k-step (a_lo b_hi, a_hi b_lo, a_hi b_hi). Q and dO are
+// split once, hi in place and lo beside it. Each K/V tile is split when it
+// lands: V into hi and lo, K into hi and lo and also written transposed
+// (hi and lo, keys permuted by permute8), because tf32 wgmma reads shared
+// memory K-major only and K is the MN-major operand of dS K; dS's
+// accumulator fragment is then the tf32 A fragment as it stands. dq sums
+// over every key tile of the sequence, the longest accumulation of the
+// three kernels, and the tensor cores truncate as they accumulate: each
+// key tile's dS K is summed in a fresh accumulator and added to dq in fp32
+// (as flash_dkv_sm90 does). Shared memory: Q, dO and their lo, 4 * kBM *
+// DP * 4 B, and one stage of K, K lo, V, V lo (kBN * DP * 4 B each) and
+// K^T hi and lo (DP rows of 128 B per 32 keys): two warpgroups and 64-key
+// tiles at DP 64 (224 KB), one warpgroup with 64-key tiles at DP 32
+// (80 KB, two blocks an SM) and 32-key tiles at DP 96 and 128 (168 KB and
+// 224 KB).
 //
 // Why a kernel of its own. dq could instead be summed inside flash_dkv_sm90,
 // which has dS^T in registers, with fp32 atomics (or cp.reduce.async.bulk)
@@ -42,50 +76,92 @@
 // stalls well above its bound, that fused design is the next lever
 // (ROADMAP).
 //
-// Occupancy. A thread holds 32 + 32 + D / 2 fp32 accumulators. At D 64 the
-// kernel is held to 128 registers, so two blocks (66 KB of shared memory
-// each) share an SM and one block's exp2 runs under the other's products;
-// at D 128 one block per SM. On the card, 128-key tiles (one block per SM)
-// and a third stage were both slower than this layout (PERF.md).
+// Occupancy, bf16. A thread holds 32 + 32 + DP / 2 fp32 accumulators. At
+// DP 64 the kernel is held to 128 registers, so two blocks (66 KB of shared
+// memory each, 82 KB with an fp32 dO's two terms) share an SM and one
+// block's exp2 runs under the other's products; at DP 128 one block per SM.
+// On the card, 128-key tiles (one block per SM) and a third stage were both
+// slower than this layout (PERF.md).
 //
 // Bound. At the main path's shape (B 8, H 12, S 1024, D 64, bf16, causal)
 // the work is 19.3 GFLOP of bf16 products and 63.7 MB: 20 us of tensor-core
-// time, 19 us of HBM time.
+// time, 19 us of HBM time. Every head_dim at d_model 768 does the same
+// 19.3 GFLOP; padded ones issue more (at bf16 D 32 twice as many). In fp32
+// the 127 MB take 38 us, the products 39 us at TF32's rate and 117 us as
+// 3xTF32: the three products bound every fp32 instance.
 #include "flash_attention.cuh"
 #include "sm90.cuh"
 
 namespace hvt {
 namespace {
 
-constexpr int kBM = 128;  // query rows per block (two warpgroups of 64)
-constexpr int kBN = 64;   // keys per K/V tile
+constexpr int kBM = 128;  // bf16: query rows per block (two warpgroups of 64)
+constexpr int kBN = 64;   // bf16: keys per K/V tile
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+// kDoTerms: the bf16 terms dO comes in (1: a bf16 dO; 2: an fp32 dO as
+// hi and lo).
+template <int DP, int kDoTerms>
 struct DqSmem {
-  static constexpr int kQ = kBM * D * 2;   // bytes of the Q (or dO) tile
-  static constexpr int kKV = kBN * D * 2;  // bytes of one K (or V) tile
+  static constexpr int kQ = kBM * DP * 2;   // bytes of the Q (or a dO) tile
+  static constexpr int kKV = kBN * DP * 2;  // bytes of one K (or V) tile
   static constexpr int kBarriers = (1 + 2 * kStages) * 8;
-  static constexpr int kBytes = 2 * kQ + 2 * kStages * kKV + kBarriers + sm90::kAtomBytes;
+  static constexpr int kBytes =
+      (1 + kDoTerms) * kQ + 2 * kStages * kKV + kBarriers + sm90::kAtomBytes;
+  // an fp32 dO tile lands in the K/V ring before its first tiles
+  static_assert(kDoTerms == 1 || 2 * kStages * kKV == 2 * kQ, "fp32 dO fits the ring");
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+// The fp32 dO tile as TMA lands it (kBM rows in 32-column panels) split
+// into two bf16 tiles as TMA would land them (64-column panels): hi =
+// bf16(x), lo = bf16(x - hi), both rounded to nearest. Each step takes 8
+// columns of one row; consecutive threads take consecutive rows, so the
+// swizzled 16-byte accesses of 8 threads fall in distinct banks.
+template <int DP>
+__device__ __forceinline__ void split_dout(const uint8_t* f32, uint8_t* hi, uint8_t* lo,
+                                           int tid) {
+  using sm90::kRowBytes;
+  for (int i = tid; i < kBM * DP / 8; i += kThreads) {
+    const int r = i % kBM, c8 = i / kBM;  // row r, columns 8 c8 .. 8 c8 + 7
+    const uint8_t* src = f32 + (c8 / 4) * kBM * kRowBytes + r * kRowBytes;
+    const int ch = 2 * (c8 % 4);  // the first of its two fp32 chunks
+    const float4 x0 = *reinterpret_cast<const float4*>(src + ((ch ^ (r % 8)) * 16));
+    const float4 x1 = *reinterpret_cast<const float4*>(src + (((ch + 1) ^ (r % 8)) * 16));
+    const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float a = __bfloat162float(__float2bfloat16_rn(x[2 * j]));
+      const float b = __bfloat162float(__float2bfloat16_rn(x[2 * j + 1]));
+      h[j] = sm90::pack_bf16(a, b);  // exact: a and b are bf16 values
+      l[j] = sm90::pack_bf16(x[2 * j] - a, x[2 * j + 1] - b);
+    }
+    const int off = (c8 / 8) * kBM * kRowBytes + r * kRowBytes + (((c8 % 8) ^ (r % 8)) * 16);
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// kD: the head_dim where it is fixed at compile time (kD == DP), else 0 and
+// d_rt gives it. kDoTerms 2: tdo maps an fp32 dO.
+template <int DP, int kD, int kDoTerms>
+__global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)
     flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tdo,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int S, int H, int Hkv, float scale,
-                         float scale_log2, int causal) {
+                         __nv_bfloat16* __restrict__ dq, int S, int H, int Hkv, int d_rt,
+                         float scale, float scale_log2, int causal) {
   using namespace sm90;
-  using L = DqSmem<D>;
+  using L = DqSmem<DP, kDoTerms>;
+  const int D = kD ? kD : d_rt;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1k(smem_raw);
   uint8_t* q_s = smem;
-  uint8_t* do_s = smem + L::kQ;
-  uint8_t* kv_s = smem + 2 * L::kQ;  // stage s: K at kv_s + 2 s kKV, V right after it
+  uint8_t* do_s = smem + L::kQ;                 // dO lo, if any, right after it
+  uint8_t* kv_s = smem + (1 + kDoTerms) * L::kQ;  // stage s: K at kv_s + 2 s kKV, V after it
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(kv_s + 2 * kStages * L::kKV);
   uint64_t* full = bar_q + 1;
   uint64_t* empty = full + kStages;
@@ -115,14 +191,20 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
   auto load_kv = [&](int j, int s) {
     uint8_t* dst = kv_s + 2 * s * L::kKV;
     mbar_expect_tx(&full[s], 2 * L::kKV);
-    tma_load_rows<D>(dst, &tk, &full[s], kBN, j * kBN, hk, b);
-    tma_load_rows<D>(dst + L::kKV, &tv, &full[s], kBN, j * kBN, hk, b);
+    tma_load_rows<DP>(dst, &tk, &full[s], kBN, j * kBN, hk, b);
+    tma_load_rows<DP>(dst + L::kKV, &tv, &full[s], kBN, j * kBN, hk, b);
   };
   if (tid == 0) {
-    mbar_expect_tx(bar_q, 2 * L::kQ);
-    tma_load_rows<D>(q_s, &tq, bar_q, kBM, q0, h, b);
-    tma_load_rows<D>(do_s, &tdo, bar_q, kBM, q0, h, b);
-    for (int j = 0; j < kStages && j < n_kt; ++j) load_kv(j, j);
+    if constexpr (kDoTerms == 1) {
+      mbar_expect_tx(bar_q, 2 * L::kQ);
+      tma_load_rows<DP>(q_s, &tq, bar_q, kBM, q0, h, b);
+      tma_load_rows<DP>(do_s, &tdo, bar_q, kBM, q0, h, b);
+      for (int j = 0; j < kStages && j < n_kt; ++j) load_kv(j, j);
+    } else {  // the fp32 dO into the K/V ring; K/V once it is split
+      mbar_expect_tx(bar_q, 3 * L::kQ);
+      tma_load_rows<DP>(q_s, &tq, bar_q, kBM, q0, h, b);
+      tma_load_rows<DP, float>(kv_s, &tdo, bar_q, kBM, q0, h, b);
+    }
   }
   // This thread is done with tile j: once all 256 are, thread 0 refills its
   // stage with tile j + kStages.
@@ -145,11 +227,20 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     dlt[r] = row < S ? delta[off] : 0.f;
   }
   const uint32_t q_addr = smem_u32(q_s), do_addr = smem_u32(do_s), kv_addr = smem_u32(kv_s);
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(bar_q, 0);
+  if constexpr (kDoTerms == 2) {
+    split_dout<DP>(kv_s, do_s, do_s + L::kQ, tid);
+    // the split's writes before wgmma reads them, and its reads before
+    // TMA refills the ring (both async proxy)
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0)
+      for (int j = 0; j < kStages && j < n_kt; ++j) load_kv(j, j);
+  }
   int j = 0;
   for (; j < n_mine; ++j) {
     const int s = j % kStages, k0 = j * kBN;
@@ -159,13 +250,19 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     float sc[kBN / 2], dp[kBN / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DP / 16; ++kk)
       wgmma_ss<0>(sc, desc_kmajor(q_addr, kBM, 64 * wg, kk), desc_kmajor(k_addr, kBN, 0, kk),
                   kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DP / 16; ++kk)
       wgmma_ss<0>(dp, desc_kmajor(do_addr, kBM, 64 * wg, kk), desc_kmajor(v_addr, kBN, 0, kk),
                   kk > 0);
+    if constexpr (kDoTerms == 2) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss<0>(dp, desc_kmajor(do_addr + L::kQ, kBM, 64 * wg, kk),
+                    desc_kmajor(v_addr, kBN, 0, kk), 1);
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -209,7 +306,8 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
     if (row >= S) continue;
     __nv_bfloat16* drow = dq + ((long long)b * S + row) * qstride + (long long)h * D;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
+    for (int c = 0; c < DP / 8; ++c) {
+      if (8 * c >= D) continue;  // the padded columns are not written
       const int i = 4 * c + 2 * r;
       *reinterpret_cast<__nv_bfloat162*>(drow + 8 * c + 2 * (lane % 4)) =
           __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
@@ -217,40 +315,276 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
   }
 }
 
-template <int D>
+// Tile sizes and the shared-memory layout of the fp32 (3xTF32) kernel at
+// padded width DP (see Design, fp32).
+template <int DP>
+struct DqTf32Cfg {
+  static_assert(DP % 32 == 0 && DP <= 128, "DP: whole panels");
+  static constexpr int kWG = DP == 64 ? 2 : 1;  // warpgroups, 64 query rows each
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kBM = 64 * kWG;                // query rows per block
+  static constexpr int kBN = DP <= 64 ? 64 : 32;      // keys per K/V tile
+  static constexpr int kQ = kBM * DP * 4;             // bytes of Q, Q lo, dO or dO lo
+  static constexpr int kKV = kBN * DP * 4;            // of K, K lo, V or V lo
+  static constexpr int kT = DP * sm90::kRowBytes * (kBN / 32);  // of K^T hi or lo
+  static constexpr int kStage = 4 * kKV + 2 * kT;
+  static constexpr int kBarriers = 3 * 8;
+  static constexpr int kBytes = 4 * kQ + kStage + kBarriers + sm90::kAtomBytes;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(DqTf32Cfg<DP>::kThreads, 1)
+    flash_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              float* __restrict__ dq, int S, int H, int Hkv, int D, float scale,
+                              float scale_log2, int causal) {
+  using namespace sm90;
+  using C = DqTf32Cfg<DP>;
+  constexpr int kBM = C::kBM, kBN = C::kBN, kQ = C::kQ, kKV = C::kKV, kT = C::kT;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1k(smem_raw);
+  uint8_t* q_s = smem;          // Q, Q lo, dO, dO lo at q_s + i kQ
+  uint8_t* st = smem + 4 * kQ;  // K, K lo, V, V lo at st + i kKV; then K^T hi, K^T lo
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(st + C::kStage);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = bar_q + 2;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows start first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
+  const int q0 = qt * kBM;
+  int n_kt = (S + kBN - 1) / kBN;
+  if (causal) n_kt = min(n_kt, (q0 + kBM - 1) / kBN + 1);
+  const int tid = threadIdx.x, warp = (tid % 128) / 32, lane = tid % 32;
+  const int wg = C::kWG == 1 ? 0 : tid / 128;
+  const int wg_row0 = q0 + 64 * wg;
+  const int n_mine = causal ? min(n_kt, (wg_row0 + 63) / kBN + 1) : n_kt;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(full, 1);
+    mbar_init(empty, C::kThreads);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  auto load_kv = [&](int j) {
+    mbar_expect_tx(full, 2 * kKV);
+    tma_load_rows<DP, float>(st, &tk, full, kBN, j * kBN, hk, b);
+    tma_load_rows<DP, float>(st + 2 * kKV, &tv, full, kBN, j * kBN, hk, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * kQ);
+    tma_load_rows<DP, float>(q_s, &tq, bar_q, kBM, q0, h, b);
+    tma_load_rows<DP, float>(q_s + 2 * kQ, &tdo, bar_q, kBM, q0, h, b);
+    load_kv(0);
+  }
+
+  const int row_lo = wg_row0 + 16 * warp + lane / 4;  // rows row_lo and row_lo + 8
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    const long long off = ((long long)b * H + h) * S + row;
+    lse2[r] = row < S ? lse[off] * kLog2e : 0.f;
+    dlt[r] = row < S ? delta[off] : 0.f;
+  }
+  const uint32_t q_addr = smem_u32(q_s), st_addr = smem_u32(st);
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  // Q and dO: hi in place, lo beside (the first tile's fence and barrier
+  // publish these writes too)
+  split_tile<DP, kBM, true, false>(q_s, q_s + kQ, nullptr, nullptr, tid, C::kThreads);
+  split_tile<DP, kBM, true, false>(q_s + 2 * kQ, q_s + 3 * kQ, nullptr, nullptr, tid,
+                                   C::kThreads);
+  for (int j = 0; j < n_kt; ++j) {
+    mbar_wait(full, j & 1);
+    // every thread splits, also those of a warpgroup that has no product left
+    split_tile<DP, kBN, true, true>(st, st + kKV, st + 4 * kKV, st + 4 * kKV + kT, tid,
+                                    C::kThreads);
+    split_tile<DP, kBN, true, false>(st + 2 * kKV, st + 3 * kKV, nullptr, nullptr, tid,
+                                     C::kThreads);
+    fence_proxy_async();
+    __syncthreads();
+
+    if (j < n_mine) {
+      const int k0 = j * kBN;
+      float sc[kBN / 2], dp[kBN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        const uint64_t qh = desc_kmajor(q_addr, kBM, 64 * wg, kk),
+                       ql = desc_kmajor(q_addr + kQ, kBM, 64 * wg, kk);
+        const uint64_t kh = desc_kmajor(st_addr, kBN, 0, kk),
+                       kl = desc_kmajor(st_addr + kKV, kBN, 0, kk);
+        wgmma_ss_tf32(sc, ql, kh, kk > 0);
+        wgmma_ss_tf32(sc, qh, kl, 1);
+        wgmma_ss_tf32(sc, qh, kh, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        const uint64_t gh = desc_kmajor(q_addr + 2 * kQ, kBM, 64 * wg, kk),
+                       gl = desc_kmajor(q_addr + 3 * kQ, kBM, 64 * wg, kk);
+        const uint64_t vh = desc_kmajor(st_addr + 2 * kKV, kBN, 0, kk),
+                       vl = desc_kmajor(st_addr + 3 * kKV, kBN, 0, kk);
+        wgmma_ss_tf32(dp, gl, vh, kk > 0);
+        wgmma_ss_tf32(dp, gh, vl, 1);
+        wgmma_ss_tf32(dp, gh, vh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      const bool edge = k0 + kBN > S || (causal && k0 + kBN - 1 > wg_row0);
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        const int r = (i / 2) % 2;
+        float p = exp2f(fmaf(sc[i], scale_log2, -lse2[r]));
+        if (edge) {
+          const int key = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+          if (key >= S || (causal && key > row_lo + 8 * r)) p = 0.f;
+        }
+        dp[i] = p * (dp[i] - dlt[r]);  // dS
+      }
+
+      uint32_t sh[kBN / 8][4], sl[kBN / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < kBN / 8; ++kk) a_fragment_tf32(sh[kk], sl[kk], dp, kk);
+      // this tile's dS K sums in a fresh accumulator, then adds to dq in
+      // fp32: the tensor cores truncate as they accumulate
+      float tile[DP / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 8; ++kk) {
+        const uint64_t th = desc_kmajor(st_addr + 4 * kKV, DP, 0, kk),
+                       tl = desc_kmajor(st_addr + 4 * kKV + kT, DP, 0, kk);
+        wgmma_rs_tf32(tile, sl[kk], th, kk > 0);
+        wgmma_rs_tf32(tile, sh[kk], tl, 1);
+        wgmma_rs_tf32(tile, sh[kk], th, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(tile);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] += tile[i];
+    }
+
+    mbar_arrive(empty);
+    if (tid == 0 && j + 1 < n_kt) {
+      mbar_wait(empty, j & 1);  // every thread is done with the stage
+      load_kv(j + 1);
+    }
+  }
+
+  const long long qstride = (long long)H * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    if (row >= S) continue;
+    float* drow = dq + ((long long)b * S + row) * qstride + (long long)h * D;
+#pragma unroll
+    for (int c = 0; c < DP / 8; ++c) {
+      if (8 * c >= D) continue;  // the padded columns are not written
+      const int i = 4 * c + 2 * r;
+      store2(drow + 8 * c + 2 * (lane % 4), acc[i] * scale, acc[i + 1] * scale);
+    }
+  }
+}
+
+template <int DP, int kD, int kDoTerms>
 int launch_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dq, int B, int S, int H, int Hkv,
-                   float scale, int causal, cudaStream_t stream) {
+                   int D, float scale, int causal, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   int err = make_bshd_map(&tq, q, B, S, H, D, kBM);
-  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, kBM);
+  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, kBM, kDoTerms == 2 ? 4 : 2);
   if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, kBN);
   if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, kBN);
   if (err != 0) return err;
   const dim3 grid((S + kBM - 1) / kBM, H, B);
-  return launch(flash_dq_sm90_kernel<D>, grid, DqSmem<D>::kBytes, stream, tq, tk, tv, tdo,
-                (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq, S, H, Hkv, scale,
-                scale * kLog2e, causal);
+  return launch(flash_dq_sm90_kernel<DP, kD, kDoTerms>, grid, DqSmem<DP, kDoTerms>::kBytes,
+                stream, tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
+                (__nv_bfloat16*)dq, S, H, Hkv, D, scale, scale * kLog2e, causal);
+}
+
+// bf16: D 64 and 128 with a bf16 dO at D fixed, every other case at its
+// padded width with D at run time.
+template <int kDoTerms>
+int launch_dq_sm90_d(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, void* dq, int B, int S, int H, int Hkv,
+                     int D, float scale, int causal, cudaStream_t st) {
+  if constexpr (kDoTerms == 1) {
+    if (D == 64)
+      return launch_dq_sm90<64, 64, 1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+                                       causal, st);
+    if (D == 128)
+      return launch_dq_sm90<128, 128, 1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+                                         causal, st);
+  }
+  return D <= 64 ? launch_dq_sm90<64, 0, kDoTerms>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv,
+                                                   D, scale, causal, st)
+                 : launch_dq_sm90<128, 0, kDoTerms>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv,
+                                                    D, scale, causal, st);
+}
+
+template <int DP>
+int launch_dq_sm90_tf32(const void* q, const void* k, const void* v, const void* dout,
+                        const void* lse, const void* delta, void* dq, int B, int S, int H,
+                        int Hkv, int D, float scale, int causal, cudaStream_t stream) {
+  using C = DqTf32Cfg<DP>;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_bshd_map(&tq, q, B, S, H, D, C::kBM, 4);
+  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, C::kBM, 4);
+  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, C::kBN, 4);
+  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, C::kBN, 4);
+  if (err != 0) return err;
+  const dim3 grid((S + C::kBM - 1) / C::kBM, H, B);
+  return launch_n(flash_dq_sm90_tf32_kernel<DP>, grid, C::kThreads, C::kBytes, stream, tq, tk,
+                  tv, tdo, (const float*)lse, (const float*)delta, (float*)dq, S, H, Hkv, D,
+                  scale, scale * kLog2e, causal);
 }
 
 }  // namespace
 }  // namespace hvt
 
-// Returns 0 or the CUDA error of the launch. q, k, v, dO bf16 (dtype and
-// dout_dtype 1) with D 64 or 128; dq [B, S, H, D] bf16. The signature is
-// hvt_flash_dq's.
+// Returns 0 or the CUDA error of the launch. The port's head_dims (8..128 in
+// steps of 8) and dtypes: q, k, v and dO fp32 (dtype and dout_dtype 0), dq
+// fp32; q, k, v bf16 (dtype 1) with dO bf16 (dout_dtype 1) or fp32 (0), dq
+// bf16. The signature is hvt_flash_dq's.
 extern "C" int hvt_flash_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, int B, int S,
                                  int H, int Hkv, int D, float scale, int causal, int dtype,
                                  int dout_dtype, void* stream) {
   using namespace hvt;
-  if (!valid_shape(B, S, H, Hkv, D) || dtype != kBF16 || dout_dtype != kBF16 ||
-      (D != 64 && D != 128))
-    return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, S, H, Hkv, D)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return D == 64 ? launch_dq_sm90<64>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, scale, causal,
-                                      st)
-                 : launch_dq_sm90<128>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, scale,
-                                       causal, st);
+  if (dtype == kBF16)
+    return dout_dtype == kBF16
+               ? launch_dq_sm90_d<1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+                                     causal, st)
+               : launch_dq_sm90_d<2>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+                                     causal, st);
+  if (dtype != kF32 || dout_dtype != kF32) return (int)cudaErrorInvalidValue;
+  switch (sm90::padded_width<float>(D)) {
+    case 32:
+      return launch_dq_sm90_tf32<32>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+                                     causal, st);
+    case 64:
+      return launch_dq_sm90_tf32<64>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+                                     causal, st);
+    case 96:
+      return launch_dq_sm90_tf32<96>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+                                     causal, st);
+    case 128:
+      return launch_dq_sm90_tf32<128>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+                                      causal, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -3,13 +3,23 @@
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_fwd_kernel (launched by
 // _flash_fwd_impl through pl.pallas_call) for q/k/v in bf16 or fp32 with
-// head_dim 32, 64, 96 or 128; flash_fwd.cu stays the route for other head
-// dims. Same arithmetic: scores scale * q k^T summed in fp32, causal fill
+// any head_dim the port takes (8..128 in steps of 8); flash_fwd.cu stays
+// built and checked as the SIMT design, on no route. Same arithmetic:
+// scores scale * q k^T summed in fp32, causal fill
 // -1e30 where k_pos > q_pos, keys past S weigh 0, an online softmax with a
 // running max m and sum l, p rounded to v's dtype before p v (where
 // _fwd_kernel rounds it, :127-129), o = acc / max(l, 1e-30), lse = m + log l.
 // bf16 products are exact in fp32; fp32 products run as 3xTF32 (sm90.cuh),
 // within about 2^-21 of fp32 products.
+//
+// Head dims. A kernel is instantiated per padded width DP, the head_dim
+// rounded up to whole 128-byte panels (64 or 128 in bf16; 32, 64, 96 or 128
+// in fp32): TMA zero-fills the columns past D, which add nothing to any
+// product, and only D columns are written. The instances at D 32, 64, 96
+// and 128 (bf16 D 32 and 96 padded) fix D at compile time; every other
+// head_dim comes at run time, for the store mask and the row stride. A
+// padded head_dim pays for the zero columns: at bf16 D 32 half the
+// products issued are of zeros, at D 80 three eighths.
 //
 // Design, bf16. One block of 256 threads owns a 128-row query tile of one
 // (b, h): two warpgroups of 64 rows each. Thread 0 issues every TMA load: Q
@@ -21,38 +31,36 @@
 //   softmax       in registers on the accumulator fragment: a row lives on
 //                 the 4 lanes of a quad, reduced with two shuffles; exp2 with
 //                 scale * log2(e) folded into the scores;
-//   O += P V      wgmma m64nDk16 with P as bf16 register A operand (the
+//   O += P V      wgmma m64nDPk16 with P as bf16 register A operand (the
 //                 accumulator fragment is the A fragment) and V MN-major.
 // Only tiles that meet the ragged end or the causal diagonal pay for masks;
 // tiles wholly above the diagonal are never loaded. GQA reads K/V head
 // h / (H / H_kv) through the tensor map's coordinates; TMA zero-fills rows
-// past S, and rows past S are not written. head_dim 32 and 96 run as 64 and
-// 128: TMA zero-fills the columns past D, so a quarter (D 96) or half (D 32)
-// of the products are of zeros, and only D columns are written.
+// past S, and rows past S are not written.
 //
 // Design, fp32 (3xTF32). The same two warpgroups and 128-row query tile
-// (one warpgroup, 64 rows, at D 32); K/V tiles are 64 keys (32 at D 128).
+// (one warpgroup, 64 rows, at DP 32); K/V tiles are 64 keys (32 at DP 128).
 // After TMA lands a tile the block's threads split it (sm90.cuh,
 // split_tile): Q and K into hi in place and lo beside it, V into a
 // transposed hi/lo pair (tf32 B operands are K-major only); the warpgroups
 // share the split. Then each warpgroup
 //   S = Q K^T     three wgmma m64nNk8 a k-step (q_lo k_hi, q_hi k_lo, q_hi k_hi);
-//   O += P V      three wgmma m64nDk8 with P's hi and lo as register A
+//   O += P V      three wgmma m64nDPk8 with P's hi and lo as register A
 //                 operands and V^T's hi and lo from shared memory.
-// Shared memory: Q and its lo 2 * kBM * D * 4 B, a stage five kBN * D * 4 B
-// tiles (K, K lo, V, V^T hi, V^T lo): one stage, 216 KB at D 96 and 208 KB
-// at D 128 (kBN 32); two stages, 224 KB, at D 64, whose block is its SM's
-// only one either way; 56 KB at D 32, where a second stage would cost one
+// Shared memory: Q and its lo 2 * kBM * DP * 4 B, a stage five kBN * DP * 4 B
+// tiles (K, K lo, V, V^T hi, V^T lo): one stage, 216 KB at DP 96 and 208 KB
+// at DP 128 (kBN 32); two stages, 224 KB, at DP 64, whose block is its SM's
+// only one either way; 56 KB at DP 32, where a second stage would cost one
 // of three resident blocks (on the card that lost). 164-226 registers a
-// thread. At D 32 three one-warpgroup blocks fit an SM's registers where
-// one two-warpgroup block would, and on the card that won; from D 64
+// thread. At DP 32 three one-warpgroup blocks fit an SM's registers where
+// one two-warpgroup block would, and on the card that won; from DP 64
 // shared memory allows at most two one-warpgroup blocks, and sharing the
 // split and the K/V loads between two warpgroups won (PERF.md).
 //
-// Occupancy, bf16. At D 64 (and 32) the kernel is held to 128 registers a
+// Occupancy, bf16. At DP 64 the kernel is held to 128 registers a
 // thread, so two blocks share an SM and one block's softmax runs under the
 // other's products; on the card that beat one block per SM with more
-// registers. At D 128 (and 96) the accumulators need about 200 registers: one
+// registers. At DP 128 the accumulators need about 200 registers: one
 // block per SM.
 //
 // Bound. At B 8, S 1024, causal, d_model 768 (H = 768 / D) every head_dim
@@ -64,7 +72,7 @@
 // What this version still leaves on the table: no producer warp or
 // register reallocation (setmaxnreg), no overlap of a tile's softmax with
 // the next tile's QK^T inside a warpgroup, and for fp32 the split runs in
-// line with the products and, but at D 64, the one stage leaves each load
+// line with the products and, but at DP 64, the one stage leaves each load
 // exposed; all queued in ROADMAP.
 #include "flash_attention.cuh"
 #include "sm90.cuh"
@@ -76,18 +84,18 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Tile sizes and the shared-memory layout of one instantiation: q/k/v of T
-// (bf16 or fp32) with head_dim D.
-template <int D, typename T>
+// (bf16 or fp32) with head_dim padded to DP.
+template <int DP, typename T>
 struct FwdCfg {
   static constexpr bool kTf32 = std::is_same<T, float>::value;
-  static constexpr int DP = sm90::padded_d<D, T>();
-  // warpgroups, 64 query rows each; fp32 at D 32: one (see Design, fp32)
-  static constexpr int kWG = kTf32 && D == 32 ? 1 : 2;
+  static_assert(DP % sm90::panel_cols<T>() == 0 && DP <= 128, "DP: whole panels");
+  // warpgroups, 64 query rows each; fp32 at DP 32: one (see Design, fp32)
+  static constexpr int kWG = kTf32 && DP == 32 ? 1 : 2;
   static constexpr int kThreads = 128 * kWG;
   static constexpr int kBM = 64 * kWG;               // query rows per block
-  static constexpr int kBN = !kTf32 ? 128 : D <= 96 ? 64 : 32;  // keys per K/V tile
-  // fp32: one stage but at D 64 (see Design, fp32)
-  static constexpr int kStages = kTf32 && D != 64 ? 1 : 2;
+  static constexpr int kBN = !kTf32 ? 128 : DP <= 96 ? 64 : 32;  // keys per K/V tile
+  // fp32: one stage but at DP 64 (see Design, fp32)
+  static constexpr int kStages = kTf32 && DP != 64 ? 1 : 2;
   static constexpr int kQ = kBM * DP * (int)sizeof(T);   // bytes of the Q tile
   static constexpr int kKV = kBN * DP * (int)sizeof(T);  // of one K or V tile (or V^T)
   // a stage: K, V; for fp32 also K lo, V^T hi, V^T lo
@@ -98,16 +106,19 @@ struct FwdCfg {
   static constexpr int kMinBlocks = !kTf32 && DP == 64 ? 2 : 1;
 };
 
-template <int D, typename T, typename TO>
-__global__ void __launch_bounds__(FwdCfg<D, T>::kThreads, FwdCfg<D, T>::kMinBlocks)
+// kD: the head_dim where it is fixed at compile time, else 0 and d_rt gives
+// it.
+template <int DP, int kD, typename T, typename TO>
+__global__ void __launch_bounds__(FwdCfg<DP, T>::kThreads, FwdCfg<DP, T>::kMinBlocks)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv, TO* __restrict__ o,
-                          float* __restrict__ lse, int S, int H, int Hkv, float scale_log2,
-                          int causal) {
+                          float* __restrict__ lse, int S, int H, int Hkv, int d_rt,
+                          float scale_log2, int causal) {
   using namespace sm90;
-  using C = FwdCfg<D, T>;
-  constexpr int DP = C::DP, kBM = C::kBM, kBN = C::kBN, kStages = C::kStages;
+  using C = FwdCfg<DP, T>;
+  constexpr int kBM = C::kBM, kBN = C::kBN, kStages = C::kStages;
+  const int D = kD ? kD : d_rt;
   constexpr int kKV = C::kKV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1k(smem_raw);
@@ -271,16 +282,18 @@ __global__ void __launch_bounds__(FwdCfg<D, T>::kThreads, FwdCfg<D, T>::kMinBloc
     const float li = fmaxf(l[r], 1e-30f);
     TO* orow = o + ((long long)b * S + row) * qstride + (long long)h * D;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
-      store2(orow + 8 * c + 2 * (lane % 4), acc[4 * c + 2 * r] / li, acc[4 * c + 2 * r + 1] / li);
+    for (int c = 0; c < (kD ? kD : DP) / 8; ++c)
+      if (8 * c < D)  // the padded columns are not written
+        store2(orow + 8 * c + 2 * (lane % 4), acc[4 * c + 2 * r] / li,
+               acc[4 * c + 2 * r + 1] / li);
     if (lane % 4 == 0) lse[((long long)b * H + h) * S + row] = m[r] * kLn2 + logf(li);
   }
 }
 
-template <int D, typename T, typename TO>
+template <int DP, int kD, typename T, typename TO>
 int launch_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                    int S, int H, int Hkv, float scale, int causal, cudaStream_t stream) {
-  using C = FwdCfg<D, T>;
+                    int S, int H, int Hkv, int D, float scale, int causal, cudaStream_t stream) {
+  using C = FwdCfg<DP, T>;
   constexpr int e = (int)sizeof(T);
   CUtensorMap tq, tk, tv;
   int err = make_bshd_map(&tq, q, B, S, H, D, C::kBM, e);
@@ -288,18 +301,45 @@ int launch_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* 
   if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, C::kBN, e);
   if (err != 0) return err;
   const dim3 grid((S + C::kBM - 1) / C::kBM, H, B);
-  return launch_n(flash_fwd_sm90_kernel<D, T, TO>, grid, C::kThreads, C::kBytes, stream, tq, tk,
-                  tv, (TO*)o, (float*)lse, S, H, Hkv, scale * kLog2e, causal);
+  return launch_n(flash_fwd_sm90_kernel<DP, kD, T, TO>, grid, C::kThreads, C::kBytes, stream, tq,
+                  tk, tv, (TO*)o, (float*)lse, S, H, Hkv, D, scale * kLog2e, causal);
 }
 
+// The instance for head_dim D: D 32, 64, 96 and 128 with D fixed at
+// compile time (the head_dims these instances took before every head_dim
+// had a route, so their code stands), every other D at its padded width
+// with D at run time.
 template <typename T, typename TO>
 int launch_fwd_sm90_d(int D, const void* q, const void* k, const void* v, void* o, void* lse,
                       int B, int S, int H, int Hkv, float scale, int causal, cudaStream_t st) {
+  using sm90::padded_width;
   switch (D) {
-    case 32: return launch_fwd_sm90<32, T, TO>(q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
-    case 64: return launch_fwd_sm90<64, T, TO>(q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
-    case 96: return launch_fwd_sm90<96, T, TO>(q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
-    case 128: return launch_fwd_sm90<128, T, TO>(q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
+    case 32:
+      return launch_fwd_sm90<padded_width<T>(32), 32, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D,
+                                                             scale, causal, st);
+    case 64:
+      return launch_fwd_sm90<64, 64, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+    case 96:
+      return launch_fwd_sm90<padded_width<T>(96), 96, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D,
+                                                             scale, causal, st);
+    case 128:
+      return launch_fwd_sm90<128, 128, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal,
+                                              st);
+  }
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
+  switch (padded_width<T>(D)) {
+    case 32:
+      if constexpr (!kBf16)
+        return launch_fwd_sm90<32, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+      break;
+    case 64:
+      return launch_fwd_sm90<64, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+    case 96:
+      if constexpr (!kBf16)
+        return launch_fwd_sm90<96, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+      break;
+    case 128:
+      return launch_fwd_sm90<128, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -427,12 +467,12 @@ __global__ void __launch_bounds__(128, 1)
 }  // namespace hvt
 
 // Returns 0 or the CUDA error of the launch. q, k, v bf16 (dtype 1) or fp32
-// (0) with D 32, 64, 96 or 128; out_dtype: the dtype of o, q's or fp32 (0).
+// (0) with any D the port takes; out_dtype: the dtype of o, q's or fp32 (0).
 extern "C" int hvt_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int B, int S, int H, int Hkv, int D, float scale,
                                   int causal, int dtype, int out_dtype, void* stream) {
   using namespace hvt;
-  if (!valid_shape(B, S, H, Hkv, D) || D % 32 != 0) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, S, H, Hkv, D)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kBF16 && out_dtype == kBF16)

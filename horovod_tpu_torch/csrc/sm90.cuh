@@ -6,8 +6,9 @@
 //
 // Shared-memory tiles. Every tile is a stack of "panels" of 128 bytes a row:
 // 64 bf16 or 32 fp32 columns, one panel per 128 bytes of the head dimension
-// (a bf16 head_dim of 32 or 96 is padded to whole panels: TMA fills the
-// columns past D with zeros, which add nothing to any product). TMA writes a
+// (a head_dim that is not a whole number of panels, bf16 32 or 80 say, is
+// padded to whole panels: TMA fills the columns past D with zeros, which add
+// nothing to any product). TMA writes a
 // panel with the 128-byte swizzle (the 16-byte chunk c of row r lands at
 // chunk c ^ (r % 8)), so eight rows make one 1024-byte swizzle atom and every
 // panel starts on a 1024-byte boundary. wgmma reads the same panels through a
@@ -124,9 +125,9 @@ template <typename T>
 __host__ __device__ constexpr int panel_cols() {
   return kRowBytes / (int)sizeof(T);
 }
-template <int D, typename T>
-__host__ __device__ constexpr int padded_d() {
-  return (D + panel_cols<T>() - 1) / panel_cols<T>() * panel_cols<T>();
+template <typename T>
+__host__ __device__ constexpr int padded_width(int d) {
+  return (d + panel_cols<T>() - 1) / panel_cols<T>() * panel_cols<T>();
 }
 
 // Loads rows [row0, row0 + rows) of head h, batch b of a [B, S, H, D] tensor

@@ -17,13 +17,17 @@ kernel              source (``csrc/``)        replaces
 ==================  ========================  ==============================
 
 The ``*_sm90`` kernels run their products on the tensor cores (``wgmma``,
-tiles brought by TMA): ``flash_fwd_sm90`` and ``flash_dkv_sm90`` take bf16
-and fp32 (fp32 products as 3xTF32: each operand split into two TF32 terms,
-three products summed in fp32) with head_dim 32, 64, 96 or 128,
-``flash_dq_sm90`` bf16 with head_dim 64 or 128. The others do fp32 FMAs on
-the CUDA cores and take fp32 or bf16 with any head_dim up to 128.
-``_variant`` chooses between the two designs of each kernel from the dtype
-and head_dim alone; a kernel that fails to build or launch raises.
+tiles brought by TMA) and take bf16 and fp32 (fp32 products as 3xTF32: each
+operand split into two TF32 terms, three products summed in fp32):
+``flash_fwd_sm90`` and ``flash_dq_sm90`` at every head_dim the port takes
+(8..128 in steps of 8; a head_dim that is not a whole number of 128-byte
+panels runs padded by TMA's zero fill), ``flash_dkv_sm90`` at head_dim 32,
+64, 96 or 128. The others (SIMT) do fp32 FMAs on the CUDA cores and take
+fp32 or bf16 with any head_dim up to 128; of them only ``flash_dkv`` is on a
+route (the other head_dims), and all three stay built and checked on the
+card as ``variant="simt"``. ``_variant`` chooses between the two designs of
+each kernel from the dtype and head_dim alone; a kernel that fails to build
+or launch raises.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface and loaded with ``ctypes``. The build runs at first use,
@@ -273,17 +277,22 @@ def _bf16(x):
 
 
 def flash_dq_plain(q, k, v, dout, lse, delta, scale, causal,
-                   round_operands=False):
+                   split_dout=False, round_ds=False):
     """Plain version of ``flash_dq``: dq [B, S, H, D] in q's dtype.
 
-    ``round_operands=True`` is the plain version of ``flash_dq_sm90``: dO
-    and the ds operand of ds k are rounded to bf16, as the tensor cores take
-    them. Without it, ds k takes fp32 ds, as ``_dq_kernel`` and
-    ``flash_dq`` do."""
-    if round_operands:
-        dout = dout.to(torch.bfloat16)
+    ``split_dout=True`` takes dO as the sum of two bf16 terms, hi =
+    bf16(dO) and lo = bf16(dO - hi), and ``round_ds=True`` rounds the ds
+    operand of ds k to bf16: both together are the plain version of
+    ``flash_dq_sm90`` with bf16 q, which takes its operands on the tensor
+    cores in bf16 (a bf16 dO is its own hi term, exact; an fp32 dO, the
+    sequence ring's, it splits into the two). Without them every operand
+    stays fp32, as ``_dq_kernel``, ``flash_dq`` and ``flash_dq_sm90`` with
+    fp32 q (3xTF32) take them."""
+    if split_dout:
+        hi = _bf16(dout.float())
+        dout = hi + _bf16(dout.float() - hi)  # exact in fp32
     _, kh, _, ds = _probs_and_ds(q, k, v, dout, lse, delta, scale, causal)
-    if round_operands:
+    if round_ds:
         ds = _bf16(ds)
     dq = torch.matmul(ds, kh) * scale
     return dq.to(q.dtype).transpose(1, 2).contiguous()
@@ -321,9 +330,10 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
 # --------------------------------------------------------------------------
 
 # the dtypes and head_dims each tensor-core kernel takes
+HEAD_DIMS = tuple(range(8, 129, 8))    # every head_dim the kernels take
 SM90_ROUTES = {
-    "flash_fwd": ((torch.bfloat16, torch.float32), (32, 64, 96, 128)),
-    "flash_dq": ((torch.bfloat16,), (64, 128)),
+    "flash_fwd": ((torch.bfloat16, torch.float32), HEAD_DIMS),
+    "flash_dq": ((torch.bfloat16, torch.float32), HEAD_DIMS),
     "flash_dkv": ((torch.bfloat16, torch.float32), (32, 64, 96, 128)),
 }
 
@@ -370,17 +380,17 @@ def flash_fwd(q, k, v, scale, causal, out_dtype, variant=None):
 
 
 def flash_dq(q, k, v, dout, lse, delta, scale, causal, variant=None):
-    """Query gradient: dq [B, S, H, D] in q's dtype. On the sm90 route ds
-    is rounded to bf16 before ds k, and an fp32 dO is rounded to bf16 (see
-    ``flash_dq_plain``)."""
+    """Query gradient: dq [B, S, H, D] in q's dtype. On the sm90 route with
+    bf16 q, ds is rounded to bf16 before ds k and the kernel splits an fp32
+    dO into two bf16 terms (see ``flash_dq_plain``); with fp32 q every
+    operand stays fp32 (3xTF32)."""
     name = _kernel("flash_dq", q, variant)
-    sm90 = name.endswith("_sm90")
+    bf16_operands = name.endswith("_sm90") and q.dtype == torch.bfloat16
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, dout, lse, delta, scale, causal,
-                              round_operands=sm90)
+                              split_dout=bf16_operands,
+                              round_ds=bf16_operands)
     _check(q, k, v, dout.dtype, dout, lse, delta)
-    if sm90:
-        dout = dout.to(torch.bfloat16)
     dq = torch.empty_like(q)
     _run(name, (q, k, v, dout, lse, delta, dq), q, k, scale, causal,
          dout.dtype)

@@ -10,8 +10,10 @@ repo's conftest imports JAX, so on such a machine run it as
 Tolerances: fp32 1e-5 (the same fp32 arithmetic summed in another order;
 the sm90 fwd and dkv kernels take fp32 as 3xTF32, within about 2^-21 of fp32
 products); bf16 2e-2, about two bf16 ulps at the outputs' magnitude. The
-sm90 dq and bf16 dkv kernels are held to the plain versions that round dO,
-p and ds to bf16 where the tensor cores take them (``round_operands=True``).
+sm90 kernels on bf16 are held to the plain versions that round their
+operands where the tensor cores take them in bf16: dkv's p, ds and dO
+(``round_operands=True``), dq's ds, with an fp32 dO carried as two bf16
+terms (``split_dout=True, round_ds=True``).
 """
 
 import numpy as np
@@ -43,7 +45,12 @@ CASES = [
     (2, 256, 4, 4, 32, torch.bfloat16, False, torch.float32),    # fp32 o
     (1, 300, 8, 2, 96, torch.bfloat16, True, torch.bfloat16),    # GQA, D 96
     (2, 1000, 2, 2, 96, torch.bfloat16, False, torch.bfloat16),  # ragged
-    (2, 130, 4, 2, 48, torch.bfloat16, True, torch.bfloat16),    # SIMT only
+    (2, 130, 4, 2, 48, torch.bfloat16, True, torch.bfloat16),    # dkv: SIMT
+    # fwd and dq at every head_dim: padded widths, fp32 dO with bf16 q
+    (2, 200, 4, 2, 48, torch.float32, True, torch.float32),      # dkv: SIMT
+    (1, 300, 4, 1, 80, torch.bfloat16, False, torch.bfloat16),   # MQA, D 80
+    (2, 130, 2, 2, 8, torch.bfloat16, True, torch.bfloat16),     # smallest D
+    (2, 256, 4, 2, 96, torch.bfloat16, True, torch.float32),     # fp32 dO
 ]
 # every case on the SIMT kernels, and on each kernel's own route (None:
 # _variant's choice) where that reaches a tensor-core kernel
@@ -92,11 +99,11 @@ def test_kernels_match_plain_versions(cuda, case, variant):
     bf16 = q.dtype == torch.bfloat16
     dq = _kernels.flash_dq(*args, variant=variant)
     assert dq.dtype == q.dtype
+    dq_bf16 = bf16 and names["flash_dq"].endswith("_sm90")
     torch.testing.assert_close(
         dq.float(),
-        _kernels.flash_dq_plain(
-            *args, round_operands=names["flash_dq"].endswith("_sm90")
-        ).float(),
+        _kernels.flash_dq_plain(*args, split_dout=dq_bf16,
+                                round_ds=dq_bf16).float(),
         rtol=tol, atol=tol)
     for got, want in zip(_kernels.flash_dkv(*args, variant=variant),
                          _kernels.flash_dkv_plain(
@@ -109,6 +116,38 @@ def test_kernels_match_plain_versions(cuda, case, variant):
     want_launches.update({n: 1 for n in names.values()})
     assert {n: _kernels.LAUNCHES[n] - before[n] for n in before} == \
         want_launches
+
+
+# bf16 q with an fp32 o, and so an fp32 dO: the sequence ring's blocks
+FP32_DOUT_CASES = [c for c in CASES
+                   if c[5] == torch.bfloat16 and c[7] == torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FP32_DOUT_CASES,
+                         ids=lambda c: "-".join(map(str, c[:7])))
+def test_dq_with_fp32_dout_keeps_its_lo_term(cuda, case):
+    """flash_dq_sm90 with bf16 q splits an fp32 dO into two bf16 terms. A
+    kernel that dropped the lo term would still pass the kernels test's
+    2e-2, so its dq must lie nearer the plain version that takes both terms
+    than the one that rounds dO to one: at most half as far, in the
+    Frobenius norm."""
+    q, k, v, do = _inputs(case, cuda)
+    causal = case[6]
+    scale = q.shape[-1] ** -0.5
+    o, lse = _kernels.flash_fwd_plain(q, k, v, scale, causal, torch.float32)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, scale, causal)
+    assert _kernels._kernel("flash_dq", q, None) == "flash_dq_sm90"
+    dq = _kernels.flash_dq(*args).float()
+    two = _kernels.flash_dq_plain(*args, split_dout=True, round_ds=True)
+    one = _kernels.flash_dq_plain(q, k, v, do.to(torch.bfloat16), lse, delta,
+                                  scale, causal, round_ds=True)
+    near = float((dq - two.float()).norm())
+    far = float((dq - one.float()).norm())
+    print(f"dq with fp32 dO {case[:7]}: {near:.4g} from two terms, "
+          f"{far:.4g} from one")
+    assert near < 0.5 * far
 
 
 @pytest.mark.cuda

@@ -1,14 +1,16 @@
-"""The routes that the tensor-core forward and dk/dv kernels took over from
-the SIMT ones (fp32 at head_dim 32/64/96/128, bf16 at head_dim 32 and 96),
-on the CPU: each wrapper runs the plain version of the kernel it would
-launch on a CUDA tensor, and the port's flash attention on these routes is
-held against the JAX package's (Pallas interpret mode, as
+"""The routes the tensor-core kernels took over from the SIMT ones, on the
+CPU: the forward and dk/dv kernels' fp32 at head_dim 32/64/96/128 and bf16
+at head_dim 32 and 96, then dq's fp32 and bf16 at every head_dim and the
+forward's head_dims off the 32-grid (48, 80), and the sequence ring's bf16
+q with an fp32 o and dO. Each wrapper runs the plain version of the kernel
+it would launch on a CUDA tensor, and the port's flash attention on these
+routes is held against the JAX package's (Pallas interpret mode, as
 tests/test_flash_attention.py runs it) on the same numpy inputs.
 
 Tolerances: bf16 5e-2 (tests/test_torch_port_flash.py's: the two sides
-round p, o and, on the sm90 route, p and ds before the dk/dv products at
-different points); fp32 1e-5 forward and 1e-4 gradients, as
-tests/test_flash_attention.py holds the Pallas kernels to a dense
+round p, o and, on the sm90 route, p and ds before the dk/dv products and
+ds before ds k at different points); fp32 1e-5 forward and 1e-4 gradients,
+as tests/test_flash_attention.py holds the Pallas kernels to a dense
 reference. On the card the fp32 route's products run as 3xTF32, within
 about 2^-21 of fp32 products (tests/test_torch_port_cuda.py holds them to
 these plain versions at 1e-5).
@@ -34,22 +36,23 @@ def _inputs(b, s, h, h_kv, d, seed=0):
             for n in (h, h_kv, h_kv, h)]
 
 
-def _jax_side(q, k, v, do, causal, dtype, blocks):
+def _jax_side(q, k, v, do, causal, dtype, blocks, out_dtype=None):
     """o, lse and the (dq, dk, dv) of the cotangent do, from the JAX
     package's flash attention, as fp32 numpy."""
     to_j = lambda x: jnp.asarray(x, dtype)
     (o, lse), vjp = jax.vjp(lambda q, k, v: jax_flash(
-        q, k, v, causal=causal, block_q=blocks, block_k=blocks),
-        to_j(q), to_j(k), to_j(v))
-    grads = vjp((to_j(do), jnp.zeros_like(lse)))
+        q, k, v, causal=causal, block_q=blocks, block_k=blocks,
+        out_dtype=out_dtype), to_j(q), to_j(k), to_j(v))
+    grads = vjp((jnp.asarray(do, o.dtype), jnp.zeros_like(lse)))
     as_np = lambda x: np.asarray(x.astype(jnp.float32))
     return as_np(o), as_np(lse), [as_np(g) for g in grads]
 
 
-def _torch_side(q, k, v, do, causal, dtype):
+def _torch_side(q, k, v, do, causal, dtype, out_dtype=None):
     leaves = [torch.tensor(x).to(dtype).requires_grad_() for x in (q, k, v)]
-    o, lse = flash_attention_with_lse(*leaves, causal=causal)
-    o.backward(torch.tensor(do).to(dtype))
+    o, lse = flash_attention_with_lse(*leaves, causal=causal,
+                                      out_dtype=out_dtype)
+    o.backward(torch.tensor(do).to(o.dtype))
     return o.detach(), lse.detach(), [x.grad for x in leaves]
 
 
@@ -60,6 +63,15 @@ ROUTES = pytest.mark.parametrize("d,dtype,causal,s,h,h_kv", [
     (96, torch.bfloat16, False, 64, 2, 2),
     (96, torch.float32, True, 128, 4, 2),
     (96, torch.float32, False, 64, 2, 1),
+    # dq on the tensor cores: fp32 (3xTF32) at every head_dim, bf16 off
+    # 64/128; fwd and dq at head_dims off the 32-grid (dkv there: SIMT)
+    (32, torch.float32, True, 128, 4, 2),
+    (48, torch.float32, True, 96, 4, 2),
+    (64, torch.float32, False, 64, 2, 2),
+    (128, torch.float32, True, 64, 2, 1),      # MQA
+    (48, torch.bfloat16, True, 96, 4, 2),
+    (80, torch.bfloat16, False, 64, 2, 2),
+    (80, torch.float32, True, 64, 4, 2),
 ])
 
 
@@ -88,16 +100,19 @@ def test_flash_on_the_new_routes_matches_jax(d, dtype, causal, s, h, h_kv):
 def test_cpu_wrappers_run_the_plain_version_of_their_route(d, dtype, causal,
                                                           s, h, h_kv):
     """On a CPU tensor each wrapper runs the plain version of the kernel it
-    would launch: dkv on bf16 rounds p and ds (flash_dkv_sm90's bf16
-    operands), on fp32 keeps them (3xTF32 stands for fp32); dq keeps the
-    SIMT route's fp32 ds at these head_dims."""
+    would launch: fwd and dq take sm90 at every head_dim, dkv at 32/64/96/128
+    and SIMT elsewhere; dkv on bf16 rounds p and ds (flash_dkv_sm90's bf16
+    operands), dq on bf16 carries dO as two bf16 terms and rounds ds, and on
+    fp32 both keep every operand (3xTF32 stands for fp32)."""
     q, k, v, do = (torch.tensor(x).to(dtype)
                    for x in _inputs(1, s, h, h_kv, d, seed=1))
     scale = d ** -0.5
     o, lse = _kernels.flash_fwd(q, k, v, scale, causal, dtype)
+    dkv_sm90 = d in (32, 64, 96, 128)
     assert _kernels._kernel("flash_fwd", q, None) == "flash_fwd_sm90"
-    assert _kernels._kernel("flash_dkv", q, None) == "flash_dkv_sm90"
-    assert _kernels._kernel("flash_dq", q, None) == "flash_dq"
+    assert _kernels._kernel("flash_dq", q, None) == "flash_dq_sm90"
+    assert _kernels._kernel("flash_dkv", q, None) == \
+        ("flash_dkv_sm90" if dkv_sm90 else "flash_dkv")
     for got, want in zip((o, lse), _kernels.flash_fwd_plain(
             q, k, v, scale, causal, dtype)):
         assert torch.equal(got, want)
@@ -105,26 +120,80 @@ def test_cpu_wrappers_run_the_plain_version_of_their_route(d, dtype, causal,
     args = (q, k, v, do, lse, delta, scale, causal)
     bf16 = dtype == torch.bfloat16
     for got, want in zip(_kernels.flash_dkv(*args),
-                         _kernels.flash_dkv_plain(*args,
-                                                  round_operands=bf16)):
+                         _kernels.flash_dkv_plain(
+                             *args, round_operands=bf16 and dkv_sm90)):
         assert torch.equal(got, want)
+    dq = _kernels.flash_dq(*args)
+    assert torch.equal(dq, _kernels.flash_dq_plain(
+        *args, split_dout=bf16, round_ds=bf16))
     if bf16:   # the rounding is real at these inputs: the routes differ
-        assert not torch.equal(_kernels.flash_dkv(*args)[0],
-                               _kernels.flash_dkv_plain(*args)[0])
-    assert torch.equal(_kernels.flash_dq(*args),
-                       _kernels.flash_dq_plain(*args))
+        assert not torch.equal(dq, _kernels.flash_dq_plain(*args))
+        if dkv_sm90:
+            assert not torch.equal(_kernels.flash_dkv(*args)[0],
+                                   _kernels.flash_dkv_plain(*args)[0])
 
 
-def test_dq_keeps_its_route_and_refuses_sm90_where_it_has_none():
-    """flash_dq_sm90 takes bf16 at head_dim 64 and 128 only: asked for on
-    the routes this slice gave the fwd and dkv kernels, it raises."""
-    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 32),
-                     (torch.bfloat16, 96)):
-        q = torch.zeros(1, 8, 2, d, dtype=dtype)
-        lse = torch.zeros(1, 2, 8)
-        with pytest.raises(ValueError, match="flash_dq_sm90 takes bfloat16 "
-                                             "with head_dim 64, 128"):
-            _kernels.flash_dq(q, q, q, q, lse, lse, 1.0, True,
-                              variant="sm90")
-        _kernels.flash_dkv(q, q, q, q, lse, lse, 1.0, True, variant="sm90")
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_route_bf16_q_with_fp32_o_matches_jax(causal):
+    """The sequence ring's blocks: bf16 q, k, v with an fp32 o, so an fp32
+    dO (horovod_tpu_torch/parallel/sequence.py). Held against the JAX
+    package with the same out_dtype at the bf16 tolerance; on the CPU the
+    dq wrapper runs flash_dq_sm90's plain version, which carries dO as two
+    bf16 terms where the parent route rounded it to one, and that keeps dq
+    closer to the fp32-operand version than the one rounding does."""
+    d, s, h, h_kv = 64, 128, 4, 2
+    q, k, v, do = _inputs(2, s, h, h_kv, d, seed=2)
+    o_j, lse_j, g_j = _jax_side(q, k, v, do, causal, jnp.bfloat16, 32,
+                                out_dtype=jnp.float32)
+    o_t, lse_t, g_t = _torch_side(q, k, v, do, causal, torch.bfloat16,
+                                  out_dtype=torch.float32)
+    assert o_t.dtype == torch.float32
+    np.testing.assert_allclose(o_t.numpy(), o_j, rtol=BF16, atol=BF16)
+    np.testing.assert_allclose(lse_t.numpy(), lse_j, rtol=FP32_GRAD,
+                               atol=FP32_GRAD)
+    for name, got, want in zip(("dq", "dk", "dv"), g_t, g_j):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16,
+                                   atol=BF16, err_msg=name)
+
+    qt, kt, vt = (torch.tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    dot = torch.tensor(do)
+    scale = d ** -0.5
+    o, lse = _kernels.flash_fwd(qt, kt, vt, scale, causal, torch.float32)
+    delta = (dot * o).sum(-1).transpose(1, 2).contiguous()
+    args = (qt, kt, vt, dot, lse, delta, scale, causal)
+    dq = _kernels.flash_dq(*args)
+    assert torch.equal(dq, _kernels.flash_dq_plain(*args, split_dout=True,
+                                                   round_ds=True))
+    # dq in fp32 (before its final rounding to bf16), ds rounded on every
+    # side: the two terms move it less from fp32 dO's than one rounding
+    f32 = [x.float() for x in (qt, kt, vt)]
+    want = _kernels.flash_dq_plain(*f32, dot, lse, delta, scale, causal,
+                                   round_ds=True)
+    two = _kernels.flash_dq_plain(*f32, dot, lse, delta, scale, causal,
+                                  split_dout=True, round_ds=True)
+    one = _kernels.flash_dq_plain(*f32, dot.to(torch.bfloat16), lse, delta,
+                                  scale, causal, round_ds=True)
+    assert (two - want).abs().max() < (one - want).abs().max()
+
+
+def test_dq_and_fwd_take_sm90_on_every_route_and_dkv_refuses_it_off_the_grid():
+    """flash_fwd_sm90 and flash_dq_sm90 take bf16 and fp32 at every head_dim
+    the kernels take (8..128 in steps of 8), so no route reaches the SIMT
+    fwd or dq; flash_dkv_sm90 still takes head_dim 32, 64, 96 and 128 only,
+    and asked for elsewhere it raises."""
+    lse = torch.zeros(1, 2, 8)
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in range(8, 129, 8):
+            assert _kernels._variant("flash_fwd", dtype, d) == "sm90"
+            assert _kernels._variant("flash_dq", dtype, d) == "sm90"
+            assert _kernels._variant("flash_dkv", dtype, d) == \
+                ("sm90" if d in (32, 64, 96, 128) else "simt")
+        q = torch.zeros(1, 8, 2, 48, dtype=dtype)
         _kernels.flash_fwd(q, q, q, 1.0, True, dtype, variant="sm90")
+        _kernels.flash_dq(q, q, q, q, lse, lse, 1.0, True, variant="sm90")
+        with pytest.raises(ValueError, match="flash_dkv_sm90 takes bfloat16 "
+                                             "or float32 with head_dim 32, "
+                                             "64, 96, 128"):
+            _kernels.flash_dkv(q, q, q, q, lse, lse, 1.0, True,
+                               variant="sm90")

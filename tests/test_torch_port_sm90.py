@@ -32,20 +32,22 @@ from horovod_tpu_torch.ops import _kernels
 BF16_OPERANDS = 2e-2
 
 
-@pytest.mark.parametrize("dtype,d,fwd_dkv,dq", [
-    (torch.bfloat16, 8, "simt", "simt"),
-    (torch.bfloat16, 32, "sm90", "simt"),      # the entry config's head_dim
+@pytest.mark.parametrize("dtype,d,fwd_dq,dkv", [
+    (torch.bfloat16, 8, "sm90", "simt"),
+    (torch.bfloat16, 32, "sm90", "sm90"),      # the entry config's head_dim
+    (torch.bfloat16, 48, "sm90", "simt"),
     (torch.bfloat16, 64, "sm90", "sm90"),
-    (torch.bfloat16, 96, "sm90", "simt"),
+    (torch.bfloat16, 96, "sm90", "sm90"),
     (torch.bfloat16, 128, "sm90", "sm90"),
-    (torch.float32, 8, "simt", "simt"),
-    (torch.float32, 32, "sm90", "simt"),
-    (torch.float32, 64, "sm90", "simt"),
-    (torch.float32, 96, "sm90", "simt"),
-    (torch.float32, 128, "sm90", "simt"),
+    (torch.float32, 8, "sm90", "simt"),
+    (torch.float32, 32, "sm90", "sm90"),
+    (torch.float32, 64, "sm90", "sm90"),
+    (torch.float32, 80, "sm90", "simt"),
+    (torch.float32, 96, "sm90", "sm90"),
+    (torch.float32, 128, "sm90", "sm90"),
 ])
-def test_variant_routes_by_dtype_and_head_dim(dtype, d, fwd_dkv, dq):
-    want = {"flash_fwd": fwd_dkv, "flash_dq": dq, "flash_dkv": fwd_dkv}
+def test_variant_routes_by_dtype_and_head_dim(dtype, d, fwd_dq, dkv):
+    want = {"flash_fwd": fwd_dq, "flash_dq": fwd_dq, "flash_dkv": dkv}
     q = torch.zeros(1, 4, 2, d, dtype=dtype)
     for base, route in want.items():
         assert _kernels._variant(base, dtype, d) == route
@@ -56,15 +58,17 @@ def test_variant_routes_by_dtype_and_head_dim(dtype, d, fwd_dkv, dq):
 
 @pytest.mark.parametrize("dtype,d,variant,match", [
     (torch.float32, 48, "sm90",
-     "flash_fwd_sm90 takes bfloat16 or float32 with head_dim 32, 64, 96, "
+     "flash_dkv_sm90 takes bfloat16 or float32 with head_dim 32, 64, 96, "
      "128"),
-    (torch.bfloat16, 40, "sm90", "flash_fwd_sm90 takes"),
+    (torch.bfloat16, 40, "sm90", "flash_dkv_sm90 takes"),
     (torch.bfloat16, 64, "wgmma", "variant must be"),
 ])
 def test_explicit_variant_must_take_the_inputs(dtype, d, variant, match):
+    """Only dkv has head_dims without a tensor-core route."""
     q = torch.zeros(1, 16, 2, d, dtype=dtype)
+    lse = torch.zeros(1, 2, 16)
     with pytest.raises(ValueError, match=match):
-        _kernels.flash_fwd(q, q, q, 1.0, True, dtype, variant=variant)
+        _kernels.flash_dkv(q, q, q, q, lse, lse, 1.0, True, variant=variant)
 
 
 def _meta(shape, dtype=torch.bfloat16):
@@ -129,7 +133,7 @@ def _grads_and_args(b, s, h, h_kv, causal, d=64):
 @SHAPES
 def test_dq_with_bf16_operands_matches_jax(b, s, h, h_kv, causal):
     (dq_j, _, _), args = _grads_and_args(b, s, h, h_kv, causal)
-    dq = _kernels.flash_dq_plain(*args, round_operands=True)
+    dq = _kernels.flash_dq_plain(*args, split_dout=True, round_ds=True)
     np.testing.assert_allclose(dq.float().numpy(), dq_j, rtol=BF16_OPERANDS,
                                atol=BF16_OPERANDS)
     # on a CPU tensor the wrapper runs the plain version of the kernel it

@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
-"""Run chip_smoke.py's kernels phase (checks and timings) at its route
-shapes for the flash kernels of this checkout, or of another copy of
-``horovod_tpu_torch/csrc``, so that two versions of the kernel sources can
-be compared on one card in one call:
+"""Run chip_smoke.py's kernels phase (checks and timings) for the flash
+kernels of this checkout, or of another whole checkout, so that two
+versions of the kernels (sources and wrappers) can be compared on one card
+in one call:
 
-    python tools/flash_route_timing.py                  # this checkout
-    python tools/flash_route_timing.py --csrc DIR       # sources in DIR
+    python tools/flash_route_timing.py                 # this checkout
+    python tools/flash_route_timing.py --repo DIR      # the checkout in DIR
+    python tools/flash_route_timing.py --shapes main ring routes
 
-Put the other copy in an ignored directory of the checkout (for example
-``horovod_tpu_torch/csrc/build/parent``, made by ``git archive``) and run
-the two in turns (A, B, B, A). Each run builds its sources into
-``DIR/build``, prints ptxas's summary of every tensor-core kernel it built
-(``PTXAS`` lines), then one JSON line per kernel check and timing, as
-chip_smoke.py does. Needs a CUDA card.
+Unpack the other checkout into an ignored directory of this one (for
+example ``git archive <commit> | tar -x -C _archive/parent``) and run the
+two in turns (A, B, B, A). Each run imports that checkout's
+``horovod_tpu_torch`` and ``chip_smoke.py``, builds its kernel sources into
+its own ``horovod_tpu_torch/csrc/build``, prints ptxas's summary of every
+tensor-core kernel it built (``PTXAS`` lines), then one JSON line per
+kernel check and timing, as chip_smoke.py does, at the shapes of each
+name given to ``--shapes``, in that order: ``routes``
+(chip_smoke.ROUTE_SHAPES, the default), ``main`` (chip_smoke.MAIN_SHAPE)
+and ``ring`` (chip_smoke.RING_CASES, the sequence ring's blocks, whose
+checks include each bf16 kernel's distance to the plain version with fp32
+operands; after ``main``, also held to the main shape's). Every shape it
+runs is timed. Needs a CUDA card.
 """
 
 import argparse
@@ -25,33 +33,39 @@ REPO = Path(__file__).resolve().parent.parent
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--csrc", help="a directory holding the kernel sources "
-                    "(default: this checkout's horovod_tpu_torch/csrc)")
+    ap.add_argument("--repo", help="a checkout whose kernels to run "
+                    "(default: this one)")
+    ap.add_argument("--shapes", nargs="+", choices=("routes", "main", "ring"),
+                    default=["routes"])
     args = ap.parse_args()
-    sys.path.insert(0, str(REPO))
+    root = Path(args.repo).resolve() if args.repo else REPO
+    os.chdir(root)
+    sys.path.insert(0, str(root))
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("flash_route_timing: needs a CUDA card")
-    from horovod_tpu_torch.ops import _kernels as K
-    if args.csrc:
-        K.CSRC = Path(args.csrc).resolve()
-        K.BUILD_DIR = K.CSRC / "build"
     import chip_smoke as C
+    from horovod_tpu_torch.ops import _kernels as K
     from horovod_tpu_torch.ops.flash_attention import \
         flash_attention_reference
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    print(f"REPO {root}", flush=True)
     K.build()
     for name, log in K.build_log().items():
         if name.endswith("_sm90"):
             for line in C.ptxas_summary(log):
                 print("PTXAS", line, flush=True)
-    for case in C.ROUTE_SHAPES:
+    cases = [c for name in args.shapes
+             for c in {"routes": C.ROUTE_SHAPES, "main": [C.MAIN_SHAPE],
+                       "ring": C.RING_CASES}[name]]
+    # kernel_phase times only the shapes in TIMED
+    C.TIMED.extend(c for c in cases if c not in C.TIMED)
+    for case in cases:
         C.kernel_phase(case, K, flash_attention_reference, {})
         torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
-    os.chdir(REPO)
     main()
