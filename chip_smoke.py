@@ -16,23 +16,24 @@ Phases, each of which exits non-zero on a failure:
    H_kv 4), ragged (S 1000, D 32, fp32), bf16 ragged (S 1000, D 64), bf16
    GQA at D 128 (B 2, S 2048, H 8, H_kv 2), bf16 D 32, bf16 GQA ragged at
    D 96 (S 1000, H 8, H_kv 2), fp32 GQA at S 4096 (D 64, H 4, H_kv 2), the
-   ring's blocks at sp 2 (S 512, causal and not, o in fp32), Ulysses'
-   local attention at sp 2 (H 6), and the timed shapes below. Each kernel
-   has its own route (_kernels._variant): fwd and dq take the tensor-core
-   (sm90) kernels at bf16 and fp32 with every head_dim (fp32 as 3xTF32;
-   head_dims off the 128-byte panels padded), dkv at bf16 and fp32 with
-   D 32, 64, 96 or 128; the rest of dkv goes to the SIMT kernel. Each
-   shape runs its route and the SIMT design (variant="simt") too; the
-   route's launches must be exactly its three kernels once each. The bf16
-   sm90 dq and dkv are also held against the plain versions that keep
-   their operands in fp32, as the TPU kernels do, and a second launch of
-   dq on the same inputs must give the same bits. At the timed shapes (the
-   main path's; the ring's causal block, whose fp32 dO dq takes as two
-   bf16 terms; d_model 768 at B 8, S 1024, causal: fp32 at D 32, 64, 96,
-   128 and 48, bf16 at D 32, 96, 48 and 80; at D 48 and 80 dkv's route is
-   the SIMT kernel, and bf16 D 48 is where each SIMT kernel's line is
-   taken) time each kernel that runs there, its plain version and the
-   PyTorch library call that computes the same attention in the same dtype
+   ring's blocks at sp 2 (S 512, causal and not, o in fp32) and a causal
+   ring block at head_dim 128 (H 6), Ulysses' local attention at sp 2
+   (H 6), and the timed shapes below. Each kernel has its own route
+   (_kernels._variant): all three take the tensor-core (sm90) kernels at
+   bf16 and fp32 with every head_dim (fp32 as 3xTF32; head_dims off the
+   128-byte panels padded), so no route reaches a SIMT kernel. Each shape
+   runs its route and the SIMT design (variant="simt") too; the route's
+   launches must be exactly its three kernels once each. The bf16 sm90 dq
+   and dkv are also held against the plain versions that keep their
+   operands in fp32, as the TPU kernels do (at the ring's blocks, whose
+   fp32 dO both take as two bf16 terms, tighter, and nearer the two-term
+   plain version than the one-term one), and a second launch of dq on the
+   same inputs must give the same bits. At the timed shapes (the main
+   path's; the ring's causal blocks at head_dim 64 and 128; d_model 768 at
+   B 8, S 1024, causal: fp32 at D 32, 64, 96, 128 and 48, bf16 at D 32,
+   96, 48 and 80; bf16 D 48 is where each SIMT kernel's line is taken)
+   time each kernel that runs there, its plain version and the PyTorch
+   library call that computes the same attention in the same dtype
    (scaled_dot_product_attention, timed only as a yardstick), beside the
    kernel's bound on an H100.
 4. main path: hvt.init() (a one-process NCCL world), then
@@ -275,22 +276,24 @@ MICRO_SHAPE = (MAIN_SHAPE[0] // MICRO_BATCHES, *MAIN_SHAPE[1:])
 SP = 2
 RING_CASES = [(8, 1024 // SP, 12, 12, 64, "bfloat16", causal, "float32")
               for causal in (True, False)]
+# a causal ring block of d_model 768 at head_dim 128 (H 6): the two-term
+# dkv and dq at padded width 128
+RING_WIDE_CASE = (8, 1024 // SP, 6, 6, 128, "bfloat16", True, "float32")
 ULYSSES_CASE = (8, 1024, 12 // SP, 12 // SP, 64, "bfloat16", True,
                 "bfloat16")
 # timed besides the main shape: d_model 768 at B 8, S 1024, causal, on the
 # routes the tensor-core kernels took over from the SIMT ones (fp32 at
 # D 32, 64, 96 and 128, bf16 at D 32 and 96), and at head_dims off the
-# 32-grid, where fwd and dq run padded and dkv on its SIMT kernel (fp32
-# D 48, bf16 D 48 and 80)
+# 32-grid, where all three run padded (fp32 D 48, bf16 D 48 and 80)
 ROUTE_SHAPES = [(8, 1024, 768 // d, 768 // d, d, dtype, True, dtype)
                 for d, dtype in ((32, "float32"), (64, "float32"),
                                  (96, "float32"), (128, "float32"),
                                  (32, "bfloat16"), (96, "bfloat16"),
                                  (48, "bfloat16"), (48, "float32"),
                                  (80, "bfloat16"))]
-# and the ring's causal block: bf16 q with an fp32 dO, which flash_dq_sm90
-# splits into two bf16 terms in shared memory
-TIMED = [MAIN_SHAPE, RING_CASES[0], *ROUTE_SHAPES]
+# and the ring's causal blocks: bf16 q with an fp32 dO, which flash_dq_sm90
+# and flash_dkv_sm90 split into two bf16 terms in shared memory
+TIMED = [MAIN_SHAPE, RING_CASES[0], RING_WIDE_CASE, *ROUTE_SHAPES]
 CASES = [MAIN_SHAPE,
          MICRO_SHAPE,
          (8, 1024, 12, 12, 64, "bfloat16", False, "bfloat16"),
@@ -301,11 +304,10 @@ CASES = [MAIN_SHAPE,
          (4, 1024, 8, 8, 32, "bfloat16", True, "bfloat16"),
          (2, 1000, 8, 2, 96, "bfloat16", True, "bfloat16"),
          (1, 4096, 4, 2, 64, "float32", True, "float32"),
-         *RING_CASES, ULYSSES_CASE, *ROUTE_SHAPES]
+         *RING_CASES, RING_WIDE_CASE, ULYSSES_CASE, *ROUTE_SHAPES]
 # the shape whose timing stands in the kernels line for each SIMT kernel:
-# bf16 D 48 at d_model 768, dkv's own route there and, since no route
-# sends fwd or dq to the SIMT kernels, where they are timed as
-# variant="simt" beside the padded sm90 fwd and dq
+# bf16 D 48 at d_model 768, where, since no route sends any kernel to the
+# SIMT design, they are timed as variant="simt" beside the padded sm90 ones
 SIMT_LINE_SHAPE = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"),
                                 (8, 1024, 16, 16, 48, "bfloat16", True,
                                  "bfloat16"))
@@ -317,10 +319,11 @@ SEQUENCE_LAYOUTS = (2, 4)
 TOL_PLAIN = {"float32": 1e-4, "bfloat16": 2e-2}
 # flash_dkv_sm90 rounds p and ds to bf16 before p^T dO and ds^T q (bf16
 # inputs; fp32 ones keep them fp32, as 3xTF32), where
-# flash_dkv and the TPU kernel keep them fp32. Against that fp32-operand
-# plain version it is held to the same 2e-2: on the card the least
-# tolerance that holds was at most 0.010 over the bf16 cases (about one
-# bf16 ulp of dk and dv; PERF.md), so 2e-2 keeps a factor of two.
+# flash_dkv and the TPU kernel keep them fp32 (an fp32 dO it carries as two
+# bf16 terms). Against that fp32-operand plain version it is held to the
+# same 2e-2: on the card the least tolerance that holds was at most 0.010
+# over the bf16 cases (about one bf16 ulp of dk and dv; PERF.md), so 2e-2
+# keeps a factor of two.
 TOL_DKV_FP32_OPERANDS = 2e-2
 # flash_dq_sm90 on bf16 rounds ds to bf16 before ds k, where flash_dq and
 # the TPU kernel keep ds fp32 (an fp32 dO it carries as two bf16 terms). On
@@ -337,9 +340,14 @@ TOL_DQ_FP32_OPERANDS = 1.4e-2
 # one, by RING_NEARER in the Frobenius norm.
 TOL_DQ_RING = 9.5e-3
 RING_NEARER = 0.5
+# The same for flash_dkv_sm90 at the ring's blocks: while it rounded the
+# fp32 dO to one bf16 term its dk and dv read 0.0105 there (PERF.md), within
+# TOL_DKV_FP32_OPERANDS; with two terms they must stay under this limit,
+# between that reading and the two terms', and no larger than the main
+# shape's, and lie nearer the two-term plain version by RING_NEARER.
+TOL_DKV_RING = 9e-3
 # what the sm90 kernels round to bf16 (bf16 inputs), where the TPU kernels
-# keep fp32; flash_dq_sm90 carries an fp32 dO as two bf16 terms, and
-# flash_dkv_sm90 rounds it to one
+# keep fp32; both carry an fp32 dO as two bf16 terms
 ROUNDED = {"flash_dq_sm90": "ds", "flash_dkv_sm90": "p and ds"}
 # the autograd Function vs autograd of the dense reference: in bf16 the
 # reference's autograd also rounds dp through the p cast, so allow more.
@@ -576,9 +584,9 @@ def check(tag, got, want, tol):
     return err, rel, need
 
 
-# flash_dq_sm90's least tolerance against the fp32-operand plain version at
-# MAIN_SHAPE, once its kernels phase has run
-DQ_MAIN_LEAST = {}
+# flash_dq_sm90's and flash_dkv_sm90's least tolerance against the
+# fp32-operand plain version at MAIN_SHAPE, once its kernels phase has run
+MAIN_LEAST = {}
 
 
 def dq_ring_checks(case, K, args, got, two_term, least):
@@ -591,15 +599,15 @@ def dq_ring_checks(case, K, args, got, two_term, least):
     import torch
 
     if case == MAIN_SHAPE:
-        DQ_MAIN_LEAST["least_tol"] = least
-    if case[5] != "bfloat16" or case[7] != "float32":
+        MAIN_LEAST["flash_dq_sm90"] = least
+    if case not in RING_CASES:
         return
     q, k, v, do, *rest = args
     one_term = K.flash_dq_plain(q, k, v, do.to(torch.bfloat16), *rest,
                                 round_ds=True)
     near = float((got.float() - two_term.float()).norm())
     far = float((got.float() - one_term.float()).norm())
-    main = DQ_MAIN_LEAST.get("least_tol")
+    main = MAIN_LEAST.get("flash_dq_sm90")
     emit({"phase": "kernel", "kernel": "flash_dq_sm90", "ring": case,
           "least_tol_vs_fp32_operands": least, "limit": TOL_DQ_RING,
           "main_shape_least_tol": main, "norm_to_two_terms": near,
@@ -612,6 +620,42 @@ def dq_ring_checks(case, K, args, got, two_term, least):
         fail(f"flash_dq_sm90 at the ring block {case}: dq is {near:.4g} "
              f"from the two-term plain version and {far:.4g} from the "
              f"one-term one (dO's lo term dropped?)")
+
+
+def dkv_ring_checks(case, K, args, got, two_term, least):
+    """dq_ring_checks for flash_dkv_sm90: at MAIN_SHAPE record its least
+    tolerance against the fp32-operand plain version; at a ring block hold
+    it to TOL_DKV_RING and to the main shape's, and hold dk and dv each
+    nearer the plain version that takes dO as two bf16 terms than the one
+    that rounds it to one, by RING_NEARER in the Frobenius norm."""
+    import torch
+
+    name = "flash_dkv_sm90"
+    if case == MAIN_SHAPE:
+        MAIN_LEAST[name] = least
+    if case not in RING_CASES:
+        return
+    q, k, v, do, *rest = args
+    one_term = dict(zip(("dk", "dv"), K.flash_dkv_plain(
+        q, k, v, do.to(torch.bfloat16), *rest, round_operands=True)))
+    norms = {n: (float((got[n].float() - two_term[n].float()).norm()),
+                 float((got[n].float() - one_term[n].float()).norm()))
+             for n in ("dk", "dv")}
+    main = MAIN_LEAST.get(name)
+    emit({"phase": "kernel", "kernel": name, "ring": case,
+          "least_tol_vs_fp32_operands": least, "limit": TOL_DKV_RING,
+          "main_shape_least_tol": main,
+          "norm_to_two_terms": {n: nf[0] for n, nf in norms.items()},
+          "norm_to_one_term": {n: nf[1] for n, nf in norms.items()}})
+    if least > TOL_DKV_RING or (main is not None and least > main):
+        fail(f"{name} at the ring block {case}: least tolerance "
+             f"{least:.4g} against the fp32-operand plain version, over "
+             f"{TOL_DKV_RING} or the main shape's {main}")
+    for n, (near, far) in norms.items():
+        if not near < RING_NEARER * far:
+            fail(f"{name} at the ring block {case}: {n} is {near:.4g} from "
+                 f"the two-term plain version and {far:.4g} from the "
+                 f"one-term one (dO's lo term dropped?)")
 
 
 def kernel_phase(case, K, ref_fn, timings):
@@ -674,7 +718,8 @@ def kernel_phase(case, K, ref_fn, timings):
         want = {"dq": K.flash_dq_plain(*args, split_dout=rounds[dqn],
                                        round_ds=rounds[dqn]),
                 **dict(zip(("dk", "dv"), K.flash_dkv_plain(
-                    *args, round_operands=rounds[dkv])))}
+                    *args, split_dout=rounds[dkv],
+                    round_operands=rounds[dkv])))}
         for name, outs in ((dqn, ("dq",)), (dkv, ("dk", "dv"))):
             errs[name] = [check(f"{name} {n}", got[n], want[n], tol)
                           for n in outs]
@@ -684,14 +729,16 @@ def kernel_phase(case, K, ref_fn, timings):
                      else TOL_DKV_FP32_OPERANDS)
             vs32 = [check(f"{name} {n} vs fp32 operands", got[n],
                           fp32_operands[n], tol32) for n in outs]
+            least = max(e[2] for e in vs32)
             emit({"phase": "kernel", "kernel": name, "shape": shape,
                   "vs": f"plain version with fp32 {ROUNDED[name]} operands",
                   "max_abs_err": max(e[0] for e in vs32),
                   "max_rel_err": max(e[1] for e in vs32),
-                  "least_tol": max(e[2] for e in vs32), "tol": tol32})
+                  "least_tol": least, "tol": tol32})
             if name == dqn:
-                dq_ring_checks(case, K, args, got["dq"], want["dq"],
-                               vs32[0][2])
+                dq_ring_checks(case, K, args, got["dq"], want["dq"], least)
+            else:
+                dkv_ring_checks(case, K, args, got, want, least)
         del o, lse, got, want
     for name, found in errs.items():
         emit({"phase": "kernel", "kernel": name, "shape": shape,
@@ -766,7 +813,8 @@ def kernel_phase(case, K, ref_fn, timings):
             sdpa_bwd)
         timed[dkv] = (
             lambda vr=variant: K.flash_dkv(*args, variant=vr),
-            lambda r=rounds[dkv]: K.flash_dkv_plain(*args, round_operands=r),
+            lambda r=rounds[dkv]: K.flash_dkv_plain(*args, split_dout=r,
+                                                    round_operands=r),
             sdpa_bwd)
     for name, (kern, plain, lib) in timed.items():
         bound_ms, bound_by = bound(name, b, s, h, h_kv, d, dtype_name,
@@ -919,13 +967,14 @@ def entry_phase(K):
 def line_timing(K, name, timings):
     """The timing that stands in the kernels line for kernel ``name``: an
     sm90 kernel's at the main shape, a SIMT kernel's at SIMT_LINE_SHAPE,
-    with every timed shape in ``by_shape``; a codec kernel's as the wire
-    phase recorded it."""
+    with the ring's causal block in ``ring_block`` and every timed shape in
+    ``by_shape``; a codec kernel's as the wire phase recorded it."""
     if name in K.CODEC_KERNELS:
         return timings[name]
     by_case = timings[name]
     case = MAIN_SHAPE if name.endswith("_sm90") else SIMT_LINE_SHAPE[name]
-    return {**by_case[case], "by_shape": list(by_case.values())}
+    return {**by_case[case], "ring_block": by_case[RING_CASES[0]],
+            "by_shape": list(by_case.values())}
 
 
 # the sm90 names first: _category matches by substring

@@ -2,21 +2,33 @@
 // tensor cores (wgmma, TMA, mbarriers; sm_90a only).
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_dkv_kernel (pl.pallas_call in
-// _flash_bwd) for q/k/v/dO in bf16 or fp32 with head_dim 32, 64, 96 or 128;
-// flash_dkv.cu stays the route for other head dims. For each key tile:
+// _flash_bwd) for q/k/v in bf16 or fp32 with any head_dim the port takes
+// (8..128 in steps of 8); flash_dkv.cu stays built and checked as the SIMT
+// design, on no route. For each key tile:
 //   p = exp(scale q k^T - lse) with the causal fill, dv += p^T dO,
 //   dp = dO v^T, ds = p (dp - delta), dk += ds^T q * scale,
 // with query tiles before the first one that can see the key tile skipped
 // (the TPU kernel's `start`).
 //
-// Numerics. In bf16 they differ from _dkv_kernel in one place: it takes
+// Numerics. With bf16 q they differ from _dkv_kernel in one place: it takes
 // p^T dO and ds^T q on fp32 operands (:244-253); on the tensor cores p and ds
-// are rounded to bf16 first, as in FlashAttention-2/3. Everything else
-// matches: the scores, p and ds are fp32, every product sums in fp32. The
-// plain version with round_operands=True (ops/_kernels.py) rounds at the
-// same two points. In fp32 every product, p^T dO and ds^T q included, runs
-// as 3xTF32 (sm90.cuh) on fp32 operands, within about 2^-21 of fp32
-// products: the plain version keeps fp32 operands.
+// are rounded to bf16 first, as in FlashAttention-2/3. dO is taken as
+// _dkv_kernel reads it (:231-232): a bf16 dO is exact, and an fp32 dO (the
+// sequence ring writes an fp32 o) is split, once per query tile in shared
+// memory, into two bf16 terms, hi = bf16(dO) and lo = bf16(dO - hi), so
+// that dP^T = V dO_hi^T + V dO_lo^T and dV += P^T dO_hi + P^T dO_lo carry
+// 16 bits of dO's mantissa; products of bf16 values are exact in fp32.
+// Everything else matches: the scores, p and ds are fp32, every product sums
+// in fp32. The plain version with split_dout and round_operands
+// (ops/_kernels.py) rounds at the same points. With fp32 q every product,
+// p^T dO and ds^T q included, runs as 3xTF32 (sm90.cuh) on fp32 operands,
+// within about 2^-21 of fp32 products: the plain version rounds nothing.
+//
+// Head dims. A kernel is instantiated per padded width DP (64 or 128 in
+// bf16; 32, 64, 96 or 128 in fp32): TMA zero-fills the columns past D, which
+// add nothing to any product, and only D columns of dk and dv are written.
+// At D 32, 64, 96 and 128 with dO in q's dtype D is fixed at compile time;
+// every other head_dim, and bf16 q with an fp32 dO, comes at run time.
 //
 // Design, bf16. One block of 256 threads owns a 128-key tile of one
 // (b, h_kv): two warpgroups of 64 keys each, with K and V resident in shared
@@ -25,40 +37,45 @@
 // behind "full" and "empty" mbarriers. Each warpgroup computes the transposed
 // products, so that every intermediate stays in registers:
 //   S^T  = K Q^T     wgmma m64n64k16, K and Q K-major from shared memory;
-//   dP^T = V dO^T    the same with V and dO;
+//   dP^T = V dO^T    the same with V and dO (and V dO_lo^T);
 //   P^T  = exp2(S^T scale log2(e) - lse log2(e)),  dS^T = P^T (dP^T - delta)
 //                    on the accumulator fragments;
-//   dV  += P^T dO    wgmma m64nDk16, P^T as bf16 register A operand, dO MN-major;
+//   dV  += P^T dO    wgmma m64nDPk16, P^T as bf16 register A operand, dO
+//                    MN-major (and the same A against dO lo);
 //   dK  += dS^T Q    the same with dS^T and Q.
 // dK and dV stay in fp32 registers across the whole loop, so the GQA group
 // sum happens in the kernel and each is written once, in k's dtype. lse and
 // delta of a query tile come with plain loads into the warpgroup's shared
 // memory: their rows of S floats need not meet TMA's 16-byte stride rule.
-// head_dim 32 and 96 run as 64 and 128 with zero columns (TMA's fill): a
-// quarter or half of the products are of zeros; only D columns are written.
+// An fp32 dO streams with Q, one tile a stage: TMA lands it past the
+// stage's Q, dO hi and dO lo tiles, and the block splits it into them
+// (split_bf16_terms) before the tile's products. Its stage is 5 * 64 * DP *
+// 2 B; at DP 128 two stages and K, V take 226 KB of the 227 KB a block may
+// have.
 //
-// Design, fp32 (3xTF32). Two warpgroups own a 128-key tile at D 64, one
-// warpgroup a 64-key tile at D 32 (three such blocks fit an SM's registers,
-// which won on the card) and at D 96 and 128 (K, V and their lo would not fit
-// twice); Q/dO tiles are kBQ rows (32 at D 32 and 64, 16 at D 96 and 128),
-// one stage. K and V are split once (hi in place, lo beside); each Q
-// and dO tile is split into hi/lo and also written transposed (hi and lo),
-// since dV += P^T dO and dK += dS^T Q need them K-major. Each product is
-// three wgmmas a k-step of 8 (a_lo b_hi, a_hi b_lo, a_hi b_hi), P^T and dS^T
-// split in registers; a Q tile's dV and dK are summed in a fresh
-// accumulator, then added to dV and dK in fp32 (the tensor cores truncate
-// as they accumulate). Shared memory: K, V and their lo 4 * kBKV * D * 4 B, a
-// stage four kBQ * D * 4 B tiles and four transposed ones of D * 128 B:
-// 224 KB at D 128, 168 KB at D 96, 192 KB at D 64, 64 KB at D 32.
+// Design, fp32 (3xTF32). Two warpgroups own a 128-key tile at DP 64, one
+// warpgroup a 64-key tile at DP 32 (three such blocks fit an SM's
+// registers, which won on the card) and at DP 96 and 128 (K, V and their lo
+// would not fit twice); Q/dO tiles are kBQ rows (32 at DP 32 and 64, 16 at
+// DP 96 and 128), one stage. K and V are split once (hi in place, lo
+// beside); each Q and dO tile is split into hi/lo and also written
+// transposed (hi and lo), since dV += P^T dO and dK += dS^T Q need them
+// K-major. Each product is three wgmmas a k-step of 8 (a_lo b_hi, a_hi b_lo,
+// a_hi b_hi), P^T and dS^T split in registers; a Q tile's dV and dK are
+// summed in a fresh accumulator, then added to dV and dK in fp32 (the tensor
+// cores truncate as they accumulate). Shared memory: K, V and their lo 4 *
+// kBKV * DP * 4 B, a stage four kBQ * DP * 4 B tiles and four transposed
+// ones of DP * 128 B: 224 KB at DP 128, 168 KB at DP 96, 192 KB at DP 64,
+// 64 KB at DP 32.
 //
 // Bound. At B 8, S 1024, causal, d_model 768 (H = 768 / D) every head_dim
 // does the same 25.8 GFLOP of products. bf16 moves 76.3 MB (23 us) against
-// 26 us of tensor-core time (operations bound); this kernel's padded
-// products at D 32 and D 96 take 52 us and 35 us. fp32 moves 152 MB (45 us)
-// against 52 us at TF32's 495 TFLOP/s, and its 3xTF32 products take
-// 156 us: the three products bound every fp32 instantiation; the
-// transposed splits and the 16-query products at D 96/128 come on top.
-// Registers: 154-253 a thread at fp32, 173 and 247 at bf16 D 32 and 96.
+// 26 us of tensor-core time (operations bound); padded widths issue more
+// products (at bf16 D 32 twice as many). fp32 moves 152 MB (45 us) against
+// 52 us at TF32's 495 TFLOP/s, and its 3xTF32 products take 156 us: the
+// three products bound every fp32 instance; the transposed splits and the
+// 16-query products at DP 96/128 come on top. An fp32 dO adds a third of
+// the bf16 products (V dO_lo^T, P^T dO_lo) and its split.
 #include "flash_attention.cuh"
 #include "sm90.cuh"
 
@@ -67,42 +84,50 @@ namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Tile sizes and the shared-memory layout of one instantiation.
-template <int D, typename T>
+// Tile sizes and the shared-memory layout of one instance at padded width DP.
+// kDoTerms: the bf16 terms dO comes in (1: dO in q's dtype; 2: bf16 q with
+// an fp32 dO, as hi and lo).
+template <int DP, typename T, int kDoTerms>
 struct DkvCfg {
   static constexpr bool kTf32 = std::is_same<T, float>::value;
-  static constexpr int DP = sm90::padded_width<T>(D);
-  // warpgroups, 64 keys each; fp32 at D 32, 96, 128: one (see Design, fp32)
-  static constexpr int kWG = kTf32 && D != 64 ? 1 : 2;
+  static_assert(DP == sm90::padded_width<T>(DP) && DP <= 128, "DP: whole panels");
+  static_assert(kDoTerms == 1 || !kTf32, "fp32 q takes its fp32 dO as it is");
+  // warpgroups, 64 keys each; fp32 at DP 32, 96, 128: one (see Design, fp32)
+  static constexpr int kWG = kTf32 && DP != 64 ? 1 : 2;
   static constexpr int kThreads = 128 * kWG;
   static constexpr int kBKV = 64 * kWG;        // keys per block
-  static constexpr int kBQ = !kTf32 ? 64 : D <= 64 ? 32 : 16;  // query rows a tile
+  static constexpr int kBQ = !kTf32 ? 64 : DP <= 64 ? 32 : 16;  // query rows a tile
   static constexpr int kStages = kTf32 ? 1 : 2;
   static constexpr int kKV = kBKV * DP * (int)sizeof(T);  // bytes of the K (or V) tile
   static constexpr int kQ = kBQ * DP * (int)sizeof(T);    // of one Q (or dO) tile
   // a transposed Q or dO tile: DP rows of 128 B per 32 queries
   static constexpr int kT = kTf32 ? DP * sm90::kRowBytes * ((kBQ + 31) / 32) : 0;
   static constexpr int kResident = (kTf32 ? 4 : 2) * kKV;  // K, V (, K lo, V lo)
-  // a stage: Q, dO (, Q lo, dO lo, Q^T hi, Q^T lo, dO^T hi, dO^T lo)
-  static constexpr int kStage = kTf32 ? 4 * kQ + 4 * kT : 2 * kQ;
+  // a stage: Q, dO (, Q lo, dO lo, Q^T hi, Q^T lo, dO^T hi, dO^T lo); with
+  // two terms Q, dO hi, dO lo and the fp32 dO as TMA lands it (2 kQ)
+  static constexpr int kStage = kTf32 ? 4 * kQ + 4 * kT : kDoTerms == 1 ? 2 * kQ : 5 * kQ;
   static constexpr int kVec = kWG * 2 * kBQ * 4;  // per warpgroup: lse, delta of kBQ rows
   static constexpr int kBarriers = (1 + 2 * kStages) * 8;
   static constexpr int kBytes =
       kResident + kStages * kStage + kVec + kBarriers + sm90::kAtomBytes;
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
-template <int D, typename T>
-__global__ void __launch_bounds__(DkvCfg<D, T>::kThreads, 1)
+// kD: the head_dim where it is fixed at compile time, else 0 and d_rt
+// gives it.
+template <int DP, int kD, typename T, int kDoTerms>
+__global__ void __launch_bounds__(DkvCfg<DP, T, kDoTerms>::kThreads, 1)
     flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, int S, int H, int Hkv,
+                          T* __restrict__ dk, T* __restrict__ dv, int S, int H, int Hkv, int d_rt,
                           float scale, float scale_log2, int causal) {
   using namespace sm90;
-  using L = DkvCfg<D, T>;
-  constexpr int DP = L::DP, kBKV = L::kBKV, kBQ = L::kBQ, kStages = L::kStages;
+  using L = DkvCfg<DP, T, kDoTerms>;
+  constexpr int kBKV = L::kBKV, kBQ = L::kBQ, kStages = L::kStages;
+  const int D = kD ? kD : d_rt;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1k(smem_raw);
   uint8_t* k_s = smem;
@@ -136,9 +161,15 @@ __global__ void __launch_bounds__(DkvCfg<D, T>::kThreads, 1)
   auto load_q = [&](int t, int s) {
     const int h = hk * group + t / per_head, q0 = (qt_start + t % per_head) * kBQ;
     uint8_t* dst = qdo_s + s * L::kStage;
-    mbar_expect_tx(&full[s], 2 * L::kQ);
-    tma_load_rows<DP, T>(dst, &tq, &full[s], kBQ, q0, h, b);
-    tma_load_rows<DP, T>(dst + L::kQ, &tdo, &full[s], kBQ, q0, h, b);
+    if constexpr (kDoTerms == 1) {
+      mbar_expect_tx(&full[s], 2 * L::kQ);
+      tma_load_rows<DP, T>(dst, &tq, &full[s], kBQ, q0, h, b);
+      tma_load_rows<DP, T>(dst + L::kQ, &tdo, &full[s], kBQ, q0, h, b);
+    } else {  // the fp32 dO lands past Q, dO hi and dO lo
+      mbar_expect_tx(&full[s], 3 * L::kQ);
+      tma_load_rows<DP, T>(dst, &tq, &full[s], kBQ, q0, h, b);
+      tma_load_rows<DP, float>(dst + 3 * L::kQ, &tdo, &full[s], kBQ, q0, h, b);
+    }
   };
   if (tid == 0) {
     mbar_expect_tx(bar_kv, 2 * L::kKV);
@@ -208,6 +239,14 @@ __global__ void __launch_bounds__(DkvCfg<D, T>::kThreads, 1)
         wgmma_ss_tf32(dp, ah, bh, 1);
       }
     } else {
+      if constexpr (kDoTerms == 2) {
+        // the fp32 dO into its two terms; every thread splits, and both
+        // warpgroups read the whole tile
+        uint8_t* st = qdo_s + s * L::kStage;
+        split_bf16_terms<DP, kBQ>(st + 3 * L::kQ, st + L::kQ, st + 2 * L::kQ, tid, L::kThreads);
+        fence_proxy_async();
+        __syncthreads();
+      }
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
@@ -217,6 +256,12 @@ __global__ void __launch_bounds__(DkvCfg<D, T>::kThreads, 1)
       for (int kk = 0; kk < DP / 16; ++kk)
         wgmma_ss<0>(dp, desc_kmajor(v_addr, kBKV, 64 * wg, kk), desc_kmajor(do_addr, kBQ, 0, kk),
                     kk > 0);
+      if constexpr (kDoTerms == 2) {
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss<0>(dp, desc_kmajor(v_addr, kBKV, 64 * wg, kk),
+                      desc_kmajor(do_addr + L::kQ, kBQ, 0, kk), 1);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -285,6 +330,8 @@ __global__ void __launch_bounds__(DkvCfg<D, T>::kThreads, 1)
         uint32_t a[4];
         a_fragment(a, sc, kk);
         wgmma_rs<1>(dv_acc, a, desc_mnmajor(do_addr, kBQ, kk), 1);
+        if constexpr (kDoTerms == 2)
+          wgmma_rs<1>(dv_acc, a, desc_mnmajor(do_addr + L::kQ, kBQ, kk), 1);
       }
 #pragma unroll
       for (int kk = 0; kk < kBQ / 16; ++kk) {
@@ -312,7 +359,8 @@ __global__ void __launch_bounds__(DkvCfg<D, T>::kThreads, 1)
     if (key >= S) continue;
     const long long off = ((long long)b * S + key) * kstride + (long long)hk * D;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
+    for (int c = 0; c < DP / 8; ++c) {
+      if (8 * c >= D) continue;  // the padded columns are not written
       const int col = 8 * c + 2 * (lane % 4), i = 4 * c + 2 * r;
       store2(dk + off + col, dk_acc[i] * scale, dk_acc[i + 1] * scale);
       store2(dv + off + col, dv_acc[i], dv_acc[i + 1]);
@@ -320,65 +368,94 @@ __global__ void __launch_bounds__(DkvCfg<D, T>::kThreads, 1)
   }
 }
 
-template <int D, typename T>
+template <int DP, int kD, typename T, int kDoTerms>
 int launch_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
-                    int Hkv, float scale, int causal, cudaStream_t stream) {
-  using L = DkvCfg<D, T>;
+                    int Hkv, int D, float scale, int causal, cudaStream_t stream) {
+  using L = DkvCfg<DP, T, kDoTerms>;
   constexpr int e = (int)sizeof(T);
   CUtensorMap tq, tk, tv, tdo;
   int err = make_bshd_map(&tq, q, B, S, H, D, L::kBQ, e);
-  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, L::kBQ, e);
+  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, L::kBQ, kDoTerms == 2 ? 4 : e);
   if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, L::kBKV, e);
   if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, L::kBKV, e);
   if (err != 0) return err;
   const dim3 grid((S + L::kBKV - 1) / L::kBKV, Hkv, B);
-  return launch_n(flash_dkv_sm90_kernel<D, T>, grid, L::kThreads, L::kBytes, stream, tq, tk, tv,
-                  tdo, (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, S, H, Hkv, scale,
-                  scale * kLog2e, causal);
+  return launch_n(flash_dkv_sm90_kernel<DP, kD, T, kDoTerms>, grid, L::kThreads, L::kBytes,
+                  stream, tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (T*)dk,
+                  (T*)dv, S, H, Hkv, D, scale, scale * kLog2e, causal);
 }
 
-template <typename T>
-int launch_dkv_sm90_d(int D, const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dk, void* dv, int B, int S,
-                      int H, int Hkv, float scale, int causal, cudaStream_t st) {
-  switch (D) {
-    case 32:
-      return launch_dkv_sm90<32, T>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, scale,
-                                    causal, st);
-    case 64:
-      return launch_dkv_sm90<64, T>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, scale,
-                                    causal, st);
-    case 96:
-      return launch_dkv_sm90<96, T>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, scale,
-                                    causal, st);
-    case 128:
-      return launch_dkv_sm90<128, T>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, scale,
-                                     causal, st);
+// dO in q's dtype at D 32, 64, 96 and 128: D fixed at compile time; every
+// other case at its padded width with D at run time.
+template <typename T, int kDoTerms>
+int launch_dkv_sm90_d(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
+                      int Hkv, int D, float scale, int causal, cudaStream_t st) {
+  using sm90::padded_width;
+  if constexpr (kDoTerms == 1) {
+    switch (D) {
+      case 32:
+        return launch_dkv_sm90<padded_width<T>(32), 32, T, 1>(q, k, v, dout, lse, delta, dk, dv,
+                                                              B, S, H, Hkv, D, scale, causal, st);
+      case 64:
+        return launch_dkv_sm90<64, 64, T, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
+                                             scale, causal, st);
+      case 96:
+        return launch_dkv_sm90<padded_width<T>(96), 96, T, 1>(q, k, v, dout, lse, delta, dk, dv,
+                                                              B, S, H, Hkv, D, scale, causal, st);
+      case 128:
+        return launch_dkv_sm90<128, 128, T, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
+                                               D, scale, causal, st);
+    }
   }
-  return (int)cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, float>::value) {
+    switch (padded_width<float>(D)) {
+      case 32:
+        return launch_dkv_sm90<32, 0, float, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
+                                                D, scale, causal, st);
+      case 64:
+        return launch_dkv_sm90<64, 0, float, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
+                                                D, scale, causal, st);
+      case 96:
+        return launch_dkv_sm90<96, 0, float, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
+                                                D, scale, causal, st);
+      case 128:
+        return launch_dkv_sm90<128, 0, float, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                                                 Hkv, D, scale, causal, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  } else {
+    return D <= 64 ? launch_dkv_sm90<64, 0, T, kDoTerms>(q, k, v, dout, lse, delta, dk, dv, B, S,
+                                                         H, Hkv, D, scale, causal, st)
+                   : launch_dkv_sm90<128, 0, T, kDoTerms>(q, k, v, dout, lse, delta, dk, dv, B,
+                                                          S, H, Hkv, D, scale, causal, st);
+  }
 }
 
 }  // namespace
 }  // namespace hvt
 
-// Returns 0 or the CUDA error of the launch. q, k, v, dO all bf16 (dtype and
-// dout_dtype 1) or all fp32 (0) with D 32, 64, 96 or 128; dk, dv
-// [B, S, H_kv, D] in k's dtype.
+// Returns 0 or the CUDA error of the launch. The port's head_dims (8..128 in
+// steps of 8) and dtypes: q, k, v and dO fp32 (dtype and dout_dtype 0), dk,
+// dv fp32; q, k, v bf16 (dtype 1) with dO bf16 (dout_dtype 1) or fp32 (0),
+// dk, dv bf16. dk, dv are [B, S, H_kv, D]. The signature is hvt_flash_dkv's.
 extern "C" int hvt_flash_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv, int B,
                                   int S, int H, int Hkv, int D, float scale, int causal,
                                   int dtype, int dout_dtype, void* stream) {
   using namespace hvt;
-  if (!valid_shape(B, S, H, Hkv, D) || D % 32 != 0 || dout_dtype != dtype)
-    return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, S, H, Hkv, D)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == kBF16)
-    return launch_dkv_sm90_d<__nv_bfloat16>(D, q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
-                                            scale, causal, st);
-  if (dtype == kF32)
-    return launch_dkv_sm90_d<float>(D, q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, scale,
-                                    causal, st);
+  if (dtype == kBF16 && dout_dtype == kBF16)
+    return launch_dkv_sm90_d<__nv_bfloat16, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
+                                               D, scale, causal, st);
+  if (dtype == kBF16 && dout_dtype == kF32)
+    return launch_dkv_sm90_d<__nv_bfloat16, 2>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
+                                               D, scale, causal, st);
+  if (dtype == kF32 && dout_dtype == kF32)
+    return launch_dkv_sm90_d<float, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D, scale,
+                                       causal, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -113,36 +113,6 @@ struct DqSmem {
   static_assert(kDoTerms == 1 || 2 * kStages * kKV == 2 * kQ, "fp32 dO fits the ring");
 };
 
-// The fp32 dO tile as TMA lands it (kBM rows in 32-column panels) split
-// into two bf16 tiles as TMA would land them (64-column panels): hi =
-// bf16(x), lo = bf16(x - hi), both rounded to nearest. Each step takes 8
-// columns of one row; consecutive threads take consecutive rows, so the
-// swizzled 16-byte accesses of 8 threads fall in distinct banks.
-template <int DP>
-__device__ __forceinline__ void split_dout(const uint8_t* f32, uint8_t* hi, uint8_t* lo,
-                                           int tid) {
-  using sm90::kRowBytes;
-  for (int i = tid; i < kBM * DP / 8; i += kThreads) {
-    const int r = i % kBM, c8 = i / kBM;  // row r, columns 8 c8 .. 8 c8 + 7
-    const uint8_t* src = f32 + (c8 / 4) * kBM * kRowBytes + r * kRowBytes;
-    const int ch = 2 * (c8 % 4);  // the first of its two fp32 chunks
-    const float4 x0 = *reinterpret_cast<const float4*>(src + ((ch ^ (r % 8)) * 16));
-    const float4 x1 = *reinterpret_cast<const float4*>(src + (((ch + 1) ^ (r % 8)) * 16));
-    const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-    uint32_t h[4], l[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float a = __bfloat162float(__float2bfloat16_rn(x[2 * j]));
-      const float b = __bfloat162float(__float2bfloat16_rn(x[2 * j + 1]));
-      h[j] = sm90::pack_bf16(a, b);  // exact: a and b are bf16 values
-      l[j] = sm90::pack_bf16(x[2 * j] - a, x[2 * j + 1] - b);
-    }
-    const int off = (c8 / 8) * kBM * kRowBytes + r * kRowBytes + (((c8 % 8) ^ (r % 8)) * 16);
-    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
-  }
-}
-
 // kD: the head_dim where it is fixed at compile time (kD == DP), else 0 and
 // d_rt gives it. kDoTerms 2: tdo maps an fp32 dO.
 template <int DP, int kD, int kDoTerms>
@@ -233,7 +203,7 @@ __global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)
 
   mbar_wait(bar_q, 0);
   if constexpr (kDoTerms == 2) {
-    split_dout<DP>(kv_s, do_s, do_s + L::kQ, tid);
+    split_bf16_terms<DP, kBM>(kv_s, do_s, do_s + L::kQ, tid, kThreads);
     // the split's writes before wgmma reads them, and its reads before
     // TMA refills the ring (both async proxy)
     fence_proxy_async();

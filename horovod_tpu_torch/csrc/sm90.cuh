@@ -1,6 +1,7 @@
 // Hopper building blocks of the tensor-core flash kernels (flash_fwd_sm90.cu,
 // flash_dq_sm90.cu, flash_dkv_sm90.cu): raw PTX for mbarriers, TMA loads,
 // wgmma descriptors and wgmma products in bf16 and tf32, the 3xTF32 split,
+// the split of an fp32 tile into two bf16 terms (an fp32 dO with bf16 q),
 // plus the host code that encodes a TMA tensor map. sm_90a only: wgmma does
 // not exist on plain sm_90.
 //
@@ -274,6 +275,37 @@ __device__ __forceinline__ void split_tile(uint8_t* raw, uint8_t* lo, uint8_t* t
         *reinterpret_cast<uint32_t*>(t_lo + t_off) = l[j];
       }
     }
+  }
+}
+
+// Splits an fp32 tile as TMA lands it (kRows rows of D columns in 32-column
+// panels at `f32`) into two bf16 tiles as TMA would land them (64-column
+// panels): hi = bf16(x), lo = bf16(x - hi), both rounded to nearest, so that
+// hi + lo carries 16 bits of x's mantissa. D: a whole number of bf16 panels.
+// Each step takes 8 columns of one row; consecutive threads take
+// consecutive rows, so the swizzled 16-byte accesses of 8 threads fall in
+// distinct banks.
+template <int D, int kRows>
+__device__ __forceinline__ void split_bf16_terms(const uint8_t* f32, uint8_t* hi, uint8_t* lo,
+                                                 int tid, int nthreads) {
+  for (int i = tid; i < kRows * D / 8; i += nthreads) {
+    const int r = i % kRows, c8 = i / kRows;  // row r, columns 8 c8 .. 8 c8 + 7
+    const uint8_t* src = f32 + (c8 / 4) * kRows * kRowBytes + r * kRowBytes;
+    const int ch = 2 * (c8 % 4);  // the first of its two fp32 chunks
+    const float4 x0 = *reinterpret_cast<const float4*>(src + ((ch ^ (r % 8)) * 16));
+    const float4 x1 = *reinterpret_cast<const float4*>(src + (((ch + 1) ^ (r % 8)) * 16));
+    const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float a = __bfloat162float(__float2bfloat16_rn(x[2 * j]));
+      const float b = __bfloat162float(__float2bfloat16_rn(x[2 * j + 1]));
+      h[j] = pack_bf16(a, b);  // exact: a and b are bf16 values
+      l[j] = pack_bf16(x[2 * j] - a, x[2 * j + 1] - b);
+    }
+    const int off = (c8 / 8) * kRows * kRowBytes + r * kRowBytes + (((c8 % 8) ^ (r % 8)) * 16);
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
   }
 }
 

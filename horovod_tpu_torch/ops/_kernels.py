@@ -18,16 +18,15 @@ kernel              source (``csrc/``)        replaces
 
 The ``*_sm90`` kernels run their products on the tensor cores (``wgmma``,
 tiles brought by TMA) and take bf16 and fp32 (fp32 products as 3xTF32: each
-operand split into two TF32 terms, three products summed in fp32):
-``flash_fwd_sm90`` and ``flash_dq_sm90`` at every head_dim the port takes
-(8..128 in steps of 8; a head_dim that is not a whole number of 128-byte
-panels runs padded by TMA's zero fill), ``flash_dkv_sm90`` at head_dim 32,
-64, 96 or 128. The others (SIMT) do fp32 FMAs on the CUDA cores and take
-fp32 or bf16 with any head_dim up to 128; of them only ``flash_dkv`` is on a
-route (the other head_dims), and all three stay built and checked on the
-card as ``variant="simt"``. ``_variant`` chooses between the two designs of
-each kernel from the dtype and head_dim alone; a kernel that fails to build
-or launch raises.
+operand split into two TF32 terms, three products summed in fp32) at every
+head_dim the port takes (8..128 in steps of 8; a head_dim that is not a
+whole number of 128-byte panels runs padded by TMA's zero fill); with bf16
+q, ``flash_dq_sm90`` and ``flash_dkv_sm90`` take an fp32 dO (the sequence
+ring's) as two bf16 terms. The others (SIMT) do fp32 FMAs on the CUDA cores
+and take fp32 or bf16 with any head_dim up to 128; no route reaches them,
+and all three stay built and checked on the card as ``variant="simt"``.
+``_variant`` chooses between the two designs of each kernel from the dtype
+and head_dim alone; a kernel that fails to build or launch raises.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface and loaded with ``ctypes``. The build runs at first use,
@@ -276,6 +275,13 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
+def _bf16_terms(x):
+    """x as the fp32 sum of two bf16 terms, hi = bf16(x) and lo = bf16(x -
+    hi), as the sm90 kernels split an fp32 dO (exact in fp32)."""
+    hi = _bf16(x.float())
+    return hi + _bf16(x.float() - hi)
+
+
 def flash_dq_plain(q, k, v, dout, lse, delta, scale, causal,
                    split_dout=False, round_ds=False):
     """Plain version of ``flash_dq``: dq [B, S, H, D] in q's dtype.
@@ -289,8 +295,7 @@ def flash_dq_plain(q, k, v, dout, lse, delta, scale, causal,
     stays fp32, as ``_dq_kernel``, ``flash_dq`` and ``flash_dq_sm90`` with
     fp32 q (3xTF32) take them."""
     if split_dout:
-        hi = _bf16(dout.float())
-        dout = hi + _bf16(dout.float() - hi)  # exact in fp32
+        dout = _bf16_terms(dout)
     _, kh, _, ds = _probs_and_ds(q, k, v, dout, lse, delta, scale, causal)
     if round_ds:
         ds = _bf16(ds)
@@ -299,19 +304,22 @@ def flash_dq_plain(q, k, v, dout, lse, delta, scale, causal,
 
 
 def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
-                    round_operands=False):
+                    split_dout=False, round_operands=False):
     """Plain version of ``flash_dkv``: dk, dv [B, S, H_kv, D] in k's dtype,
     each K/V head's gradient summed over its query group.
 
-    ``round_operands=True`` is the plain version of ``flash_dkv_sm90`` on
-    bf16: the operands of p^T dO and ds^T q are rounded to bf16 (dO is bf16
-    already on that route), as the tensor cores take them. Without it, both
-    products take fp32 p and ds, as ``_dkv_kernel``, ``flash_dkv`` and
-    ``flash_dkv_sm90`` on fp32 (3xTF32) do."""
+    ``split_dout=True`` takes dO as the sum of two bf16 terms, hi =
+    bf16(dO) and lo = bf16(dO - hi), and ``round_operands=True`` rounds p
+    and ds to bf16 before p^T dO and ds^T q: both together are the plain
+    version of ``flash_dkv_sm90`` with bf16 q, which takes its operands on
+    the tensor cores in bf16 (a bf16 dO is its own hi term, exact; an fp32
+    dO, the sequence ring's, it splits into the two). Without them every
+    operand stays fp32, as ``_dkv_kernel``, ``flash_dkv`` and
+    ``flash_dkv_sm90`` with fp32 q (3xTF32) take them."""
     b, s, h, d = q.shape
     h_kv = k.shape[2]
-    if round_operands:
-        dout = dout.to(torch.bfloat16)
+    if split_dout:
+        dout = _bf16_terms(dout)
     qh, _, p, ds = _probs_and_ds(q, k, v, dout, lse, delta, scale, causal)
     if round_operands:
         p, ds = _bf16(p), _bf16(ds)
@@ -334,7 +342,7 @@ HEAD_DIMS = tuple(range(8, 129, 8))    # every head_dim the kernels take
 SM90_ROUTES = {
     "flash_fwd": ((torch.bfloat16, torch.float32), HEAD_DIMS),
     "flash_dq": ((torch.bfloat16, torch.float32), HEAD_DIMS),
-    "flash_dkv": ((torch.bfloat16, torch.float32), (32, 64, 96, 128)),
+    "flash_dkv": ((torch.bfloat16, torch.float32), HEAD_DIMS),
 }
 
 
@@ -400,16 +408,15 @@ def flash_dq(q, k, v, dout, lse, delta, scale, causal, variant=None):
 def flash_dkv(q, k, v, dout, lse, delta, scale, causal, variant=None):
     """Key and value gradients: dk, dv [B, S, H_kv, D] in k's dtype. On the
     sm90 route with bf16 q, p and ds are rounded to bf16 before their
-    products, and an fp32 dO is rounded to bf16 (see ``flash_dkv_plain``);
-    with fp32 q every operand stays fp32 (3xTF32)."""
+    products and the kernel splits an fp32 dO into two bf16 terms (see
+    ``flash_dkv_plain``); with fp32 q every operand stays fp32 (3xTF32)."""
     name = _kernel("flash_dkv", q, variant)
     bf16_operands = name.endswith("_sm90") and q.dtype == torch.bfloat16
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
+                               split_dout=bf16_operands,
                                round_operands=bf16_operands)
     _check(q, k, v, dout.dtype, dout, lse, delta)
-    if bf16_operands:
-        dout = dout.to(torch.bfloat16)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _run(name, (q, k, v, dout, lse, delta, dk, dv), q, k, scale, causal,
          dout.dtype)

@@ -8,12 +8,12 @@ repo's conftest imports JAX, so on such a machine run it as
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerances: fp32 1e-5 (the same fp32 arithmetic summed in another order;
-the sm90 fwd and dkv kernels take fp32 as 3xTF32, within about 2^-21 of fp32
+the sm90 kernels take fp32 as 3xTF32, within about 2^-21 of fp32
 products); bf16 2e-2, about two bf16 ulps at the outputs' magnitude. The
 sm90 kernels on bf16 are held to the plain versions that round their
-operands where the tensor cores take them in bf16: dkv's p, ds and dO
-(``round_operands=True``), dq's ds, with an fp32 dO carried as two bf16
-terms (``split_dout=True, round_ds=True``).
+operands where the tensor cores take them in bf16: dkv's p and ds
+(``round_operands=True``), dq's ds (``round_ds=True``), each with an fp32
+dO carried as two bf16 terms (``split_dout=True``).
 """
 
 import numpy as np
@@ -45,9 +45,9 @@ CASES = [
     (2, 256, 4, 4, 32, torch.bfloat16, False, torch.float32),    # fp32 o
     (1, 300, 8, 2, 96, torch.bfloat16, True, torch.bfloat16),    # GQA, D 96
     (2, 1000, 2, 2, 96, torch.bfloat16, False, torch.bfloat16),  # ragged
-    (2, 130, 4, 2, 48, torch.bfloat16, True, torch.bfloat16),    # dkv: SIMT
-    # fwd and dq at every head_dim: padded widths, fp32 dO with bf16 q
-    (2, 200, 4, 2, 48, torch.float32, True, torch.float32),      # dkv: SIMT
+    (2, 130, 4, 2, 48, torch.bfloat16, True, torch.bfloat16),    # padded
+    # every kernel at every head_dim: padded widths, fp32 dO with bf16 q
+    (2, 200, 4, 2, 48, torch.float32, True, torch.float32),      # padded
     (1, 300, 4, 1, 80, torch.bfloat16, False, torch.bfloat16),   # MQA, D 80
     (2, 130, 2, 2, 8, torch.bfloat16, True, torch.bfloat16),     # smallest D
     (2, 256, 4, 2, 96, torch.bfloat16, True, torch.float32),     # fp32 dO
@@ -105,10 +105,11 @@ def test_kernels_match_plain_versions(cuda, case, variant):
         _kernels.flash_dq_plain(*args, split_dout=dq_bf16,
                                 round_ds=dq_bf16).float(),
         rtol=tol, atol=tol)
+    dkv_bf16 = bf16 and names["flash_dkv"].endswith("_sm90")
     for got, want in zip(_kernels.flash_dkv(*args, variant=variant),
                          _kernels.flash_dkv_plain(
-                             *args, round_operands=bf16 and names[
-                                 "flash_dkv"].endswith("_sm90"))):
+                             *args, split_dout=dkv_bf16,
+                             round_operands=dkv_bf16)):
         assert got.shape == k.shape and got.dtype == k.dtype
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
@@ -148,6 +149,35 @@ def test_dq_with_fp32_dout_keeps_its_lo_term(cuda, case):
     print(f"dq with fp32 dO {case[:7]}: {near:.4g} from two terms, "
           f"{far:.4g} from one")
     assert near < 0.5 * far
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FP32_DOUT_CASES,
+                         ids=lambda c: "-".join(map(str, c[:7])))
+def test_dkv_with_fp32_dout_keeps_its_lo_term(cuda, case):
+    """flash_dkv_sm90 with bf16 q splits an fp32 dO into two bf16 terms for
+    both products that read it (dP^T and dV). A kernel that dropped the lo
+    term would still pass the kernels test's 2e-2, so its dk and dv must
+    each lie nearer the plain version that takes both terms than the one
+    that rounds dO to one: at most half as far, in the Frobenius norm."""
+    q, k, v, do = _inputs(case, cuda)
+    causal = case[6]
+    scale = q.shape[-1] ** -0.5
+    o, lse = _kernels.flash_fwd_plain(q, k, v, scale, causal, torch.float32)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, scale, causal)
+    assert _kernels._kernel("flash_dkv", q, None) == "flash_dkv_sm90"
+    got = _kernels.flash_dkv(*args)
+    two = _kernels.flash_dkv_plain(*args, split_dout=True,
+                                   round_operands=True)
+    one = _kernels.flash_dkv_plain(q, k, v, do.to(torch.bfloat16), lse,
+                                   delta, scale, causal, round_operands=True)
+    for name, g, t, o1 in zip(("dk", "dv"), got, two, one):
+        near = float((g.float() - t.float()).norm())
+        far = float((g.float() - o1.float()).norm())
+        print(f"{name} with fp32 dO {case[:7]}: {near:.4g} from two terms, "
+              f"{far:.4g} from one")
+        assert near < 0.5 * far, name
 
 
 @pytest.mark.cuda

@@ -1,11 +1,12 @@
 """The routes the tensor-core kernels took over from the SIMT ones, on the
 CPU: the forward and dk/dv kernels' fp32 at head_dim 32/64/96/128 and bf16
-at head_dim 32 and 96, then dq's fp32 and bf16 at every head_dim and the
-forward's head_dims off the 32-grid (48, 80), and the sequence ring's bf16
-q with an fp32 o and dO. Each wrapper runs the plain version of the kernel
-it would launch on a CUDA tensor, and the port's flash attention on these
-routes is held against the JAX package's (Pallas interpret mode, as
-tests/test_flash_attention.py runs it) on the same numpy inputs.
+at head_dim 32 and 96, then dq's fp32 and bf16 at every head_dim, the
+forward's and dk/dv's head_dims off the 32-grid (8, 48, 80), and the
+sequence ring's bf16 q with an fp32 o and dO. Each wrapper runs the plain
+version of the kernel it would launch on a CUDA tensor, and the port's
+flash attention on these routes is held against the JAX package's (Pallas
+interpret mode, as tests/test_flash_attention.py runs it) on the same numpy
+inputs.
 
 Tolerances: bf16 5e-2 (tests/test_torch_port_flash.py's: the two sides
 round p, o and, on the sm90 route, p and ds before the dk/dv products and
@@ -64,7 +65,7 @@ ROUTES = pytest.mark.parametrize("d,dtype,causal,s,h,h_kv", [
     (96, torch.float32, True, 128, 4, 2),
     (96, torch.float32, False, 64, 2, 1),
     # dq on the tensor cores: fp32 (3xTF32) at every head_dim, bf16 off
-    # 64/128; fwd and dq at head_dims off the 32-grid (dkv there: SIMT)
+    # 64/128; all three kernels at head_dims off the 32-grid (padded)
     (32, torch.float32, True, 128, 4, 2),
     (48, torch.float32, True, 96, 4, 2),
     (64, torch.float32, False, 64, 2, 2),
@@ -100,19 +101,16 @@ def test_flash_on_the_new_routes_matches_jax(d, dtype, causal, s, h, h_kv):
 def test_cpu_wrappers_run_the_plain_version_of_their_route(d, dtype, causal,
                                                           s, h, h_kv):
     """On a CPU tensor each wrapper runs the plain version of the kernel it
-    would launch: fwd and dq take sm90 at every head_dim, dkv at 32/64/96/128
-    and SIMT elsewhere; dkv on bf16 rounds p and ds (flash_dkv_sm90's bf16
-    operands), dq on bf16 carries dO as two bf16 terms and rounds ds, and on
-    fp32 both keep every operand (3xTF32 stands for fp32)."""
+    would launch: all three take sm90 at every head_dim; on bf16 dkv carries
+    dO as two bf16 terms and rounds p and ds (flash_dkv_sm90's bf16
+    operands), dq carries dO as two bf16 terms and rounds ds, and on fp32
+    both keep every operand (3xTF32 stands for fp32)."""
     q, k, v, do = (torch.tensor(x).to(dtype)
                    for x in _inputs(1, s, h, h_kv, d, seed=1))
     scale = d ** -0.5
     o, lse = _kernels.flash_fwd(q, k, v, scale, causal, dtype)
-    dkv_sm90 = d in (32, 64, 96, 128)
-    assert _kernels._kernel("flash_fwd", q, None) == "flash_fwd_sm90"
-    assert _kernels._kernel("flash_dq", q, None) == "flash_dq_sm90"
-    assert _kernels._kernel("flash_dkv", q, None) == \
-        ("flash_dkv_sm90" if dkv_sm90 else "flash_dkv")
+    for base in ("flash_fwd", "flash_dq", "flash_dkv"):
+        assert _kernels._kernel(base, q, None) == base + "_sm90"
     for got, want in zip((o, lse), _kernels.flash_fwd_plain(
             q, k, v, scale, causal, dtype)):
         assert torch.equal(got, want)
@@ -120,17 +118,16 @@ def test_cpu_wrappers_run_the_plain_version_of_their_route(d, dtype, causal,
     args = (q, k, v, do, lse, delta, scale, causal)
     bf16 = dtype == torch.bfloat16
     for got, want in zip(_kernels.flash_dkv(*args),
-                         _kernels.flash_dkv_plain(
-                             *args, round_operands=bf16 and dkv_sm90)):
+                         _kernels.flash_dkv_plain(*args, split_dout=bf16,
+                                                  round_operands=bf16)):
         assert torch.equal(got, want)
     dq = _kernels.flash_dq(*args)
     assert torch.equal(dq, _kernels.flash_dq_plain(
         *args, split_dout=bf16, round_ds=bf16))
     if bf16:   # the rounding is real at these inputs: the routes differ
         assert not torch.equal(dq, _kernels.flash_dq_plain(*args))
-        if dkv_sm90:
-            assert not torch.equal(_kernels.flash_dkv(*args)[0],
-                                   _kernels.flash_dkv_plain(*args)[0])
+        assert not torch.equal(_kernels.flash_dkv(*args)[0],
+                               _kernels.flash_dkv_plain(*args)[0])
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -138,9 +135,10 @@ def test_ring_route_bf16_q_with_fp32_o_matches_jax(causal):
     """The sequence ring's blocks: bf16 q, k, v with an fp32 o, so an fp32
     dO (horovod_tpu_torch/parallel/sequence.py). Held against the JAX
     package with the same out_dtype at the bf16 tolerance; on the CPU the
-    dq wrapper runs flash_dq_sm90's plain version, which carries dO as two
-    bf16 terms where the parent route rounded it to one, and that keeps dq
-    closer to the fp32-operand version than the one rounding does."""
+    dq and dkv wrappers run flash_dq_sm90's and flash_dkv_sm90's plain
+    versions, which carry dO as two bf16 terms, and that keeps dq closer to
+    the fp32-operand version than one rounding does (dkv's own check is
+    test_ring_route_dkv_carries_fp32_dout_as_two_terms)."""
     d, s, h, h_kv = 64, 128, 4, 2
     q, k, v, do = _inputs(2, s, h, h_kv, d, seed=2)
     o_j, lse_j, g_j = _jax_side(q, k, v, do, causal, jnp.bfloat16, 32,
@@ -177,23 +175,59 @@ def test_ring_route_bf16_q_with_fp32_o_matches_jax(causal):
     assert (two - want).abs().max() < (one - want).abs().max()
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_route_dkv_carries_fp32_dout_as_two_terms(causal):
+    """The sequence ring's blocks (bf16 q, k, v with an fp32 dO): on the CPU
+    the dkv wrapper runs flash_dkv_sm90's plain version, which splits dO
+    into two bf16 terms where the parent route rounded it to one. In fp32
+    (before dk and dv's final rounding to bf16), p and ds rounded on every
+    side, the two terms lie nearer the fp32-dO version than one rounding
+    does."""
+    d, s, h, h_kv = 64, 128, 4, 2
+    q, k, v, do = _inputs(2, s, h, h_kv, d, seed=3)
+    qt, kt, vt = (torch.tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    dot = torch.tensor(do)
+    scale = d ** -0.5
+    o, lse = _kernels.flash_fwd(qt, kt, vt, scale, causal, torch.float32)
+    delta = (dot * o).sum(-1).transpose(1, 2).contiguous()
+    args = (qt, kt, vt, dot, lse, delta, scale, causal)
+    for got, want in zip(_kernels.flash_dkv(*args),
+                         _kernels.flash_dkv_plain(*args, split_dout=True,
+                                                  round_operands=True)):
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, want)
+    f32 = [x.float() for x in (qt, kt, vt)]
+    rest = (lse, delta, scale, causal)
+    want = _kernels.flash_dkv_plain(*f32, dot, *rest, round_operands=True)
+    two = _kernels.flash_dkv_plain(*f32, dot, *rest, split_dout=True,
+                                   round_operands=True)
+    one = _kernels.flash_dkv_plain(*f32, dot.to(torch.bfloat16), *rest,
+                                   round_operands=True)
+    for name, w, t, o1 in zip(("dk", "dv"), want, two, one):
+        assert (t - w).abs().max() < (o1 - w).abs().max(), name
+
+
 def test_dq_and_fwd_take_sm90_on_every_route_and_dkv_refuses_it_off_the_grid():
-    """flash_fwd_sm90 and flash_dq_sm90 take bf16 and fp32 at every head_dim
-    the kernels take (8..128 in steps of 8), so no route reaches the SIMT
-    fwd or dq; flash_dkv_sm90 still takes head_dim 32, 64, 96 and 128 only,
-    and asked for elsewhere it raises."""
+    """flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90 take bf16 and fp32
+    at every head_dim on the kernels' grid (8..128 in steps of 8), so no
+    route reaches a SIMT kernel, and each works asked for by name at a
+    padded head_dim (48); off that grid (a head_dim that is no multiple of
+    8) dkv's tensor-core kernel, asked for by name, raises."""
     lse = torch.zeros(1, 2, 8)
     for dtype in (torch.bfloat16, torch.float32):
         for d in range(8, 129, 8):
-            assert _kernels._variant("flash_fwd", dtype, d) == "sm90"
-            assert _kernels._variant("flash_dq", dtype, d) == "sm90"
-            assert _kernels._variant("flash_dkv", dtype, d) == \
-                ("sm90" if d in (32, 64, 96, 128) else "simt")
+            for base in ("flash_fwd", "flash_dq", "flash_dkv"):
+                assert _kernels._variant(base, dtype, d) == "sm90"
         q = torch.zeros(1, 8, 2, 48, dtype=dtype)
         _kernels.flash_fwd(q, q, q, 1.0, True, dtype, variant="sm90")
         _kernels.flash_dq(q, q, q, q, lse, lse, 1.0, True, variant="sm90")
+        dk, dv = _kernels.flash_dkv(q, q, q, q, lse, lse, 1.0, True,
+                                    variant="sm90")
+        assert dk.shape == dv.shape == q.shape and dk.dtype == dtype
+        q = torch.zeros(1, 8, 2, 44, dtype=dtype)
+        assert _kernels._variant("flash_dkv", dtype, 44) == "simt"
         with pytest.raises(ValueError, match="flash_dkv_sm90 takes bfloat16 "
-                                             "or float32 with head_dim 32, "
-                                             "64, 96, 128"):
+                                             "or float32 with head_dim 8, "
+                                             "16, 24"):
             _kernels.flash_dkv(q, q, q, q, lse, lse, 1.0, True,
                                variant="sm90")

@@ -33,16 +33,16 @@ BF16_OPERANDS = 2e-2
 
 
 @pytest.mark.parametrize("dtype,d,fwd_dq,dkv", [
-    (torch.bfloat16, 8, "sm90", "simt"),
+    (torch.bfloat16, 8, "sm90", "sm90"),
     (torch.bfloat16, 32, "sm90", "sm90"),      # the entry config's head_dim
-    (torch.bfloat16, 48, "sm90", "simt"),
+    (torch.bfloat16, 48, "sm90", "sm90"),
     (torch.bfloat16, 64, "sm90", "sm90"),
     (torch.bfloat16, 96, "sm90", "sm90"),
     (torch.bfloat16, 128, "sm90", "sm90"),
-    (torch.float32, 8, "sm90", "simt"),
+    (torch.float32, 8, "sm90", "sm90"),
     (torch.float32, 32, "sm90", "sm90"),
     (torch.float32, 64, "sm90", "sm90"),
-    (torch.float32, 80, "sm90", "simt"),
+    (torch.float32, 80, "sm90", "sm90"),
     (torch.float32, 96, "sm90", "sm90"),
     (torch.float32, 128, "sm90", "sm90"),
 ])
@@ -57,14 +57,15 @@ def test_variant_routes_by_dtype_and_head_dim(dtype, d, fwd_dq, dkv):
 
 
 @pytest.mark.parametrize("dtype,d,variant,match", [
-    (torch.float32, 48, "sm90",
-     "flash_dkv_sm90 takes bfloat16 or float32 with head_dim 32, 64, 96, "
-     "128"),
-    (torch.bfloat16, 40, "sm90", "flash_dkv_sm90 takes"),
+    (torch.float32, 44, "sm90",
+     "flash_dkv_sm90 takes bfloat16 or float32 with head_dim 8, 16, 24, "),
+    (torch.bfloat16, 136, "sm90", "flash_dkv_sm90 takes"),
     (torch.bfloat16, 64, "wgmma", "variant must be"),
 ])
 def test_explicit_variant_must_take_the_inputs(dtype, d, variant, match):
-    """Only dkv has head_dims without a tensor-core route."""
+    """A design asked for by name that does not take the inputs raises: the
+    tensor-core dkv off the kernels' head_dims (8..128 in steps of 8), or
+    an unknown variant."""
     q = torch.zeros(1, 16, 2, d, dtype=dtype)
     lse = torch.zeros(1, 2, 16)
     with pytest.raises(ValueError, match=match):
@@ -144,7 +145,8 @@ def test_dq_with_bf16_operands_matches_jax(b, s, h, h_kv, causal):
 @SHAPES
 def test_dkv_with_bf16_operands_matches_jax(b, s, h, h_kv, causal):
     (_, dk_j, dv_j), args = _grads_and_args(b, s, h, h_kv, causal)
-    dk, dv = _kernels.flash_dkv_plain(*args, round_operands=True)
+    dk, dv = _kernels.flash_dkv_plain(*args, split_dout=True,
+                                      round_operands=True)
     for name, got, want in (("dk", dk, dk_j), ("dv", dv, dv_j)):
         np.testing.assert_allclose(got.float().numpy(), want,
                                    rtol=BF16_OPERANDS, atol=BF16_OPERANDS,

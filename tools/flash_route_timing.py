@@ -16,11 +16,12 @@ its own ``horovod_tpu_torch/csrc/build``, prints ptxas's summary of every
 tensor-core kernel it built (``PTXAS`` lines), then one JSON line per
 kernel check and timing, as chip_smoke.py does, at the shapes of each
 name given to ``--shapes``, in that order: ``routes``
-(chip_smoke.ROUTE_SHAPES, the default), ``main`` (chip_smoke.MAIN_SHAPE)
-and ``ring`` (chip_smoke.RING_CASES, the sequence ring's blocks, whose
-checks include each bf16 kernel's distance to the plain version with fp32
-operands; after ``main``, also held to the main shape's). Every shape it
-runs is timed. Needs a CUDA card.
+(chip_smoke.ROUTE_SHAPES, the default), ``main`` (chip_smoke.MAIN_SHAPE),
+``ring`` (chip_smoke.RING_CASES, the sequence ring's blocks, whose checks
+include each bf16 kernel's distance to the plain version with fp32
+operands; after ``main``, also held to the main shape's) and ``ring_wide``
+(chip_smoke.RING_WIDE_CASE, a ring block at head_dim 128; checkouts that
+have it). Every shape it runs is timed. Needs a CUDA card.
 """
 
 import argparse
@@ -35,7 +36,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--repo", help="a checkout whose kernels to run "
                     "(default: this one)")
-    ap.add_argument("--shapes", nargs="+", choices=("routes", "main", "ring"),
+    ap.add_argument("--shapes", nargs="+",
+                    choices=("routes", "main", "ring", "ring_wide"),
                     default=["routes"])
     args = ap.parse_args()
     root = Path(args.repo).resolve() if args.repo else REPO
@@ -57,9 +59,10 @@ def main():
         if name.endswith("_sm90"):
             for line in C.ptxas_summary(log):
                 print("PTXAS", line, flush=True)
-    cases = [c for name in args.shapes
-             for c in {"routes": C.ROUTE_SHAPES, "main": [C.MAIN_SHAPE],
-                       "ring": C.RING_CASES}[name]]
+    shapes = {"routes": lambda: C.ROUTE_SHAPES, "main": lambda: [C.MAIN_SHAPE],
+              "ring": lambda: C.RING_CASES,
+              "ring_wide": lambda: [C.RING_WIDE_CASE]}
+    cases = [c for name in args.shapes for c in shapes[name]()]
     # kernel_phase times only the shapes in TIMED
     C.TIMED.extend(c for c in cases if c not in C.TIMED)
     for case in cases:
