@@ -10,7 +10,7 @@ Phases, each of which exits non-zero on a failure:
    from csrc/ with nvcc, one process per source, in parallel.
 3. kernels: hold every kernel against its plain PyTorch version, and the
    autograd Function built on them (cotangents on o and on lse) against
-   autograd of flash_attention_reference, at twenty shapes: the main
+   autograd of flash_attention_reference, at twenty-seven shapes: the main
    path's (B 8, H 12, S 1024, D 64, bf16, causal), the accumulation
    phase's micro-batch (the same with B 4), non-causal, GQA (H 12,
    H_kv 4), ragged (S 1000, D 32, fp32), bf16 ragged (S 1000, D 64), bf16
@@ -35,7 +35,12 @@ Phases, each of which exits non-zero on a failure:
    time each kernel that runs there, its plain version and the PyTorch
    library call that computes the same attention in the same dtype
    (scaled_dot_product_attention, timed only as a yardstick), beside the
-   kernel's bound on an H100.
+   kernel's bound on an H100. The wide heads (bf16 q, o and dO at head_dim
+   136..256, which only the sm90 kernels take) are timed shapes too: d_model
+   768 at D 256 (H 3), D 192 (H 4) and D 200 (H 3, padded to 256), and the
+   wide_head phase's attention (H 8, H_kv 1, D 256); SDPA gets K/V repeated
+   to H heads. The build line carries every instance's ptxas line, and the
+   wide instances' lines are printed again on their own.
 4. main path: hvt.init() (a one-process NCCL world), then
    horovod_tpu_torch.train.train on the bench.py GPT (vocab 32768, 12
    layers, d_model 768, 12 heads, d_ff 3072, seq 1024, bf16, flash
@@ -213,12 +218,21 @@ Phases, each of which exits non-zero on a failure:
    layer a step and no SIMT kernel, and the einsum-attention model from the
    same seed within ENTRY_RTOL of each loss (fp32: dryrun.py's entry
    tolerance; bf16: LOSS_RTOL).
-25. summary: one JSON line listing the kernels (launches on the main path,
+25. wide_head (run last): a GPT with Gemma-2B's attention widths
+   (vocab 32768, 4 layers, d_model 2048, 8 heads of head_dim 256, one K/V
+   head, d_ff 8192, seq 1024, bf16 compute with fp32 parameters,
+   use_flash="auto") through train.train, WIDE_HEAD_STEPS steps on a
+   seeded batch of 8 x 1024: flash_fwd_sm90, flash_dq_sm90 and
+   flash_dkv_sm90 at head_dim 256 (their padded-width-256 instances) once a
+   layer a step and no other kernel, the einsum attention never; the
+   einsum-attention model from the same seed within LOSS_RTOL at steps 1
+   and WIDE_HEAD_STEPS; step ms of both.
+26. summary: one JSON line listing the kernels (launches on the main path,
    or the wire phase's route for the codec kernels; the observe,
    accumulation, sequence, checkpoint, fsdp, launch, elastic, fleet,
-   serving, run, estimator, examples and entry phases; the timings at the
-   kernel's own route's shape, and at every timed shape in by_shape), the
-   nvidia-smi line, and last the {"ok": true, ...} line.
+   serving, run, estimator, examples, entry and wide_head phases; the
+   timings at the kernel's own route's shape, and at every timed shape in
+   by_shape), the nvidia-smi line, and last the {"ok": true, ...} line.
 """
 
 import json
@@ -291,9 +305,23 @@ ROUTE_SHAPES = [(8, 1024, 768 // d, 768 // d, d, dtype, True, dtype)
                                  (32, "bfloat16"), (96, "bfloat16"),
                                  (48, "bfloat16"), (48, "float32"),
                                  (80, "bfloat16"))]
+# the wide heads (bf16 q, o and dO at head_dim 136..256): d_model 768 at
+# B 8, S 1024, causal with D 256 (H 3), D 192 (H 4) and D 200 (H 3, padded to
+# 256, D at run time), and the wide_head phase's own attention (H 8, H_kv 1,
+# D 256)
+WIDE_HEAD_CONFIG = dict(vocab_size=32768, n_layers=4, d_model=2048, n_heads=8,
+                        n_kv_heads=1, d_ff=8192, max_seq_len=1024)
+WIDE_HEAD_BATCH, WIDE_HEAD_STEPS = 8, 7
+WIDE_HEAD_SHAPE = (WIDE_HEAD_BATCH, WIDE_HEAD_CONFIG["max_seq_len"],
+                   WIDE_HEAD_CONFIG["n_heads"], WIDE_HEAD_CONFIG["n_kv_heads"],
+                   WIDE_HEAD_CONFIG["d_model"] // WIDE_HEAD_CONFIG["n_heads"],
+                   "bfloat16", True, "bfloat16")
+WIDE_SHAPES = [(8, 1024, h, h, d, "bfloat16", True, "bfloat16")
+               for d, h in ((256, 3), (192, 4), (200, 3))] + [WIDE_HEAD_SHAPE]
 # and the ring's causal blocks: bf16 q with an fp32 dO, which flash_dq_sm90
 # and flash_dkv_sm90 split into two bf16 terms in shared memory
-TIMED = [MAIN_SHAPE, RING_CASES[0], RING_WIDE_CASE, *ROUTE_SHAPES]
+TIMED = [MAIN_SHAPE, RING_CASES[0], RING_WIDE_CASE, *ROUTE_SHAPES,
+         *WIDE_SHAPES]
 CASES = [MAIN_SHAPE,
          MICRO_SHAPE,
          (8, 1024, 12, 12, 64, "bfloat16", False, "bfloat16"),
@@ -304,7 +332,8 @@ CASES = [MAIN_SHAPE,
          (4, 1024, 8, 8, 32, "bfloat16", True, "bfloat16"),
          (2, 1000, 8, 2, 96, "bfloat16", True, "bfloat16"),
          (1, 4096, 4, 2, 64, "float32", True, "float32"),
-         *RING_CASES, RING_WIDE_CASE, ULYSSES_CASE, *ROUTE_SHAPES]
+         *RING_CASES, RING_WIDE_CASE, ULYSSES_CASE, *ROUTE_SHAPES,
+         *WIDE_SHAPES]
 # the shape whose timing stands in the kernels line for each SIMT kernel:
 # bf16 D 48 at d_model 768, where, since no route sends any kernel to the
 # SIMT design, they are timed as variant="simt" beside the padded sm90 ones
@@ -679,8 +708,9 @@ def kernel_phase(case, K, ref_fn, timings):
     shape = {"B": b, "S": s, "H": h, "H_kv": h_kv, "D": d,
              "dtype": dtype_name, "causal": causal, "o": out_name}
     route = route_launches(K, q)
-    # None: each kernel's own route; every route reaches an sm90 kernel
-    variants = (None, "simt")
+    # None: each kernel's own route; every route reaches an sm90 kernel. The
+    # SIMT design takes head_dim up to 128
+    variants = (None, "simt") if d <= K.SIMT_MAX_HEAD_DIM else (None,)
 
     # both designs get the same inputs: the backward starts from the plain
     # forward's o and lse
@@ -961,6 +991,85 @@ def entry_phase(K):
                  f"{ENTRY_RTOL[dtype_name]} of the einsum model's "
                  f"{einsum['loss']}")
         del res, einsum
+    return launches
+
+
+def wide_head_phase(K):
+    """A GPT with Gemma-2B's attention widths (module docstring, phase 25)
+    through train.train with use_flash="auto": the head_dim-256 instances of
+    the three sm90 kernels once a layer a step, no einsum attention, and the
+    einsum model's losses from the same seed within LOSS_RTOL at steps 1 and
+    WIDE_HEAD_STEPS. Returns the launches."""
+    import dataclasses
+
+    import torch
+
+    from horovod_tpu_torch.models import transformer
+    from horovod_tpu_torch.models.transformer import GPTConfig
+    from horovod_tpu_torch.train import train
+
+    cfg = GPTConfig(**WIDE_HEAD_CONFIG, dtype=torch.bfloat16, use_flash="auto")
+    d = cfg.d_model // cfg.n_heads
+    batch, seq, steps = WIDE_HEAD_BATCH, cfg.max_seq_len, WIDE_HEAD_STEPS
+    # the einsum path's one call of its own, counted for both runs
+    einsum_calls = []
+    repeat_kv = transformer._repeat_kv
+
+    def counted(*args):
+        einsum_calls.append(1)
+        return repeat_kv(*args)
+
+    transformer._repeat_kv = counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        res = train(cfg, steps, batch, seq, seed=0)
+        launches = dict(K.LAUNCHES)
+        flash_einsum = len(einsum_calls)
+        peak = torch.cuda.max_memory_allocated()
+        del res["model"], res["optimizer"]
+        torch.cuda.empty_cache()
+        K.reset_launches()
+        einsum = train(dataclasses.replace(cfg, use_flash=False), steps,
+                       batch, seq, seed=0)
+        einsum_launches = {n: c for n, c in K.LAUNCHES.items() if c}
+        del einsum["model"], einsum["optimizer"]
+    finally:
+        transformer._repeat_kv = repeat_kv
+    want = {n: cfg.n_layers * steps if n in route_launches(
+        K, torch.empty(1, 1, cfg.n_heads, d, dtype=cfg.dtype, device="meta"))
+        else 0 for n in launches}
+    losses = res["loss"]
+    rels = [abs(a - e) / abs(e) for a, e in zip(losses, einsum["loss"])]
+    emit({"phase": "wide_head", "config": {**WIDE_HEAD_CONFIG,
+                                           "dtype": "bfloat16",
+                                           "use_flash": "auto"},
+          "batch": batch, "seq": seq, "head_dim": d,
+          "instances": "flash_{fwd,dq,dkv}_sm90 at padded width 256, D 256",
+          "losses": losses, "einsum_losses": einsum["loss"],
+          "rel_diff": rels, "rtol": LOSS_RTOL, "launches": launches,
+          "einsum_attention_calls": flash_einsum,
+          "step_ms_median":
+          statistics.median(res["step_s"][STEPS_WARMUP:]) * 1e3,
+          "einsum_step_ms_median":
+          statistics.median(einsum["step_s"][STEPS_WARMUP:]) * 1e3,
+          "max_memory_allocated_bytes": peak})
+    if launches != want:
+        fail(f"wide_head: launched {launches}, expected {want}")
+    if flash_einsum:
+        fail(f"wide_head: use_flash='auto' ran the einsum attention "
+             f"{flash_einsum} times")
+    if einsum_launches or len(einsum_calls) != cfg.n_layers * steps:
+        fail(f"wide_head: the einsum model launched {einsum_launches} or "
+             f"ran its attention {len(einsum_calls)} times")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"wide_head: losses {losses} are not finite and falling")
+    for i in (0, steps - 1):
+        if rels[i] > LOSS_RTOL:
+            fail(f"wide_head step {i + 1}: einsum loss {einsum['loss'][i]} "
+                 f"vs flash loss {losses[i]}: rel diff {rels[i]:.3g} > "
+                 f"{LOSS_RTOL}")
     return launches
 
 
@@ -2792,6 +2901,11 @@ def main():
           "libraries": {n: p.name for n, p in libs.items()},
           "ptxas": {n: ptxas_summary(log)
                     for n, log in K.build_log().items()}})
+    # the wide-head instances (padded width 192 and 256) on their own
+    emit({"phase": "build", "wide_head_instances": {
+        n: [line for line in ptxas_summary(log)
+            if "wide_kernel" in line or "ILi192E" in line or "ILi256E" in line]
+        for n, log in K.build_log().items() if n.endswith("_sm90")}})
     timings = {}
     for case in CASES:
         kernel_phase(case, K, flash_attention_reference, timings)
@@ -2847,6 +2961,12 @@ def main():
     tools_phase(fleet_timeline, hvt_top)
     emit({"phase": "slice12_seconds", "examples": t1 - t0,
           "tools": time.perf_counter() - t1})
+    # last: run before the observe phase on the card, it was followed by
+    # three of three profiler sessions there that lost their first records
+    t0 = time.perf_counter()
+    wide_launches = wide_head_phase(K)
+    hvt.shutdown()
+    emit({"phase": "wide_head_seconds", "seconds": time.perf_counter() - t0})
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -2874,6 +2994,7 @@ def main():
          "launches_examples_long_context": examples_launches[name],
          "launches_entry_fp32": entry_launches[f"{name}@float32"],
          "launches_entry_bf16": entry_launches[f"{name}@bfloat16"],
+         "launches_wide_head": wide_launches[name],
          **line_timing(K, name, timings)} for name in K.LAUNCHES]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

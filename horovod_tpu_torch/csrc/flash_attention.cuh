@@ -7,7 +7,9 @@
 // Layout contract, checked by the Python wrappers in ops/_kernels.py:
 //   q, k, v, o, dO   [B, S, H, D] contiguous (k and v carry H_kv heads)
 //   lse, delta       [B, H, S] fp32 contiguous
-//   H % H_kv == 0, 0 < D <= 128, D % 8 == 0, any S.
+//   H % H_kv == 0, D % 8 == 0, any S; 0 < D <= 128 for the SIMT kernels
+//   and fp32 (or an fp32 o/dO) on the tensor cores, 0 < D <= 256 for bf16
+//   q, o and dO on the tensor cores.
 //
 // Every SIMT kernel works on 64 x 64 tiles with 256 threads laid out 16 x 16:
 // thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of a
@@ -26,7 +28,8 @@ namespace hvt {
 constexpr int kTile = 64;         // query rows and key rows per tile
 constexpr int kThreads = 256;     // 16 x 16
 constexpr int kPadS = kTile + 1;  // row stride of a 64 x 64 score tile in shared memory
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 128;       // the SIMT kernels' widest head
+constexpr int kMaxDSm90 = 256;   // the tensor-core kernels' (bf16 q, o and dO)
 constexpr float kMasked = -1e30f;  // the reference's fill for causally masked scores
 
 enum DType { kF32 = 0, kBF16 = 1 };
@@ -71,8 +74,8 @@ __device__ __forceinline__ float sum16(float x) {
   return x;
 }
 
-inline bool valid_shape(int B, int S, int H, int Hkv, int D) {
-  return B >= 0 && S >= 0 && H > 0 && Hkv > 0 && H % Hkv == 0 && D > 0 && D <= kMaxD &&
+inline bool valid_shape(int B, int S, int H, int Hkv, int D, int max_d = kMaxD) {
+  return B >= 0 && S >= 0 && H > 0 && Hkv > 0 && H % Hkv == 0 && D > 0 && D <= max_d &&
          D % 8 == 0;
 }
 

@@ -3,7 +3,8 @@
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_dkv_kernel (pl.pallas_call in
 // _flash_bwd) for q/k/v in bf16 or fp32 with any head_dim the port takes
-// (8..128 in steps of 8); flash_dkv.cu stays built and checked as the SIMT
+// (8..128 in steps of 8, and bf16 q with a bf16 dO up to 256, in
+// flash_dkv_sm90_wide_kernel); flash_dkv.cu stays built and checked as the SIMT
 // design, on no route. For each key tile:
 //   p = exp(scale q k^T - lse) with the causal fill, dv += p^T dO,
 //   dp = dO v^T, ds = p (dp - delta), dk += ds^T q * scale,
@@ -76,6 +77,31 @@
 // three products bound every fp32 instance; the transposed splits and the
 // 16-query products at DP 96/128 come on top. An fp32 dO adds a third of
 // the bf16 products (V dO_lo^T, P^T dO_lo) and its split.
+//
+// Wide heads, bf16 q and dO at DP 192 and 256 (head_dim 136..256; D fixed
+// at 192 and 256, at run time between). The design above does not fit: a
+// warpgroup's dK and dV accumulators are 2 * DP / 2 fp32 registers a
+// thread, 256 at DP 256, over the 255 a thread may have before anything
+// else, and K, V resident for 128 keys are 128 KB. So the two warpgroups
+// of a 256-thread block share one 64-key tile and split the work by
+// product instead of by keys:
+//   S^T, dP^T      each warpgroup its own 32 queries of the 64-row Q/dO
+//                  tile: wgmma m64n32k16, K (V) and Q (dO) K-major;
+//   P^T, dS^T      on those fragments, rounded to bf16 and written into two
+//                  64 x 64 tiles in shared memory (the K-major A operand of
+//                  the next products), which both warpgroups then read;
+//   dV += P^T dO   warpgroup 0, wgmma m64nDPk16, P^T from shared memory,
+//                  dO MN-major over three or four panels;
+//   dK += dS^T Q   warpgroup 1, the same with dS^T and Q.
+// A thread holds one DP / 2 accumulator (128 registers at DP 256) and 16 +
+// 16 for S^T and dP^T; the products are split evenly, S^T and dP^T are
+// formed once, and the cost is two block barriers a Q tile (the A tiles are
+// rewritten only once both warpgroups' products have read them). Shared
+// memory: K and V 2 * 64 * DP * 2 B, two stages of Q and dO (as much
+// again), the two A tiles (16 KB): 160 KB at DP 192, 208 KB at DP 256;
+// one block per SM. Two passes over D's halves would recompute S^T and dP^T
+// (1.5 times the products); 32-key warpgroups do not exist (wgmma's M is
+// 64).
 #include "flash_attention.cuh"
 #include "sm90.cuh"
 
@@ -368,6 +394,209 @@ __global__ void __launch_bounds__(DkvCfg<DP, T, kDoTerms>::kThreads, 1)
   }
 }
 
+// Tile sizes and the shared-memory layout of the wide-head kernel (see Wide
+// heads): bf16 q and dO at padded width DP 192 or 256.
+template <int DP>
+struct DkvWideCfg {
+  static_assert(DP == 192 || DP == 256, "DP: three or four bf16 panels");
+  static constexpr int kThreads = 256;  // two warpgroups
+  static constexpr int kBKV = 64;       // keys per block, shared by both warpgroups
+  static constexpr int kBQ = 64;        // query rows a tile, 32 a warpgroup for S^T, dP^T
+  static constexpr int kStages = 2;
+  static constexpr int kKV = kBKV * DP * 2;  // bytes of the K (or V) tile
+  static constexpr int kQ = kBQ * DP * 2;    // of one Q (or dO) tile
+  static constexpr int kStage = 2 * kQ;
+  static constexpr int kA = kBKV * kBQ * 2;  // P^T or dS^T, bf16, one 128-byte panel a row
+  static constexpr int kBarriers = (1 + 2 * kStages) * 8;
+  static constexpr int kBytes =
+      2 * kKV + kStages * kStage + 2 * kA + kBarriers + sm90::kAtomBytes;
+  static_assert(kBytes <= 232448, "a block's shared memory");
+};
+
+// kD: the head_dim where it is fixed at compile time, else 0 and d_rt
+// gives it.
+template <int DP, int kD>
+__global__ void __launch_bounds__(256, 1)
+    flash_dkv_sm90_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                               int S, int H, int Hkv, int d_rt, float scale, float scale_log2,
+                               int causal) {
+  using namespace sm90;
+  using L = DkvWideCfg<DP>;
+  constexpr int kBKV = L::kBKV, kBQ = L::kBQ, kStages = L::kStages;
+  const int D = kD ? kD : d_rt;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1k(smem_raw);
+  uint8_t* k_s = smem;
+  uint8_t* v_s = smem + L::kKV;
+  uint8_t* qdo_s = smem + 2 * L::kKV;  // stage s at qdo_s + s kStage: Q, dO
+  uint8_t* pt_s = qdo_s + kStages * L::kStage;  // P^T, then dS^T at pt_s + kA
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(pt_s + 2 * L::kA);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + kStages;
+
+  const int kt = blockIdx.x;  // low key tiles see the most queries: start them first
+  const int hk = blockIdx.y, b = blockIdx.z, group = H / Hkv;
+  const int k0 = kt * kBKV;
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  const int qt_start = causal ? k0 / kBQ : 0;  // earlier query tiles see none of these keys
+  const int per_head = n_qt - qt_start;
+  const int n_iter = group * per_head;
+  const int tid = threadIdx.x, warp = (tid % 128) / 32, lane = tid % 32;
+  // the warpgroup, through a shuffle so that the compiler knows it is warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], L::kThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  auto load_q = [&](int t, int s) {
+    const int h = hk * group + t / per_head, q0 = (qt_start + t % per_head) * kBQ;
+    uint8_t* dst = qdo_s + s * L::kStage;
+    mbar_expect_tx(&full[s], 2 * L::kQ);
+    tma_load_rows<DP>(dst, &tq, &full[s], kBQ, q0, h, b);
+    tma_load_rows<DP>(dst + L::kQ, &tdo, &full[s], kBQ, q0, h, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * L::kKV);
+    tma_load_rows<DP>(k_s, &tk, bar_kv, kBKV, k0, hk, b);
+    tma_load_rows<DP>(v_s, &tv, bar_kv, kBKV, k0, hk, b);
+    for (int t = 0; t < kStages && t < n_iter; ++t) load_q(t, t);
+  }
+
+  const uint32_t k_addr = smem_u32(k_s), v_addr = smem_u32(v_s), qdo_addr = smem_u32(qdo_s);
+  const uint32_t pt_addr = smem_u32(pt_s), dst_addr = pt_addr + L::kA;
+  const int key_lo = k0 + 16 * warp + lane / 4;  // keys key_lo and key_lo + 8
+  // this warpgroup's product: dV += P^T dO (0) or dK += dS^T Q (1)
+  const uint32_t a_addr = wg == 0 ? pt_addr : dst_addr;
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+  for (int t = 0; t < n_iter; ++t) {
+    const int s = t % kStages;
+    const int h = hk * group + t / per_head, q0 = (qt_start + t % per_head) * kBQ;
+    const int qw = q0 + 32 * wg;  // this warpgroup's first query of S^T, dP^T
+    const uint32_t q_addr = qdo_addr + s * L::kStage, do_addr = q_addr + L::kQ;
+
+    // lse and delta of this thread's 8 queries, read while the products run
+    float lse2[8], dlt[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qp = qw + 8 * (j / 2) + 2 * (lane % 4) + j % 2;
+      const long long off = ((long long)b * H + h) * S + qp;
+      lse2[j] = qp < S ? lse[off] * kLog2e : 0.f;
+      dlt[j] = qp < S ? delta[off] : 0.f;
+    }
+    mbar_wait(&full[s], (t / kStages) & 1);
+
+    float sc[16], dp[16];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<0>(sc, desc_kmajor(k_addr, kBKV, 0, kk), desc_kmajor(q_addr, kBQ, 32 * wg, kk),
+                  kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<0>(dp, desc_kmajor(v_addr, kBKV, 0, kk), desc_kmajor(do_addr, kBQ, 32 * wg, kk),
+                  kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const bool edge = qw + 32 > S || k0 + kBKV > S || (causal && k0 + kBKV - 1 > qw);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int j = 2 * (i / 4) + i % 2;  // the query's slot in lse2, dlt
+      float p = exp2f(fmaf(sc[i], scale_log2, -lse2[j]));
+      if (edge) {
+        const int key = key_lo + 8 * ((i / 2) % 2), qp = qw + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        if (qp >= S || key >= S || (causal && key > qp)) p = 0.f;
+      }
+      sc[i] = p;                    // P^T
+      dp[i] = p * (dp[i] - dlt[j]);  // dS^T
+    }
+
+    // both warpgroups' products of the previous tile have read the A tiles
+    __syncthreads();
+    // this warpgroup's 32 columns of P^T and dS^T, bf16, as the K-major A
+    // operand: row = key (64 rows of one 128-byte panel), column = query
+    // 32 wg + c, swizzled by 16-byte chunk
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const int row = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+      const int col = 32 * wg + 8 * (i / 4) + 2 * (lane % 4);
+      const int off = row * kRowBytes + (((col / 8) ^ (row % 8)) * 16) + (col % 8) * 2;
+      *reinterpret_cast<uint32_t*>(pt_s + off) = pack_bf16(sc[i], sc[i + 1]);
+      *reinterpret_cast<uint32_t*>(pt_s + L::kA + off) = pack_bf16(dp[i], dp[i + 1]);
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1)
+    const uint32_t b_addr = wg == 0 ? do_addr : q_addr;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)
+      wgmma_ss<1>(acc, desc_kmajor(a_addr, kBKV, 0, kk), desc_mnmajor(b_addr, kBQ, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+
+    mbar_arrive(&empty[s]);
+    if (tid == 0 && t + kStages < n_iter) {
+      mbar_wait(&empty[s], (t / kStages) & 1);  // every warpgroup is done with stage s
+      load_q(t + kStages, s);
+    }
+  }
+
+  // warpgroup 0 writes dV, warpgroup 1 dK (with the softmax scale)
+  __nv_bfloat16* out = wg == 0 ? dv : dk;
+  const float mult = wg == 0 ? 1.f : scale;
+  const long long kstride = (long long)Hkv * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_lo + 8 * r;
+    if (key >= S) continue;
+    const long long off = ((long long)b * S + key) * kstride + (long long)hk * D;
+#pragma unroll
+    for (int c = 0; c < (kD ? kD : DP) / 8; ++c) {
+      if (8 * c >= D) continue;  // the padded columns are not written
+      const int i = 4 * c + 2 * r;
+      store2(out + off + 8 * c + 2 * (lane % 4), acc[i] * mult, acc[i + 1] * mult);
+    }
+  }
+}
+
+template <int DP, int kD>
+int launch_dkv_sm90_wide(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, void* dk, void* dv, int B, int S,
+                         int H, int Hkv, int D, float scale, int causal, cudaStream_t stream) {
+  using L = DkvWideCfg<DP>;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_bshd_map(&tq, q, B, S, H, D, L::kBQ);
+  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, L::kBQ);
+  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, L::kBKV);
+  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, L::kBKV);
+  if (err != 0) return err;
+  const dim3 grid((S + L::kBKV - 1) / L::kBKV, Hkv, B);
+  return launch_n(flash_dkv_sm90_wide_kernel<DP, kD>, grid, L::kThreads, L::kBytes, stream, tq,
+                  tk, tv, tdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk,
+                  (__nv_bfloat16*)dv, S, H, Hkv, D, scale, scale * kLog2e, causal);
+}
+
 template <int DP, int kD, typename T, int kDoTerms>
 int launch_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
@@ -386,8 +615,9 @@ int launch_dkv_sm90(const void* q, const void* k, const void* v, const void* dou
                   (T*)dv, S, H, Hkv, D, scale, scale * kLog2e, causal);
 }
 
-// dO in q's dtype at D 32, 64, 96 and 128: D fixed at compile time; every
-// other case at its padded width with D at run time.
+// dO in q's dtype at D 32, 64, 96 and 128 (and bf16 at 192 and 256, the
+// wide kernel): D fixed at compile time; every other case at its padded
+// width with D at run time. D above 128 takes bf16 q and dO only.
 template <typename T, int kDoTerms>
 int launch_dkv_sm90_d(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
@@ -408,7 +638,22 @@ int launch_dkv_sm90_d(const void* q, const void* k, const void* v, const void* d
         return launch_dkv_sm90<128, 128, T, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
                                                D, scale, causal, st);
     }
+    if constexpr (!std::is_same<T, float>::value) {
+      if (D == 192)
+        return launch_dkv_sm90_wide<192, 192>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
+                                              scale, causal, st);
+      if (D == 256)
+        return launch_dkv_sm90_wide<256, 256>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
+                                              scale, causal, st);
+      if (D > 192)
+        return launch_dkv_sm90_wide<256, 0>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
+                                            scale, causal, st);
+      if (D > 128)
+        return launch_dkv_sm90_wide<192, 0>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
+                                            scale, causal, st);
+    }
   }
+  if (D > 128) return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value) {
     switch (padded_width<float>(D)) {
       case 32:
@@ -437,15 +682,16 @@ int launch_dkv_sm90_d(const void* q, const void* k, const void* v, const void* d
 }  // namespace hvt
 
 // Returns 0 or the CUDA error of the launch. The port's head_dims (8..128 in
-// steps of 8) and dtypes: q, k, v and dO fp32 (dtype and dout_dtype 0), dk,
-// dv fp32; q, k, v bf16 (dtype 1) with dO bf16 (dout_dtype 1) or fp32 (0),
-// dk, dv bf16. dk, dv are [B, S, H_kv, D]. The signature is hvt_flash_dkv's.
+// steps of 8; 8..256 with bf16 q and dO) and dtypes: q, k, v and dO fp32
+// (dtype and dout_dtype 0), dk, dv fp32; q, k, v bf16 (dtype 1) with dO
+// bf16 (dout_dtype 1) or fp32 (0), dk, dv bf16. dk, dv are [B, S, H_kv,
+// D]. The signature is hvt_flash_dkv's.
 extern "C" int hvt_flash_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv, int B,
                                   int S, int H, int Hkv, int D, float scale, int causal,
                                   int dtype, int dout_dtype, void* stream) {
   using namespace hvt;
-  if (!valid_shape(B, S, H, Hkv, D)) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, S, H, Hkv, D, kMaxDSm90)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kBF16 && dout_dtype == kBF16)

@@ -3,7 +3,8 @@
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_dq_kernel (pl.pallas_call in
 // _flash_bwd) for q/k/v in bf16 or fp32 with any head_dim the port takes
-// (8..128 in steps of 8); flash_dq.cu stays built and checked as the SIMT
+// (8..128 in steps of 8, and bf16 q with a bf16 dO up to 256); flash_dq.cu
+// stays built and checked as the SIMT
 // design, on no route. Same function:
 //   p = exp(scale q k^T - lse) with the causal fill, keys past S weigh 0,
 //   dp = dO v^T, ds = p (dp - delta), dq = sum over keys of ds k * scale,
@@ -21,11 +22,12 @@
 // runs as 3xTF32 (sm90.cuh) on fp32 operands, within about 2^-21 of fp32
 // products: the plain version rounds nothing.
 //
-// Head dims. A kernel is instantiated per padded width DP (64 or 128 in
-// bf16; 32, 64, 96 or 128 in fp32): TMA zero-fills the columns past D,
-// which add nothing to any product, and only D columns of dq are written.
-// The bf16 instances at D 64 and 128 with a bf16 dO (the main path's and
-// its twin) fix D at compile time; every other head_dim comes at run time.
+// Head dims. A kernel is instantiated per padded width DP (64, 128, 192 or
+// 256 in bf16, the last two with a bf16 dO only; 32, 64, 96 or 128 in
+// fp32): TMA zero-fills the columns past D, which add nothing to any
+// product, and only D columns of dq are written. The bf16 instances at D
+// 64, 128, 192 and 256 with a bf16 dO fix D at compile time; every other
+// head_dim comes at run time.
 //
 // Design, bf16. The TPU kernel carries dq in VMEM scratch across the grid's
 // sequential last axis. Here one block of 256 threads owns a 128-row query
@@ -83,6 +85,15 @@
 // On the card, 128-key tiles (one block per SM) and a third stage were both
 // slower than this layout (PERF.md).
 //
+// Wide heads, bf16 DP 192 and 256. Q and dO stay resident: 2 * 128 * DP *
+// 2 B, 96 KB at DP 192 and 128 KB at DP 256, and dq takes DP / 2
+// registers a thread. At DP 192 two stages of 64-key K/V tiles (48 KB
+// each) fit beside them (192 KB); at DP 256 a 64-key stage is 64 KB, so
+// the K/V tiles are 32 keys (two stages, 64 KB in all, 192 KB with Q and
+// dO), S and dP run as m64n32k16 and dS K as two k-steps of m64n256k16 a
+// tile: 128 + 16 + 16 accumulator registers a thread. One block per SM.
+// dq keeps its one owner: no atomics, the same bits every run.
+//
 // Bound. At the main path's shape (B 8, H 12, S 1024, D 64, bf16, causal)
 // the work is 19.3 GFLOP of bf16 products and 63.7 MB: 20 us of tensor-core
 // time, 19 us of HBM time. Every head_dim at d_model 768 does the same
@@ -96,7 +107,6 @@ namespace hvt {
 namespace {
 
 constexpr int kBM = 128;  // bf16: query rows per block (two warpgroups of 64)
-constexpr int kBN = 64;   // bf16: keys per K/V tile
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -104,6 +114,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 // hi and lo).
 template <int DP, int kDoTerms>
 struct DqSmem {
+  static_assert(DP % 64 == 0 && DP <= 256 && (kDoTerms == 1 || DP <= 128), "DP: whole panels");
+  static constexpr int kBN = DP <= 192 ? 64 : 32;  // bf16: keys per K/V tile (see Wide heads)
   static constexpr int kQ = kBM * DP * 2;   // bytes of the Q (or a dO) tile
   static constexpr int kKV = kBN * DP * 2;  // bytes of one K (or V) tile
   static constexpr int kBarriers = (1 + 2 * kStages) * 8;
@@ -126,6 +138,7 @@ __global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)
                          float scale, float scale_log2, int causal) {
   using namespace sm90;
   using L = DqSmem<DP, kDoTerms>;
+  constexpr int kBN = L::kBN;
   const int D = kD ? kD : d_rt;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1k(smem_raw);
@@ -471,6 +484,7 @@ template <int DP, int kD, int kDoTerms>
 int launch_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dq, int B, int S, int H, int Hkv,
                    int D, float scale, int causal, cudaStream_t stream) {
+  constexpr int kBN = DqSmem<DP, kDoTerms>::kBN;
   CUtensorMap tq, tk, tv, tdo;
   int err = make_bshd_map(&tq, q, B, S, H, D, kBM);
   if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, kBM, kDoTerms == 2 ? 4 : 2);
@@ -483,8 +497,8 @@ int launch_dq_sm90(const void* q, const void* k, const void* v, const void* dout
                 (__nv_bfloat16*)dq, S, H, Hkv, D, scale, scale * kLog2e, causal);
 }
 
-// bf16: D 64 and 128 with a bf16 dO at D fixed, every other case at its
-// padded width with D at run time.
+// bf16: D 64, 128, 192 and 256 with a bf16 dO at D fixed, every other case
+// at its padded width with D at run time; D above 128 with a bf16 dO only.
 template <int kDoTerms>
 int launch_dq_sm90_d(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dq, int B, int S, int H, int Hkv,
@@ -496,7 +510,20 @@ int launch_dq_sm90_d(const void* q, const void* k, const void* v, const void* do
     if (D == 128)
       return launch_dq_sm90<128, 128, 1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
                                          causal, st);
+    if (D == 192)
+      return launch_dq_sm90<192, 192, 1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+                                         causal, st);
+    if (D == 256)
+      return launch_dq_sm90<256, 256, 1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+                                         causal, st);
+    if (D > 192)
+      return launch_dq_sm90<256, 0, 1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+                                       causal, st);
+    if (D > 128)
+      return launch_dq_sm90<192, 0, 1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+                                       causal, st);
   }
+  if (D > 128) return (int)cudaErrorInvalidValue;
   return D <= 64 ? launch_dq_sm90<64, 0, kDoTerms>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv,
                                                    D, scale, causal, st)
                  : launch_dq_sm90<128, 0, kDoTerms>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv,
@@ -524,15 +551,15 @@ int launch_dq_sm90_tf32(const void* q, const void* k, const void* v, const void*
 }  // namespace hvt
 
 // Returns 0 or the CUDA error of the launch. The port's head_dims (8..128 in
-// steps of 8) and dtypes: q, k, v and dO fp32 (dtype and dout_dtype 0), dq
-// fp32; q, k, v bf16 (dtype 1) with dO bf16 (dout_dtype 1) or fp32 (0), dq
-// bf16. The signature is hvt_flash_dq's.
+// steps of 8; 8..256 with bf16 q and dO) and dtypes: q, k, v and dO fp32
+// (dtype and dout_dtype 0), dq fp32; q, k, v bf16 (dtype 1) with dO bf16
+// (dout_dtype 1) or fp32 (0), dq bf16. The signature is hvt_flash_dq's.
 extern "C" int hvt_flash_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, int B, int S,
                                  int H, int Hkv, int D, float scale, int causal, int dtype,
                                  int dout_dtype, void* stream) {
   using namespace hvt;
-  if (!valid_shape(B, S, H, Hkv, D)) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, S, H, Hkv, D, kMaxDSm90)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kBF16)

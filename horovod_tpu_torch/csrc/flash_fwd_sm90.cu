@@ -3,7 +3,8 @@
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_fwd_kernel (launched by
 // _flash_fwd_impl through pl.pallas_call) for q/k/v in bf16 or fp32 with
-// any head_dim the port takes (8..128 in steps of 8); flash_fwd.cu stays
+// any head_dim the port takes (8..128 in steps of 8, and bf16 q with a bf16
+// o up to 256); flash_fwd.cu stays
 // built and checked as the SIMT design, on no route. Same arithmetic:
 // scores scale * q k^T summed in fp32, causal fill
 // -1e30 where k_pos > q_pos, keys past S weigh 0, an online softmax with a
@@ -13,13 +14,13 @@
 // within about 2^-21 of fp32 products.
 //
 // Head dims. A kernel is instantiated per padded width DP, the head_dim
-// rounded up to whole 128-byte panels (64 or 128 in bf16; 32, 64, 96 or 128
-// in fp32): TMA zero-fills the columns past D, which add nothing to any
-// product, and only D columns are written. The instances at D 32, 64, 96
-// and 128 (bf16 D 32 and 96 padded) fix D at compile time; every other
-// head_dim comes at run time, for the store mask and the row stride. A
-// padded head_dim pays for the zero columns: at bf16 D 32 half the
-// products issued are of zeros, at D 80 three eighths.
+// rounded up to whole 128-byte panels (64, 128, 192 or 256 in bf16; 32, 64,
+// 96 or 128 in fp32): TMA zero-fills the columns past D, which add nothing
+// to any product, and only D columns are written. The instances at D 32,
+// 64, 96, 128, 192 and 256 (bf16 D 32 and 96 padded) fix D at compile
+// time; every other head_dim comes at run time, for the store mask and the
+// row stride. A padded head_dim pays for the zero columns: at bf16 D 32
+// half the products issued are of zeros, at D 80 three eighths.
 //
 // Design, bf16. One block of 256 threads owns a 128-row query tile of one
 // (b, h): two warpgroups of 64 rows each. Thread 0 issues every TMA load: Q
@@ -63,6 +64,14 @@
 // registers. At DP 128 the accumulators need about 200 registers: one
 // block per SM.
 //
+// Wide heads, bf16 DP 192 and 256 (head_dim 136..256). The O accumulator
+// is DP / 2 fp32 registers a thread (128 at DP 256), and a 128-key K/V
+// stage would be 2 * 128 * DP * 2 B (128 KB at DP 256) beside a 64 KB Q
+// tile: two such stages do not fit a block's 227 KB. So K/V tiles are 64
+// keys: Q and two stages take 144 KB at DP 192 and 192 KB at DP 256, the
+// scores 32 registers a thread, and P V runs as wgmma m64n192k16 or
+// m64n256k16 with V MN-major over three or four panels. One block per SM.
+//
 // Bound. At B 8, S 1024, causal, d_model 768 (H = 768 / D) every head_dim
 // does the same 12.9 GFLOP of products. bf16 moves 50.7 MB: 15 us of HBM
 // time against 13 us of tensor-core time (bytes bound); this kernel's
@@ -88,12 +97,14 @@ constexpr float kLn2 = 0.6931471805599453f;
 template <int DP, typename T>
 struct FwdCfg {
   static constexpr bool kTf32 = std::is_same<T, float>::value;
-  static_assert(DP % sm90::panel_cols<T>() == 0 && DP <= 128, "DP: whole panels");
+  static_assert(DP % sm90::panel_cols<T>() == 0 && DP <= (kTf32 ? 128 : 256),
+                "DP: whole panels");
   // warpgroups, 64 query rows each; fp32 at DP 32: one (see Design, fp32)
   static constexpr int kWG = kTf32 && DP == 32 ? 1 : 2;
   static constexpr int kThreads = 128 * kWG;
   static constexpr int kBM = 64 * kWG;               // query rows per block
-  static constexpr int kBN = !kTf32 ? 128 : DP <= 96 ? 64 : 32;  // keys per K/V tile
+  // keys per K/V tile; bf16 wide heads: 64 (see Wide heads)
+  static constexpr int kBN = !kTf32 ? (DP <= 128 ? 128 : 64) : DP <= 96 ? 64 : 32;
   // fp32: one stage but at DP 64 (see Design, fp32)
   static constexpr int kStages = kTf32 && DP != 64 ? 1 : 2;
   static constexpr int kQ = kBM * DP * (int)sizeof(T);   // bytes of the Q tile
@@ -307,8 +318,9 @@ int launch_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* 
 
 // The instance for head_dim D: D 32, 64, 96 and 128 with D fixed at
 // compile time (the head_dims these instances took before every head_dim
-// had a route, so their code stands), every other D at its padded width
-// with D at run time.
+// had a route, so their code stands), and bf16 with a bf16 o at D 192 and
+// 256; every other D at its padded width with D at run time. Wide heads
+// (DP 192, 256) take bf16 q with a bf16 o only.
 template <typename T, typename TO>
 int launch_fwd_sm90_d(int D, const void* q, const void* k, const void* v, void* o, void* lse,
                       int B, int S, int H, int Hkv, float scale, int causal, cudaStream_t st) {
@@ -327,6 +339,13 @@ int launch_fwd_sm90_d(int D, const void* q, const void* k, const void* v, void* 
                                               st);
   }
   constexpr bool kBf16 = !std::is_same<T, float>::value;
+  constexpr bool kWide = kBf16 && std::is_same<TO, __nv_bfloat16>::value;
+  if constexpr (kWide) {
+    if (D == 192)
+      return launch_fwd_sm90<192, 192, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+    if (D == 256)
+      return launch_fwd_sm90<256, 256, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+  }
   switch (padded_width<T>(D)) {
     case 32:
       if constexpr (!kBf16)
@@ -340,6 +359,14 @@ int launch_fwd_sm90_d(int D, const void* q, const void* k, const void* v, void* 
       break;
     case 128:
       return launch_fwd_sm90<128, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+    case 192:
+      if constexpr (kWide)
+        return launch_fwd_sm90<192, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+      break;
+    case 256:
+      if constexpr (kWide)
+        return launch_fwd_sm90<256, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+      break;
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -393,6 +420,89 @@ __global__ void __launch_bounds__(128, 1)
     c1[row * 64 + col] = d[i];
     c2[row * 64 + col] = e[i];
   }
+}
+
+// The wide heads' operands: w is [64, N] bf16 (N 192 or 256), MN-major over
+// N / 64 panels, LBO (the bytes between panels) 64 * 128 B. One warpgroup
+// computes c1 = d = a b^T as wgmma_probe_kernel does, then c2 = bf16(d) w
+// (d's fragment as the register A operand, m64nNk16) and c3 = a w (a
+// K-major from shared memory, m64nNk16): the instructions and the panel
+// stride that P V (fwd), dS K (dq) and P^T dO, dS^T Q (dkv) use at DP 192
+// and 256.
+template <int N>
+__global__ void __launch_bounds__(128, 1)
+    wgmma_probe_wide_kernel(const __grid_constant__ CUtensorMap ta,
+                            const __grid_constant__ CUtensorMap tb,
+                            const __grid_constant__ CUtensorMap tw, float* c1, float* c2,
+                            float* c3) {
+  using namespace sm90;
+  constexpr int kTile = 64 * 64 * 2, kW = 64 * N * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1k(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 2 * kTile + kW);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, 2 * kTile + kW);
+    tma_load_rows<64>(smem, &ta, bar, 64, 0, 0, 0);
+    tma_load_rows<64>(smem + kTile, &tb, bar, 64, 0, 0, 0);
+    tma_load_rows<N>(smem + 2 * kTile, &tw, bar, 64, 0, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  const uint32_t a_addr = smem_u32(smem), b_addr = a_addr + kTile, w_addr = b_addr + kTile;
+  float d[32], e[N / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<0>(d, desc_kmajor(a_addr, 64, 0, kk), desc_kmajor(b_addr, 64, 0, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(d);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    c1[(16 * warp + lane / 4 + 8 * ((i / 2) % 2)) * 64 + 8 * (i / 4) + 2 * (lane % 4) + i % 2] =
+        d[i];
+  uint32_t af[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) a_fragment(af[kk], d, kk);
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (pass == 0)
+        wgmma_rs<1>(e, af[kk], desc_mnmajor(w_addr, 64, kk), kk > 0);
+      else
+        wgmma_ss<1>(e, desc_kmajor(a_addr, 64, 0, kk), desc_mnmajor(w_addr, 64, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(e);
+    float* c = pass == 0 ? c2 : c3;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int row = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+      const int col = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+      c[row * N + col] = e[i];
+    }
+  }
+}
+
+template <int N>
+int launch_probe_wide(const void* a, const void* b, const void* w, void* c1, void* c2,
+                      void* c3, cudaStream_t stream) {
+  CUtensorMap ta, tb, tw;
+  int err = make_bshd_map(&ta, a, 1, 64, 1, 64, 64);
+  if (err == 0) err = make_bshd_map(&tb, b, 1, 64, 1, 64, 64);
+  if (err == 0) err = make_bshd_map(&tw, w, 1, 64, 1, N, 64);
+  if (err != 0) return err;
+  return launch_n(wgmma_probe_wide_kernel<N>, dim3(1), 128,
+                  2 * 64 * 64 * 2 + 64 * N * 2 + 8 + sm90::kAtomBytes, stream, ta, tb, tw,
+                  (float*)c1, (float*)c2, (float*)c3);
 }
 
 // The same product in fp32 through the 3xTF32 building blocks: a and b split
@@ -467,12 +577,13 @@ __global__ void __launch_bounds__(128, 1)
 }  // namespace hvt
 
 // Returns 0 or the CUDA error of the launch. q, k, v bf16 (dtype 1) or fp32
-// (0) with any D the port takes; out_dtype: the dtype of o, q's or fp32 (0).
+// (0) with any D the port takes (8..128 in steps of 8; bf16 q with a bf16 o
+// up to 256); out_dtype: the dtype of o, q's or fp32 (0).
 extern "C" int hvt_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int B, int S, int H, int Hkv, int D, float scale,
                                   int causal, int dtype, int out_dtype, void* stream) {
   using namespace hvt;
-  if (!valid_shape(B, S, H, Hkv, D)) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, S, H, Hkv, D, kMaxDSm90)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kBF16 && out_dtype == kBF16)
@@ -502,4 +613,14 @@ extern "C" int hvt_wgmma_probe(const void* a, const void* b, void* c1, void* c2,
   wgmma_probe_kernel<<<1, 128, 2 * 64 * 64 * 2 + 8 + sm90::kAtomBytes, (cudaStream_t)stream>>>(
       ta, tb, (float*)c1, (float*)c2);
   return (int)cudaGetLastError();
+}
+
+// a, b: bf16 [64, 64], w: bf16 [64, n] (n 192 or 256), all row-major; c1:
+// fp32 [64, 64]; c2, c3: fp32 [64, n] (see wgmma_probe_wide_kernel).
+extern "C" int hvt_wgmma_probe_wide(const void* a, const void* b, const void* w, void* c1,
+                                    void* c2, void* c3, int n, void* stream) {
+  using namespace hvt;
+  if (n == 192) return launch_probe_wide<192>(a, b, w, c1, c2, c3, (cudaStream_t)stream);
+  if (n == 256) return launch_probe_wide<256>(a, b, w, c1, c2, c3, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -58,7 +58,7 @@ class GPTConfig:
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False  # recompute each block in the backward pass
     # False = einsum-softmax attention; True = the flash kernels; "auto" =
-    # resolve_flash's choice by sequence length.
+    # resolve_flash's choice by sequence length, dtype and head_dim.
     use_flash: Union[bool, str] = False
     # Ring-attention sequence parallelism: the parallel.mesh.Mesh the model
     # runs under (its 'sp' axis carries the sequence shards). Attention then
@@ -157,7 +157,7 @@ class Attention(nn.Module):
             # GQA K/V go round the ring unrepeated
             out = ring_attention(q, k, v, mesh=cfg.ring_mesh, causal=True,
                                  scale=scale, use_flash=cfg.use_flash)
-        elif resolve_flash(cfg.use_flash, q.shape[-3]):
+        elif resolve_flash(cfg.use_flash, q.shape[-3], q.dtype, head_dim):
             # the kernels read the shared GQA K/V heads directly
             out = flash_attention(q, k, v, causal=True, scale=scale)
         else:

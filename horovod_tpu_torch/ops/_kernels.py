@@ -17,16 +17,19 @@ kernel              source (``csrc/``)        replaces
 ==================  ========================  ==============================
 
 The ``*_sm90`` kernels run their products on the tensor cores (``wgmma``,
-tiles brought by TMA) and take bf16 and fp32 (fp32 products as 3xTF32: each
-operand split into two TF32 terms, three products summed in fp32) at every
-head_dim the port takes (8..128 in steps of 8; a head_dim that is not a
-whole number of 128-byte panels runs padded by TMA's zero fill); with bf16
-q, ``flash_dq_sm90`` and ``flash_dkv_sm90`` take an fp32 dO (the sequence
-ring's) as two bf16 terms. The others (SIMT) do fp32 FMAs on the CUDA cores
-and take fp32 or bf16 with any head_dim up to 128; no route reaches them,
-and all three stay built and checked on the card as ``variant="simt"``.
-``_variant`` chooses between the two designs of each kernel from the dtype
-and head_dim alone; a kernel that fails to build or launch raises.
+tiles brought by TMA) and take what ``SM90_ROUTES`` lists, keyed by q's
+dtype and o's (dO's) dtype: bf16 q with a bf16 o at every head_dim 8..256
+in steps of 8, and fp32 (products as 3xTF32: each operand split into two
+TF32 terms, three products summed in fp32) and bf16 q with an fp32 o (the
+sequence ring's; ``flash_dq_sm90`` and ``flash_dkv_sm90`` take its fp32 dO
+as two bf16 terms) at 8..128. A head_dim that is not a whole number of
+128-byte panels runs padded by TMA's zero fill. The others (SIMT) do fp32
+FMAs on the CUDA cores and take fp32 or bf16 with any head_dim up to 128;
+no route reaches them, and all three stay built and checked on the card as
+``variant="simt"``. A shape that no tensor-core kernel takes raises on a
+CUDA tensor (``_check``); ``use_flash="auto"`` takes the kernels only where
+``sm90_takes`` says all three do. A kernel that fails to build or launch
+raises.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface and loaded with ``ctypes``. The build runs at first use,
@@ -166,6 +169,8 @@ def _lib(name: str):
                 if n == "flash_fwd_sm90":
                     lib.hvt_wgmma_probe.argtypes = [ptr] * 4 + [i32, ptr]
                     lib.hvt_wgmma_probe.restype = ctypes.c_int
+                    lib.hvt_wgmma_probe_wide.argtypes = [ptr] * 6 + [i32, ptr]
+                    lib.hvt_wgmma_probe_wide.restype = ctypes.c_int
                 lib.hvt_cuda_error_string.argtypes = [ctypes.c_int]
                 lib.hvt_cuda_error_string.restype = ctypes.c_char_p
                 _libs[n] = lib
@@ -189,12 +194,14 @@ def _run(name: str, tensors, q, k, scale, causal, second_dtype):
     LAUNCHES[name] += 1
 
 
-def _check(q, k, v, out_dtype, dout=None, lse=None, delta=None):
-    """Validate what the kernels take before any pointer reaches them:
+def _check(q, k, v, out_dtype, dout=None, lse=None, delta=None,
+           kernel="flash_fwd_sm90"):
+    """Validate what ``kernel`` takes before any pointer reaches it:
     [B, S, H, D] q and [B, S, H_kv, D] k, v of one dtype (fp32 or bf16),
-    H % H_kv == 0, 0 < D <= 128, D % 8 == 0; o/dO in q's dtype or fp32;
-    dO [B, S, H, D]; lse, delta fp32 [B, H, S]; all contiguous on one CUDA
-    device."""
+    H % H_kv == 0; o/dO in q's dtype or fp32; a head_dim that ``kernel``
+    takes with these dtypes (a tensor-core kernel: ``SM90_ROUTES``; a SIMT
+    kernel: 8..128 in steps of 8); dO [B, S, H, D]; lse, delta fp32
+    [B, H, S]; all contiguous on one CUDA device."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,S,H,D] and k, v [B,S,H_kv,D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -206,14 +213,17 @@ def _check(q, k, v, out_dtype, dout=None, lse=None, delta=None):
     if h % k.shape[2]:
         raise ValueError(f"n_heads ({h}) must be divisible by n_kv_heads "
                          f"({k.shape[2]})")
-    if not (0 < d <= 128 and d % 8 == 0):
-        raise ValueError(f"the flash kernels take head_dim in 8..128 in "
-                         f"steps of 8; got {d}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the flash kernels take fp32 or bf16 q/k/v of one "
                         f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if out_dtype not in (q.dtype, torch.float32):
         raise TypeError(f"o/dO must be in q's dtype or fp32; got {out_dtype}")
+    if not kernel.endswith("_sm90"):
+        if not (0 < d <= SIMT_MAX_HEAD_DIM and d % 8 == 0):
+            raise ValueError(f"{kernel} (SIMT) takes head_dim 8..128 in "
+                             f"steps of 8; got {d}")
+    elif _variant(kernel[:-len("_sm90")], q.dtype, d, out_dtype) != "sm90":
+        raise ValueError(_refusal(kernel, q.dtype, out_dtype, d))
     if dout is not None and (dout.shape != q.shape or dout.dtype != out_dtype):
         raise ValueError(f"dO must be {out_dtype} of q's shape "
                          f"{tuple(q.shape)}; got {dout.dtype} "
@@ -337,49 +347,77 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
 # wrappers
 # --------------------------------------------------------------------------
 
-# the dtypes and head_dims each tensor-core kernel takes
-HEAD_DIMS = tuple(range(8, 129, 8))    # every head_dim the kernels take
-SM90_ROUTES = {
-    "flash_fwd": ((torch.bfloat16, torch.float32), HEAD_DIMS),
-    "flash_dq": ((torch.bfloat16, torch.float32), HEAD_DIMS),
-    "flash_dkv": ((torch.bfloat16, torch.float32), HEAD_DIMS),
-}
+# what each tensor-core kernel takes: {(q's dtype, o's or dO's dtype): the
+# head_dims}. Off these routes: fp32 q above head_dim 128 (the 3xTF32 tiles
+# do not fit as they are), the sequence ring's bf16 q with an fp32 o/dO
+# above 128, head_dims off the 8-grid, fp16 (ROADMAP).
+HEAD_DIMS = tuple(range(8, 129, 8))       # every dtype
+WIDE_HEAD_DIMS = tuple(range(136, 257, 8))  # bf16 q with a bf16 o/dO only
+SIMT_MAX_HEAD_DIM = 128
+_BF16, _FP32 = torch.bfloat16, torch.float32
+SM90_ROUTES = {base: {(_BF16, _BF16): HEAD_DIMS + WIDE_HEAD_DIMS,
+                      (_BF16, _FP32): HEAD_DIMS,
+                      (_FP32, _FP32): HEAD_DIMS}
+               for base in ("flash_fwd", "flash_dq", "flash_dkv")}
 
 
-def _variant(base, dtype, d) -> str:
+def _variant(base, dtype, d, out_dtype=None) -> str:
     """Which design of kernel ``base`` ("flash_fwd", "flash_dq" or
-    "flash_dkv") takes q/k/v of this dtype and head_dim: "sm90" (tensor
-    cores) where ``SM90_ROUTES`` lists both, else "simt"."""
-    dtypes, dims = SM90_ROUTES[base]
-    return "sm90" if dtype in dtypes and d in dims else "simt"
+    "flash_dkv") takes q/k/v of this dtype and head_dim with o (dO) in
+    ``out_dtype`` (default q's): "sm90" (tensor cores) where ``SM90_ROUTES``
+    lists them, else "simt" (which no route reaches: on a CUDA tensor the
+    wrappers raise there)."""
+    dims = SM90_ROUTES[base].get((dtype, out_dtype or dtype), ())
+    return "sm90" if d in dims else "simt"
 
 
-def _kernel(base, q, variant):
-    """The kernel of ``base`` that takes q: ``variant`` None chooses by
-    ``_variant``; "sm90" or "simt" asks for one design and raises if it does
-    not take q."""
-    chosen = _variant(base, q.dtype, q.shape[-1])
-    if variant is not None:
-        if variant not in ("sm90", "simt"):
-            raise ValueError(f"variant must be None, 'sm90' or 'simt'; got "
-                             f"{variant!r}")
-        if variant == "sm90" and chosen != "sm90":
-            dtypes, dims = SM90_ROUTES[base]
-            raise ValueError(
-                f"{base}_sm90 takes "
-                f"{' or '.join(str(t).split('.')[-1] for t in dtypes)} with "
-                f"head_dim {', '.join(map(str, dims))}; got {q.dtype}, "
-                f"head_dim {q.shape[-1]}")
-        chosen = variant
-    return base + "_sm90" if chosen == "sm90" else base
+def sm90_takes(dtype, head_dim, out_dtype=None) -> bool:
+    """Whether all three tensor-core kernels take q of this dtype and
+    head_dim with o (so dO) in ``out_dtype`` (default q's)."""
+    return all(_variant(base, dtype, head_dim, out_dtype) == "sm90"
+               for base in SM90_ROUTES)
+
+
+def _refusal(name, dtype, out_dtype, d) -> str:
+    short = lambda t: str(t).split(".")[-1]
+    return (f"{name} takes bfloat16 or float32 with head_dim "
+            f"{', '.join(map(str, HEAD_DIMS))}, and bfloat16 with a "
+            f"bfloat16 o/dO also with head_dim "
+            f"{', '.join(map(str, WIDE_HEAD_DIMS))}; got {short(dtype)} q "
+            f"with {short(out_dtype)} o/dO, head_dim {d}")
+
+
+def _kernel(base, q, variant, out_dtype=None):
+    """The kernel of ``base`` for q with o (dO) in ``out_dtype`` (default
+    q's): the tensor-core one unless ``variant`` is "simt". "sm90" asked for
+    by name raises where ``SM90_ROUTES`` does not list the inputs; with
+    ``variant`` None ``_check`` raises there on a CUDA tensor, and on a CPU
+    tensor the plain version runs with fp32 operands."""
+    if variant not in (None, "sm90", "simt"):
+        raise ValueError(f"variant must be None, 'sm90' or 'simt'; got "
+                         f"{variant!r}")
+    if variant == "sm90" and _variant(base, q.dtype, q.shape[-1],
+                                      out_dtype) != "sm90":
+        raise ValueError(_refusal(base + "_sm90", q.dtype,
+                                  out_dtype or q.dtype, q.shape[-1]))
+    return base if variant == "simt" else base + "_sm90"
+
+
+def _bf16_operands(name, q, out_dtype):
+    """Whether the plain version of ``name`` rounds its operands as the
+    tensor-core kernel does with bf16 q (dO as two bf16 terms, ds and p in
+    bf16): only on a route that kernel takes."""
+    return (name.endswith("_sm90") and q.dtype == torch.bfloat16
+            and _variant(name[:-len("_sm90")], q.dtype, q.shape[-1],
+                         out_dtype) == "sm90")
 
 
 def flash_fwd(q, k, v, scale, causal, out_dtype, variant=None):
     """Attention forward: (o [B, S, H, D] in ``out_dtype``, lse [B, H, S])."""
-    name = _kernel("flash_fwd", q, variant)
+    name = _kernel("flash_fwd", q, variant, out_dtype)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale, causal, out_dtype)
-    _check(q, k, v, out_dtype)
+    _check(q, k, v, out_dtype, kernel=name)
     b, s, h, _ = q.shape
     o = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -392,13 +430,13 @@ def flash_dq(q, k, v, dout, lse, delta, scale, causal, variant=None):
     bf16 q, ds is rounded to bf16 before ds k and the kernel splits an fp32
     dO into two bf16 terms (see ``flash_dq_plain``); with fp32 q every
     operand stays fp32 (3xTF32)."""
-    name = _kernel("flash_dq", q, variant)
-    bf16_operands = name.endswith("_sm90") and q.dtype == torch.bfloat16
+    name = _kernel("flash_dq", q, variant, dout.dtype)
+    bf16_operands = _bf16_operands(name, q, dout.dtype)
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, dout, lse, delta, scale, causal,
                               split_dout=bf16_operands,
                               round_ds=bf16_operands)
-    _check(q, k, v, dout.dtype, dout, lse, delta)
+    _check(q, k, v, dout.dtype, dout, lse, delta, kernel=name)
     dq = torch.empty_like(q)
     _run(name, (q, k, v, dout, lse, delta, dq), q, k, scale, causal,
          dout.dtype)
@@ -410,13 +448,13 @@ def flash_dkv(q, k, v, dout, lse, delta, scale, causal, variant=None):
     sm90 route with bf16 q, p and ds are rounded to bf16 before their
     products and the kernel splits an fp32 dO into two bf16 terms (see
     ``flash_dkv_plain``); with fp32 q every operand stays fp32 (3xTF32)."""
-    name = _kernel("flash_dkv", q, variant)
-    bf16_operands = name.endswith("_sm90") and q.dtype == torch.bfloat16
+    name = _kernel("flash_dkv", q, variant, dout.dtype)
+    bf16_operands = _bf16_operands(name, q, dout.dtype)
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
                                split_dout=bf16_operands,
                                round_operands=bf16_operands)
-    _check(q, k, v, dout.dtype, dout, lse, delta)
+    _check(q, k, v, dout.dtype, dout, lse, delta, kernel=name)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _run(name, (q, k, v, dout, lse, delta, dk, dv), q, k, scale, causal,
          dout.dtype)
@@ -447,3 +485,33 @@ def wgmma_probe(a, b):
         raise RuntimeError(f"wgmma probe launch failed: "
                            f"{lib.hvt_cuda_error_string(rc).decode()}")
     return c1, c2
+
+
+def wgmma_probe_wide(a, b, w):
+    """The wide heads' products through the building blocks of the sm90
+    kernels, for bf16 CUDA tensors a, b [64, 64] and w [64, n], n 192 or
+    256, whose MN-major tile spans n / 64 panels: returns (c1, c2, c3) =
+    (a @ b^T, r(c1) @ w, a @ w) in fp32, r rounding to bf16, c2 with the
+    register A operand (m64nNk16 as P V, dS K take it), c3 with A from
+    shared memory (as the wide dK, dV products). A check for the card
+    tests; not on any path."""
+    n = w.shape[-1]
+    if a.shape != (64, 64) or b.shape != (64, 64) or w.shape not in (
+            (64, 192), (64, 256)) or a.device.type != "cuda" or any(
+            t.dtype != torch.bfloat16 for t in (a, b, w)):
+        raise ValueError("wgmma_probe_wide takes bf16 CUDA tensors a, b "
+                         "[64, 64] and w [64, 192 or 256]")
+    a, b, w = a.contiguous(), b.contiguous(), w.contiguous()
+    c1 = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    c2 = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    c3 = torch.empty_like(c2)
+    lib = _lib("flash_fwd_sm90")
+    with torch.cuda.device(a.device):
+        rc = lib.hvt_wgmma_probe_wide(
+            a.data_ptr(), b.data_ptr(), w.data_ptr(), c1.data_ptr(),
+            c2.data_ptr(), c3.data_ptr(), n,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wide wgmma probe launch failed: "
+                           f"{lib.hvt_cuda_error_string(rc).decode()}")
+    return c1, c2, c3

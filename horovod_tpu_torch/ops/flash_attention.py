@@ -26,15 +26,21 @@ from horovod_tpu_torch.ops import _kernels
 FLASH_AUTO_THRESHOLD = 255
 
 
-def resolve_flash(use_flash, local_seq) -> bool:
-    """Resolve a ``use_flash`` policy ("auto" | bool) for a sequence length:
-    "auto" is True above ``FLASH_AUTO_THRESHOLD``."""
+def resolve_flash(use_flash, local_seq, dtype, head_dim,
+                  out_dtype=None) -> bool:
+    """Resolve a ``use_flash`` policy ("auto" | bool) for attention over
+    ``local_seq`` positions of q in ``dtype`` with ``head_dim``, o in
+    ``out_dtype`` (default q's): "auto" is True above
+    ``FLASH_AUTO_THRESHOLD`` where all three kernels take the shape
+    (``_kernels.sm90_takes``), else the einsum path; True stays True, and
+    the kernels then raise on a CUDA tensor whose shape they do not take."""
     if isinstance(use_flash, str):
         if use_flash != "auto":
             raise ValueError(
                 f"use_flash must be True, False, or 'auto'; got "
                 f"{use_flash!r}")
-        return local_seq > FLASH_AUTO_THRESHOLD
+        return (local_seq > FLASH_AUTO_THRESHOLD
+                and _kernels.sm90_takes(dtype, head_dim, out_dtype))
     return bool(use_flash)
 
 

@@ -139,7 +139,8 @@ def ring_attention_shard(q, k, v, *, process_set, causal=True, scale=None,
     ``process_set`` hold consecutive shards in member order. The K/V shards
     travel once around the ring, stacked in one buffer of ``n_kv_heads``
     heads (n - 1 shifts). ``use_flash`` runs each block through the flash
-    kernels; ``"auto"`` resolves by the shard length. Causal masks use
+    kernels; ``"auto"`` resolves by the shard length, and by what the
+    kernels take (q's dtype and head_dim with an fp32 o). Causal masks use
     global positions. Returns ``[batch, seq_shard, heads, head_dim]`` in
     q's dtype.
     """
@@ -148,7 +149,9 @@ def ring_attention_shard(q, k, v, *, process_set, causal=True, scale=None,
     _check_gqa(q.shape[2], k.shape[2])
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    flash = resolve_flash(use_flash, q.shape[1])
+    # the blocks write an fp32 o for the logaddexp merge (flash_ring_block)
+    flash = resolve_flash(use_flash, q.shape[1], q.dtype, q.shape[-1],
+                          torch.float32)
     state = flash_ring_start(q) if flash else einsum_ring_start(q)
     # after `step` shifts this rank holds the shard of member idx - step
     for step, kv in enumerate(ring_pass(torch.stack([k, v]), process_set)):
@@ -191,7 +194,7 @@ def ulysses_attention_shard(q, k, v, *, process_set, causal=True,
     if scale is None:
         scale = d ** -0.5
     qg, kg, vg = (all_to_all(x, process_set, 2, 1) for x in (q, k, v))
-    if attn_fn is None and resolve_flash(use_flash, qg.shape[1]):
+    if attn_fn is None and resolve_flash(use_flash, qg.shape[1], q.dtype, d):
         attn_fn = functools.partial(flash_attention, causal=causal,
                                     scale=scale)
     if attn_fn is None:

@@ -66,7 +66,7 @@ def gangs(tmp_path_factory):
             sys.path.insert(0, {os.path.join(REPO, 'tests')!r})
             import torch_port_coord_program as P
             from horovod_tpu.common.process_sets import ProcessSet
-            res = P.matrix(hvt, lambda a: a, ProcessSet)
+            res = P.matrix(hvt, lambda a: a, ProcessSet, {jax_out + '.gates'!r})
             with open(f"{jax_out}.{{r}}.json", "w") as f:
                 json.dump(res, f)
         """, np=NP, timeout=180, launcher_args=("--stall-warning-sec", "1"))

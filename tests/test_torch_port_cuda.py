@@ -52,11 +52,21 @@ CASES = [
     (2, 130, 2, 2, 8, torch.bfloat16, True, torch.bfloat16),     # smallest D
     (2, 256, 4, 2, 96, torch.bfloat16, True, torch.float32),     # fp32 dO
 ]
+# the wide heads, bf16 q, o and dO at head_dim 136..256, which only the
+# tensor-core kernels take: their padded widths 192 and 256, D fixed at 192
+# and 256 and at run time between
+WIDE_CASES = [
+    (2, 300, 4, 1, 256, torch.bfloat16, True, torch.bfloat16),   # MQA
+    (2, 256, 3, 3, 192, torch.bfloat16, False, torch.bfloat16),
+    (1, 200, 2, 2, 200, torch.bfloat16, True, torch.bfloat16),   # to 256
+    (2, 130, 4, 2, 136, torch.bfloat16, True, torch.bfloat16),   # to 192
+]
 # every case on the SIMT kernels, and on each kernel's own route (None:
-# _variant's choice) where that reaches a tensor-core kernel
+# _variant's choice) where that reaches a tensor-core kernel; the wide heads
+# on their route only
 VARIANT_CASES = [(c, "simt") for c in CASES] + [
-    (c, None) for c in CASES
-    if any(_kernels._variant(base, c[5], c[4]) == "sm90"
+    (c, None) for c in CASES + WIDE_CASES
+    if any(_kernels._variant(base, c[5], c[4], c[7]) == "sm90"
            for base in ("flash_fwd", "flash_dq", "flash_dkv"))]
 
 
@@ -194,6 +204,49 @@ def test_single_wgmma_product_matches_matmul(cuda):
                                atol=1e-4)
     torch.testing.assert_close(c2, c1.to(torch.bfloat16).float() @ b.float(),
                                rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [192, 256])
+def test_wide_wgmma_products_match_matmul(cuda, n):
+    """The wide heads' building blocks: m64n192k16 and m64n256k16, with the
+    MN-major B tile over three or four 128-byte panels (the descriptor's
+    stride between panels), its A operand from registers (as P V and dS K
+    take it) and from shared memory (as the wide dK, dV products)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    a, b = (torch.randn(64, 64, generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    w = torch.randn(64, n, generator=gen, device=cuda).to(torch.bfloat16)
+    c1, c2, c3 = _kernels.wgmma_probe_wide(a, b, w)
+    torch.testing.assert_close(c1, a.float() @ b.float().T, rtol=1e-5,
+                               atol=1e-4)
+    # c1's own bf16 rounding: a reference rounded from another sum order
+    # may land one bf16 ulp away
+    torch.testing.assert_close(c2, c1.to(torch.bfloat16).float() @ w.float(),
+                               rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(c3, a.float() @ w.float(), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_CASES[:1] + [
+    (1, 64, 2, 1, 264, torch.bfloat16, True, torch.bfloat16),    # past 256
+    (1, 64, 2, 1, 256, torch.float32, True, torch.float32),
+    (1, 64, 2, 1, 256, torch.bfloat16, True, torch.float32),     # fp32 o
+], ids=lambda c: "-".join(map(str, c[4:6] + c[7:])))
+def test_no_quiet_fallback_at_shapes_a_kernel_refuses(cuda, case):
+    """use_flash=True at a shape no tensor-core kernel takes raises on the
+    card before any launch, naming the route; the SIMT design asked for by
+    name raises above head_dim 128 too."""
+    q, k, v, _ = _inputs(case, cuda)
+    before = dict(_kernels.LAUNCHES)
+    if _kernels.sm90_takes(q.dtype, q.shape[-1], case[7]):
+        with pytest.raises(ValueError, match=r"\(SIMT\) takes head_dim"):
+            _kernels.flash_fwd(q, k, v, 1.0, True, case[7], variant="simt")
+    else:
+        with pytest.raises(ValueError, match="flash_fwd_sm90 takes"):
+            flash_attention_with_lse(q, k, v, out_dtype=case[7])
+    assert dict(_kernels.LAUNCHES) == before
 
 
 @pytest.mark.cuda

@@ -114,12 +114,13 @@ def test_contract_errors_and_auto_policy():
     kv = torch.zeros(1, 8, 2, 8)
     with pytest.raises(ValueError, match="divisible"):
         flash_attention(q, kv, kv)
-    assert resolve_flash("auto", 255) is False
-    assert resolve_flash("auto", 256) is True
-    assert resolve_flash("auto", 1 << 20) is True
-    assert resolve_flash(True, 8) is True
+    route = (torch.bfloat16, 64)      # a shape the kernels take
+    assert resolve_flash("auto", 255, *route) is False
+    assert resolve_flash("auto", 256, *route) is True
+    assert resolve_flash("auto", 1 << 20, *route) is True
+    assert resolve_flash(True, 8, *route) is True
     with pytest.raises(ValueError):
-        resolve_flash("always", 8)
+        resolve_flash("always", 8, *route)
 
 
 

@@ -1,12 +1,14 @@
 """The routes the tensor-core kernels took over from the SIMT ones, on the
 CPU: the forward and dk/dv kernels' fp32 at head_dim 32/64/96/128 and bf16
 at head_dim 32 and 96, then dq's fp32 and bf16 at every head_dim, the
-forward's and dk/dv's head_dims off the 32-grid (8, 48, 80), and the
-sequence ring's bf16 q with an fp32 o and dO. Each wrapper runs the plain
-version of the kernel it would launch on a CUDA tensor, and the port's
-flash attention on these routes is held against the JAX package's (Pallas
-interpret mode, as tests/test_flash_attention.py runs it) on the same numpy
-inputs.
+forward's and dk/dv's head_dims off the 32-grid (8, 48, 80), the sequence
+ring's bf16 q with an fp32 o and dO, and bf16 at the wide heads (head_dim
+136..256, padded to 192 or 256). Each wrapper runs the plain version of the
+kernel it would launch on a CUDA tensor, and the port's flash attention on
+these routes is held against the JAX package's (Pallas interpret mode, as
+tests/test_flash_attention.py runs it) on the same numpy inputs. Then
+``use_flash="auto"``: it takes the kernels only where all three take the
+shape, and the model and the sequence-parallel paths follow it.
 
 Tolerances: bf16 5e-2 (tests/test_torch_port_flash.py's: the two sides
 round p, o and, on the sm90 route, p and ds before the dk/dv products and
@@ -25,8 +27,12 @@ import torch
 
 from horovod_tpu.ops.flash_attention import \
     flash_attention_with_lse as jax_flash
+from horovod_tpu_torch.models import transformer
+from horovod_tpu_torch.models.transformer import Attention, GPTConfig
 from horovod_tpu_torch.ops import _kernels
-from horovod_tpu_torch.ops.flash_attention import flash_attention_with_lse
+from horovod_tpu_torch.ops.flash_attention import (flash_attention_with_lse,
+                                                   resolve_flash)
+from horovod_tpu_torch.parallel import sequence
 
 BF16, FP32_FWD, FP32_GRAD = 5e-2, 1e-5, 1e-4
 
@@ -231,3 +237,185 @@ def test_dq_and_fwd_take_sm90_on_every_route_and_dkv_refuses_it_off_the_grid():
                                              "16, 24"):
             _kernels.flash_dkv(q, q, q, q, lse, lse, 1.0, True,
                                variant="sm90")
+
+
+# ---- the wide heads (bf16 q with a bf16 o/dO at head_dim 136..256) -------
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_heads_match_jax(d):
+    """bf16 at head_dim 192 and 256, GQA (H 2, H_kv 1), causal: the plain
+    versions of flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90 (what the
+    wrappers run on CPU tensors) against the JAX package's flash attention
+    at BF16, the file's bf16 tolerance (the two sides round p, o and, on
+    the sm90 route, p and ds before the backward products at different
+    points)."""
+    q, k, v, do = _inputs(1, 128, 2, 1, d, seed=4)
+    o_j, lse_j, g_j = _jax_side(q, k, v, do, True, jnp.bfloat16, 64)
+    o_t, lse_t, g_t = _torch_side(q, k, v, do, True, torch.bfloat16)
+    np.testing.assert_allclose(o_t.float().numpy(), o_j, rtol=BF16,
+                               atol=BF16)
+    np.testing.assert_allclose(lse_t.numpy(), lse_j, rtol=FP32_GRAD,
+                               atol=FP32_GRAD)
+    for name, got, want in zip(("dq", "dk", "dv"), g_t, g_j):
+        assert got.dtype == torch.bfloat16 and got.shape[-1] == d
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16,
+                                   atol=BF16, err_msg=name)
+
+
+@pytest.mark.parametrize("d", [136, 200, 256])
+def test_wide_heads_take_the_sm90_route_and_its_rounding(d):
+    """On a CPU tensor each wrapper runs the plain version of the
+    tensor-core kernel at every wide head_dim (136 and 200 padded to 192
+    and 256): dq and dk/dv round their operands to bf16 as the kernels
+    do."""
+    q, k, v, do = (torch.tensor(x).to(torch.bfloat16)
+                   for x in _inputs(1, 64, 2, 1, d, seed=5))
+    scale = d ** -0.5
+    for base in ("flash_fwd", "flash_dq", "flash_dkv"):
+        assert _kernels._variant(base, torch.bfloat16, d) == "sm90"
+        assert _kernels._kernel(base, q, "sm90") == base + "_sm90"
+    o, lse = _kernels.flash_fwd(q, k, v, scale, True, torch.bfloat16)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, scale, True)
+    assert torch.equal(_kernels.flash_dq(*args), _kernels.flash_dq_plain(
+        *args, split_dout=True, round_ds=True))
+    for got, want in zip(_kernels.flash_dkv(*args), _kernels.flash_dkv_plain(
+            *args, split_dout=True, round_operands=True)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,d,out_dtype", [
+    (torch.float32, 136, None),            # 3xTF32 stops at 128
+    (torch.float32, 256, None),
+    (torch.bfloat16, 256, torch.float32),  # the ring's fp32 o and dO
+    (torch.bfloat16, 264, None),           # past 256
+    (torch.bfloat16, 100, None),           # off the 8-grid
+])
+def test_shapes_no_kernel_takes_raise_on_a_cuda_tensor(monkeypatch, dtype,
+                                                       d, out_dtype):
+    """Where no tensor-core kernel takes the shape, each wrapper raises
+    before a launch, naming the route, whatever ``variant`` None chose; a
+    SIMT kernel asked for by name above head_dim 128 raises too."""
+    def no_launch(*args, **kwargs):
+        raise AssertionError("a kernel was launched")
+
+    monkeypatch.setattr(_kernels, "_run", no_launch)
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    o_dtype = out_dtype or dtype
+    q = meta((1, 16, 2, d), dtype)
+    do = meta((1, 16, 2, d), o_dtype)
+    lse = meta((1, 2, 16), torch.float32)
+    assert not _kernels.sm90_takes(dtype, d, out_dtype)
+    with pytest.raises(ValueError, match="flash_fwd_sm90 takes bfloat16 or "
+                                         "float32 with head_dim 8, 16, "):
+        _kernels.flash_fwd(q, q, q, 1.0, True, o_dtype)
+    with pytest.raises(ValueError, match="flash_dq_sm90 takes"):
+        _kernels.flash_dq(q, q, q, do, lse, lse, 1.0, True)
+    with pytest.raises(ValueError, match="flash_dkv_sm90 takes"):
+        _kernels.flash_dkv(q, q, q, do, lse, lse, 1.0, True)
+    if d > 128:
+        with pytest.raises(ValueError, match=r"flash_dkv \(SIMT\) takes"):
+            _kernels.flash_dkv(q, q, q, do, lse, lse, 1.0, True,
+                               variant="simt")
+
+
+# ---- use_flash="auto" ----------------------------------------------------
+
+AUTO = [
+    (torch.bfloat16, 64, None, True),      # the main path's
+    (torch.bfloat16, 256, None, True),     # Gemma's head
+    (torch.bfloat16, 64, torch.float32, True),   # the ring's blocks
+    (torch.float32, 128, None, True),
+    (torch.bfloat16, 264, None, False),
+    (torch.bfloat16, 100, None, False),
+    (torch.float16, 64, None, False),
+    (torch.float32, 256, None, False),
+    (torch.bfloat16, 256, torch.float32, False),  # the ring's at 256
+]
+
+
+@pytest.mark.parametrize("dtype,d,out_dtype,flash", AUTO)
+def test_auto_takes_the_kernels_only_where_they_take_the_shape(
+        dtype, d, out_dtype, flash):
+    """From sequence 256 "auto" picks the kernels exactly where all three
+    tensor-core kernels take q's dtype and head_dim with o's dtype, and the
+    einsum path elsewhere; below 256 the einsum path; True and False stay
+    what they say."""
+    assert resolve_flash("auto", 256, dtype, d, out_dtype) is flash
+    assert resolve_flash("auto", 1 << 16, dtype, d, out_dtype) is flash
+    assert resolve_flash("auto", 255, dtype, d, out_dtype) is False
+    assert resolve_flash(True, 8, dtype, d, out_dtype) is True
+    assert resolve_flash(False, 1 << 16, dtype, d, out_dtype) is False
+
+
+def _spy(monkeypatch, module, name):
+    """Count the calls of ``module.name`` (which still runs)."""
+    calls = []
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append(name)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("dtype,d,flash", [
+    (torch.bfloat16, 64, True),
+    (torch.bfloat16, 256, True),
+    (torch.bfloat16, 264, False),
+    (torch.float32, 256, False),
+])
+def test_the_model_follows_auto(monkeypatch, dtype, d, flash):
+    """models/transformer.py's attention with use_flash="auto" at sequence
+    256 (one head, one K/V head) calls the flash kernels where "auto" takes
+    them, else runs its einsum path."""
+    calls = _spy(monkeypatch, transformer, "flash_attention")
+    cfg = GPTConfig(vocab_size=16, n_layers=1, d_model=d, n_heads=1,
+                    d_ff=16, max_seq_len=256, dtype=dtype, use_flash="auto")
+    attn = Attention(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn(1, 256, d, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        out = attn(x.to(dtype), torch.arange(256))
+    assert out.shape == (1, 256, d) and torch.isfinite(out.float()).all()
+    assert calls == (["flash_attention"] if flash else [])
+
+
+class _OneMember:
+    """A process set of one member: the ring's and Ulysses' arithmetic with
+    no peer."""
+
+    def size(self):
+        return 1
+
+    def rank_in_set(self, rank):
+        return 0
+
+
+@pytest.mark.parametrize("dtype,d,ring_flash,ulysses_flash", [
+    (torch.bfloat16, 64, True, True),
+    (torch.bfloat16, 256, False, True),    # the ring's fp32 o stops at 128
+    (torch.bfloat16, 264, False, False),
+    (torch.float16, 64, False, False),
+])
+def test_the_sequence_paths_follow_auto(monkeypatch, dtype, d, ring_flash,
+                                        ulysses_flash):
+    """parallel/sequence.py with use_flash="auto" on a 256-position shard:
+    ring attention's blocks (bf16 q with an fp32 o) and Ulysses' local
+    attention (o in q's dtype) take the flash kernels where "auto" takes
+    them, else the einsum blocks."""
+    monkeypatch.setattr(sequence.basics, "rank", lambda: 0)
+    blocks = _spy(monkeypatch, sequence, "flash_ring_block")
+    local = _spy(monkeypatch, sequence, "flash_attention")
+    gen = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(1, 256, 1, d, generator=gen).to(dtype)
+               for _ in range(3))
+    ring = sequence.ring_attention_shard(q, k, v, process_set=_OneMember(),
+                                         use_flash="auto")
+    ulysses = sequence.ulysses_attention_shard(
+        q, k, v, process_set=_OneMember(), use_flash="auto")
+    for out in (ring, ulysses):
+        assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    assert blocks == (["flash_ring_block"] if ring_flash else [])
+    assert local == (["flash_attention"] if ulysses_flash else [])

@@ -9,9 +9,12 @@ and two layers plus a 512-way vocab projection grow those ~1e-7 rounding
 differences to ~1e-5 at the logits.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -19,6 +22,7 @@ from horovod_tpu.models import GPT as JaxGPT
 from horovod_tpu.models import GPTConfig as JaxGPTConfig
 from horovod_tpu_torch.models import GPT, GPTConfig
 from horovod_tpu_torch.models.convert import params_from_flax, params_to_flax
+from horovod_tpu_torch.train import loss_fn
 
 ENTRY = dict(vocab_size=512, n_layers=2, d_model=128, n_heads=4, d_ff=512,
              max_seq_len=128)
@@ -115,3 +119,52 @@ def test_unported_options_raise():
         GPT(GPTConfig(**ENTRY), device="cpu", mesh=_Mesh(sp=2))
     with pytest.raises(ValueError, match="divide"):
         GPT(GPTConfig(**ENTRY, n_kv_heads=3), device="cpu")
+
+
+# Gemma's attention widths cut to a small size: head_dim 256, one K/V head
+WIDE = dict(vocab_size=512, n_layers=2, d_model=512, n_heads=2, n_kv_heads=1,
+            d_ff=512, max_seq_len=128)
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    ("float32", 1e-4),
+    ("bfloat16", 5e-2),
+])
+def test_head_dim_256_gpt_loss_and_grads_match_flax(dtype, tol):
+    """A GPT at head_dim 256 with one K/V head through the flash path
+    (use_flash=True; on the CPU the kernels' plain versions, in bf16 those
+    of the head_dim-256 tensor-core kernels with their bf16 operands): the
+    loss and every parameter's gradient against the JAX GPT's (Pallas
+    interpret mode) from the same weights and tokens. Tolerance: fp32 1e-4,
+    relative to each gradient's largest magnitude (the module's: the same
+    fp32 arithmetic summed in other orders); bf16 5e-2, the bf16 flash
+    tolerance of tests/test_torch_port_flash.py (the two sides round every
+    product's output, p and, on the sm90 route, p and ds at different
+    points)."""
+    tokens = np.random.RandomState(2).randint(0, 512, (1, 128))
+    jcfg = JaxGPTConfig(**WIDE, dtype=getattr(jnp, dtype), use_flash=True)
+    jmodel = JaxGPT(jcfg)
+    # the same parameters as the flash model's, without tracing its kernels
+    params = jax.jit(JaxGPT(dataclasses.replace(jcfg, use_flash=False)).init)(
+        jax.random.PRNGKey(0), jnp.asarray(tokens))["params"]
+
+    def jax_loss(p):
+        logits = jmodel.apply({"params": p}, jnp.asarray(tokens))
+        targets = jnp.roll(jnp.asarray(tokens), -1, axis=-1)
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits[:, :-1], targets[:, :-1]).mean()
+
+    want_loss, want_grads = jax.jit(jax.value_and_grad(jax_loss))(params)
+    tmodel = GPT(GPTConfig(**WIDE, dtype=getattr(torch, dtype),
+                           use_flash=True), device="cpu")
+    tmodel.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
+    loss = loss_fn(tmodel, torch.from_numpy(tokens))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=tol)
+    want = params_from_flax(jax.tree.map(np.asarray, want_grads))
+    assert tmodel.blocks[0].attn.k.shape == (512, 1, 256)
+    for name, p in tmodel.named_parameters():
+        w = want[name].float()
+        scale = float(w.abs().max())
+        torch.testing.assert_close(p.grad / scale, w / scale, rtol=tol,
+                                   atol=tol, msg=name)

@@ -59,13 +59,14 @@ def test_variant_routes_by_dtype_and_head_dim(dtype, d, fwd_dq, dkv):
 @pytest.mark.parametrize("dtype,d,variant,match", [
     (torch.float32, 44, "sm90",
      "flash_dkv_sm90 takes bfloat16 or float32 with head_dim 8, 16, 24, "),
-    (torch.bfloat16, 136, "sm90", "flash_dkv_sm90 takes"),
+    (torch.float32, 136, "sm90", "flash_dkv_sm90 takes"),
     (torch.bfloat16, 64, "wgmma", "variant must be"),
+    (torch.bfloat16, 264, "sm90", "flash_dkv_sm90 takes"),
 ])
 def test_explicit_variant_must_take_the_inputs(dtype, d, variant, match):
     """A design asked for by name that does not take the inputs raises: the
-    tensor-core dkv off the kernels' head_dims (8..128 in steps of 8), or
-    an unknown variant."""
+    tensor-core dkv off the kernels' head_dims (8..128 in steps of 8, and
+    with bf16 q and dO also 136..256), or an unknown variant."""
     q = torch.zeros(1, 16, 2, d, dtype=dtype)
     lse = torch.zeros(1, 2, 16)
     with pytest.raises(ValueError, match=match):

@@ -1,16 +1,21 @@
-"""The coordinator's programs, on either package: ``matrix(hvt, T, ps)``
-takes the package, a numpy-to-tensor function and a function that gives
-the process set of a list of ranks, and runs the cross-rank mismatch
-programs of ``tests/test_engine_integration.py`` (``:120-129`` shape,
-``:434-446`` a grouped member, ``:504-520`` overlapping sets, ``:552-567``
-an error inside one set sparing a disjoint one, ``:583`` a conflicted
-grouped call), the other mismatches the engine checks (dtype, reduce op,
-root, scales, op, an allgather's dims), a repeat (the engine's cache
-hit) whose shape then changes, the stall (``:236-249``, with rank 0 late,
-its ``diagnostics()`` read meanwhile) and a stall with a joined rank. Each case gives this rank
+"""The coordinator's programs, on either package: ``matrix(hvt, T, ps,
+gates)`` takes the package, a numpy-to-tensor function, a function that
+gives the process set of a list of ranks and a directory for its gates,
+and runs the cross-rank mismatch programs of
+``tests/test_engine_integration.py`` (``:120-129`` shape, ``:434-446`` a
+grouped member, ``:504-520`` overlapping sets, ``:552-567`` an error inside
+one set sparing a disjoint one, ``:583`` a conflicted grouped call), the
+other mismatches the engine checks (dtype, reduce op, root, scales, op, an
+allgather's dims), a repeat (the engine's cache hit) whose shape then
+changes, the stall (``:236-249``, with rank 0 late, its ``diagnostics()``
+read meanwhile) and a stall with a joined rank. Each case gives this rank
 ``[tag, exception class or "ok", message]``. Ranks other than 0 reach each
-mismatch a little late, so that the JAX engine meets rank 0's request
-first, as the port always orders them. It imports neither JAX nor torch.
+mismatch after rank 0 does, so that the JAX engine meets rank 0's request
+first, as the port always orders them: rank 0 opens a gate (a file in
+``gates``) as it reaches a case, and the others wait for it, then a little
+longer. The order so holds whatever the load on the machine (a sleep
+alone let a rank 0 that was scheduled late post last). It imports neither
+JAX nor torch.
 
 As a script it is the port's worker (``python -m
 horovod_tpu_torch.runner.launch -np N --stall-warning-sec 1 python
@@ -30,22 +35,42 @@ import time
 
 import numpy as np
 
-LAG = 0.1           # how late ranks other than 0 reach a mismatch
+LAG = 0.1           # how long after rank 0 the other ranks reach a mismatch
+GATE_TIMEOUT = 120.0  # seconds a rank waits for rank 0's gate
 LATE = 2.0          # how late rank 0 is for the stalled tensors
 SETS = ([0, 1, 2], [1, 2, 3], [0, 1], [1, 2], [0, 2], [3, 4], [2, 3])
 TRANSPORTS = ("board", "store")
 
 
-def matrix(hvt, T, ps, during_stall=None):
-    """``during_stall(hvt)``, if given, runs on rank 0 while the others
-    wait for it; its value is kept under ``during_stall``."""
+def _pass_gate(gates, r, tag):
+    """Rank 0 opens the gate of case ``tag`` (an empty file in the directory
+    ``gates``); another rank returns once it is open."""
+    path = os.path.join(gates, tag)
+    if r == 0:
+        os.makedirs(gates, exist_ok=True)
+        open(path, "w").close()
+        return
+    deadline = time.monotonic() + GATE_TIMEOUT
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"rank 0 never reached case {tag!r}")
+        time.sleep(0.001)
+
+
+def matrix(hvt, T, ps, gates, during_stall=None):
+    """``gates``: a directory of this gang's own (see the module's
+    docstring); ``during_stall(hvt)``, if given, runs on rank 0 while the
+    others wait for it; its value is kept under ``during_stall``."""
     r, n = hvt.rank(), hvt.size()
     res = []
 
     def case(tag, fn, lag=LAG, keep=False):
-        """``keep``: the result's values stand in for the message."""
-        if r and lag:
-            time.sleep(lag)
+        """``keep``: the result's values stand in for the message. With a
+        ``lag``, rank 0 posts first (``_pass_gate``)."""
+        if lag:
+            _pass_gate(gates, r, tag)
+            if r:
+                time.sleep(lag)
         try:
             out = fn()
             res.append([tag, "ok", out.tolist() if keep else ""])
@@ -144,7 +169,8 @@ def main(out_path, device):
                       if max(s) < n}
         dev = hvt.device()
         res = matrix(hvt, lambda a: torch.from_numpy(a).to(dev),
-                     lambda ranks: registered[tuple(ranks)], stall_metrics)
+                     lambda ranks: registered[tuple(ranks)],
+                     f"{out_path}.{transport}.gates", stall_metrics)
         res["after_join"] = after_join(hvt, dev)
         time.sleep(1.0)     # the inspector's next scans see the stalls end
         res["after"] = stall_metrics(hvt)

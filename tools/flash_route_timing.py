@@ -19,9 +19,10 @@ name given to ``--shapes``, in that order: ``routes``
 (chip_smoke.ROUTE_SHAPES, the default), ``main`` (chip_smoke.MAIN_SHAPE),
 ``ring`` (chip_smoke.RING_CASES, the sequence ring's blocks, whose checks
 include each bf16 kernel's distance to the plain version with fp32
-operands; after ``main``, also held to the main shape's) and ``ring_wide``
-(chip_smoke.RING_WIDE_CASE, a ring block at head_dim 128; checkouts that
-have it). Every shape it runs is timed. Needs a CUDA card.
+operands; after ``main``, also held to the main shape's), ``ring_wide``
+(chip_smoke.RING_WIDE_CASE, a ring block at head_dim 128) and ``wide``
+(chip_smoke.WIDE_SHAPES, bf16 at head_dim 192 and 256), each in checkouts
+that have it. Every shape it runs is timed. Needs a CUDA card.
 """
 
 import argparse
@@ -37,7 +38,7 @@ def main():
     ap.add_argument("--repo", help="a checkout whose kernels to run "
                     "(default: this one)")
     ap.add_argument("--shapes", nargs="+",
-                    choices=("routes", "main", "ring", "ring_wide"),
+                    choices=("routes", "main", "ring", "ring_wide", "wide"),
                     default=["routes"])
     args = ap.parse_args()
     root = Path(args.repo).resolve() if args.repo else REPO
@@ -61,7 +62,8 @@ def main():
                 print("PTXAS", line, flush=True)
     shapes = {"routes": lambda: C.ROUTE_SHAPES, "main": lambda: [C.MAIN_SHAPE],
               "ring": lambda: C.RING_CASES,
-              "ring_wide": lambda: [C.RING_WIDE_CASE]}
+              "ring_wide": lambda: [C.RING_WIDE_CASE],
+              "wide": lambda: C.WIDE_SHAPES}
     cases = [c for name in args.shapes for c in shapes[name]()]
     # kernel_phase times only the shapes in TIMED
     C.TIMED.extend(c for c in cases if c not in C.TIMED)
