@@ -7,9 +7,10 @@
 // Layout contract, checked by the Python wrappers in ops/_kernels.py:
 //   q, k, v, o, dO   [B, S, H, D] contiguous (k and v carry H_kv heads)
 //   lse, delta       [B, H, S] fp32 contiguous
-//   H % H_kv == 0, D % 8 == 0, any S; 0 < D <= 128 for the SIMT kernels
-//   and fp32 (or an fp32 o/dO) on the tensor cores, 0 < D <= 256 for bf16
-//   q, o and dO on the tensor cores.
+//   H % H_kv == 0, D % 8 == 0 (the wrappers pad other head_dims with zero
+//   columns), any S; 0 < D <= 128 for the SIMT kernels and for fp32 on the
+//   tensor cores, 0 < D <= 256 for bf16 q (o and dO in bf16 or fp32) on the
+//   tensor cores.
 //
 // Every SIMT kernel works on 64 x 64 tiles with 256 threads laid out 16 x 16:
 // thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of a
@@ -29,7 +30,7 @@ constexpr int kTile = 64;         // query rows and key rows per tile
 constexpr int kThreads = 256;     // 16 x 16
 constexpr int kPadS = kTile + 1;  // row stride of a 64 x 64 score tile in shared memory
 constexpr int kMaxD = 128;       // the SIMT kernels' widest head
-constexpr int kMaxDSm90 = 256;   // the tensor-core kernels' (bf16 q, o and dO)
+constexpr int kMaxDSm90 = 256;   // the tensor-core kernels' (bf16 q)
 constexpr float kMasked = -1e30f;  // the reference's fill for causally masked scores
 
 enum DType { kF32 = 0, kBF16 = 1 };

@@ -3,8 +3,9 @@
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_dkv_kernel (pl.pallas_call in
 // _flash_bwd) for q/k/v in bf16 or fp32 with any head_dim the port takes
-// (8..128 in steps of 8, and bf16 q with a bf16 dO up to 256, in
-// flash_dkv_sm90_wide_kernel); flash_dkv.cu stays built and checked as the SIMT
+// (8..128 in steps of 8, and bf16 q up to 256, in flash_dkv_sm90_wide_kernel;
+// the wrappers pad other head_dims with zero columns); flash_dkv.cu stays
+// built and checked as the SIMT
 // design, on no route. For each key tile:
 //   p = exp(scale q k^T - lse) with the causal fill, dv += p^T dO,
 //   dp = dO v^T, ds = p (dp - delta), dk += ds^T q * scale,
@@ -102,6 +103,17 @@
 // one block per SM. Two passes over D's halves would recompute S^T and dP^T
 // (1.5 times the products); 32-key warpgroups do not exist (wgmma's M is
 // 64).
+//   With the sequence ring's fp32 dO, the route up to 128 lands each fp32
+// tile beside its stage's Q, dO hi and dO lo; here that stage would be 160
+// KB at DP 256, and K, V and the A tiles take 80 KB more. So the fp32 tile
+// lands where dO's two terms will lie and the block splits it in place
+// (split_bf16_terms_in_place): bf16 panel p of dO hi takes the bytes of
+// fp32 panels 2 p and lo those of 2 p + 1, and the descriptors step over
+// the other term's panels (a panel stride of 128 rows). A stage is then 3 *
+// 64 * DP * 2 B: two stages, 208 KB in all, at DP 192; one, 176 KB, at DP
+// 256, where the next Q/dO tile loads only once this one's products are
+// done. dP^T takes V dO_lo^T in the same commit group, and warpgroup 0 adds
+// P^T dO_lo to dV, a third more products than warpgroup 1's dK.
 #include "flash_attention.cuh"
 #include "sm90.cuh"
 
@@ -395,17 +407,23 @@ __global__ void __launch_bounds__(DkvCfg<DP, T, kDoTerms>::kThreads, 1)
 }
 
 // Tile sizes and the shared-memory layout of the wide-head kernel (see Wide
-// heads): bf16 q and dO at padded width DP 192 or 256.
-template <int DP>
+// heads): bf16 q at padded width DP 192 or 256, dO in bf16 (kDoTerms 1) or
+// fp32 (2: its two bf16 terms).
+template <int DP, int kDoTerms>
 struct DkvWideCfg {
   static_assert(DP == 192 || DP == 256, "DP: three or four bf16 panels");
   static constexpr int kThreads = 256;  // two warpgroups
   static constexpr int kBKV = 64;       // keys per block, shared by both warpgroups
   static constexpr int kBQ = 64;        // query rows a tile, 32 a warpgroup for S^T, dP^T
-  static constexpr int kStages = 2;
+  // an fp32 dO's stage: two fit at DP 192, one at DP 256
+  static constexpr int kStages = kDoTerms == 2 && DP == 256 ? 1 : 2;
   static constexpr int kKV = kBKV * DP * 2;  // bytes of the K (or V) tile
-  static constexpr int kQ = kBQ * DP * 2;    // of one Q (or dO) tile
-  static constexpr int kStage = 2 * kQ;
+  static constexpr int kQ = kBQ * DP * 2;    // of one Q (or bf16 dO) tile
+  // a stage: Q, then dO; an fp32 dO (2 kQ) is split in place into its hi
+  // and lo, whose panels alternate, so they are read with a panel stride
+  // of kDoRows rows
+  static constexpr int kStage = (1 + kDoTerms) * kQ;
+  static constexpr int kDoRows = kDoTerms * kBQ;
   static constexpr int kA = kBKV * kBQ * 2;  // P^T or dS^T, bf16, one 128-byte panel a row
   static constexpr int kBarriers = (1 + 2 * kStages) * 8;
   static constexpr int kBytes =
@@ -415,7 +433,7 @@ struct DkvWideCfg {
 
 // kD: the head_dim where it is fixed at compile time, else 0 and d_rt
 // gives it.
-template <int DP, int kD>
+template <int DP, int kD, int kDoTerms>
 __global__ void __launch_bounds__(256, 1)
     flash_dkv_sm90_wide_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
@@ -426,8 +444,8 @@ __global__ void __launch_bounds__(256, 1)
                                int S, int H, int Hkv, int d_rt, float scale, float scale_log2,
                                int causal) {
   using namespace sm90;
-  using L = DkvWideCfg<DP>;
-  constexpr int kBKV = L::kBKV, kBQ = L::kBQ, kStages = L::kStages;
+  using L = DkvWideCfg<DP, kDoTerms>;
+  constexpr int kBKV = L::kBKV, kBQ = L::kBQ, kStages = L::kStages, kDoRows = L::kDoRows;
   const int D = kD ? kD : d_rt;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1k(smem_raw);
@@ -463,9 +481,12 @@ __global__ void __launch_bounds__(256, 1)
   auto load_q = [&](int t, int s) {
     const int h = hk * group + t / per_head, q0 = (qt_start + t % per_head) * kBQ;
     uint8_t* dst = qdo_s + s * L::kStage;
-    mbar_expect_tx(&full[s], 2 * L::kQ);
+    mbar_expect_tx(&full[s], L::kStage);
     tma_load_rows<DP>(dst, &tq, &full[s], kBQ, q0, h, b);
-    tma_load_rows<DP>(dst + L::kQ, &tdo, &full[s], kBQ, q0, h, b);
+    if constexpr (kDoTerms == 1)
+      tma_load_rows<DP>(dst + L::kQ, &tdo, &full[s], kBQ, q0, h, b);
+    else
+      tma_load_rows<DP, float>(dst + L::kQ, &tdo, &full[s], kBQ, q0, h, b);
   };
   if (tid == 0) {
     mbar_expect_tx(bar_kv, 2 * L::kKV);
@@ -500,6 +521,13 @@ __global__ void __launch_bounds__(256, 1)
       dlt[j] = qp < S ? delta[off] : 0.f;
     }
     mbar_wait(&full[s], (t / kStages) & 1);
+    if constexpr (kDoTerms == 2) {
+      // the fp32 dO into its two terms, in place; both warpgroups read all
+      // of them
+      split_bf16_terms_in_place<DP, kBQ>(qdo_s + s * L::kStage + L::kQ, tid, L::kThreads);
+      fence_proxy_async();
+      __syncthreads();
+    }
 
     float sc[16], dp[16];
     wgmma_fence();
@@ -509,8 +537,14 @@ __global__ void __launch_bounds__(256, 1)
                   kk > 0);
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss<0>(dp, desc_kmajor(v_addr, kBKV, 0, kk), desc_kmajor(do_addr, kBQ, 32 * wg, kk),
-                  kk > 0);
+      wgmma_ss<0>(dp, desc_kmajor(v_addr, kBKV, 0, kk),
+                  desc_kmajor(do_addr, kDoRows, 32 * wg, kk), kk > 0);
+    if constexpr (kDoTerms == 2) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_ss<0>(dp, desc_kmajor(v_addr, kBKV, 0, kk),
+                    desc_kmajor(do_addr + kBQ * kRowBytes, kDoRows, 32 * wg, kk), 1);
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -545,12 +579,22 @@ __global__ void __launch_bounds__(256, 1)
     fence_proxy_async();
     __syncthreads();
 
-    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1)
+    // dV += P^T dO (warpgroup 0; with dO's two terms, P^T dO_lo too) or
+    // dK += dS^T Q (warpgroup 1)
     const uint32_t b_addr = wg == 0 ? do_addr : q_addr;
+    const int b_rows = wg == 0 ? kDoRows : kBQ;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBQ / 16; ++kk)
-      wgmma_ss<1>(acc, desc_kmajor(a_addr, kBKV, 0, kk), desc_mnmajor(b_addr, kBQ, kk), 1);
+      wgmma_ss<1>(acc, desc_kmajor(a_addr, kBKV, 0, kk), desc_mnmajor(b_addr, b_rows, kk), 1);
+    if constexpr (kDoTerms == 2) {
+      if (wg == 0) {
+#pragma unroll
+        for (int kk = 0; kk < kBQ / 16; ++kk)
+          wgmma_ss<1>(acc, desc_kmajor(pt_addr, kBKV, 0, kk),
+                      desc_mnmajor(do_addr + kBQ * kRowBytes, kDoRows, kk), 1);
+      }
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -580,19 +624,19 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-template <int DP, int kD>
+template <int DP, int kD, int kDoTerms>
 int launch_dkv_sm90_wide(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dk, void* dv, int B, int S,
                          int H, int Hkv, int D, float scale, int causal, cudaStream_t stream) {
-  using L = DkvWideCfg<DP>;
+  using L = DkvWideCfg<DP, kDoTerms>;
   CUtensorMap tq, tk, tv, tdo;
   int err = make_bshd_map(&tq, q, B, S, H, D, L::kBQ);
-  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, L::kBQ);
+  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, L::kBQ, kDoTerms == 2 ? 4 : 2);
   if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, L::kBKV);
   if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, L::kBKV);
   if (err != 0) return err;
   const dim3 grid((S + L::kBKV - 1) / L::kBKV, Hkv, B);
-  return launch_n(flash_dkv_sm90_wide_kernel<DP, kD>, grid, L::kThreads, L::kBytes, stream, tq,
+  return launch_n(flash_dkv_sm90_wide_kernel<DP, kD, kDoTerms>, grid, L::kThreads, L::kBytes, stream, tq,
                   tk, tv, tdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk,
                   (__nv_bfloat16*)dv, S, H, Hkv, D, scale, scale * kLog2e, causal);
 }
@@ -617,7 +661,8 @@ int launch_dkv_sm90(const void* q, const void* k, const void* v, const void* dou
 
 // dO in q's dtype at D 32, 64, 96 and 128 (and bf16 at 192 and 256, the
 // wide kernel): D fixed at compile time; every other case at its padded
-// width with D at run time. D above 128 takes bf16 q and dO only.
+// width with D at run time. D above 128 takes bf16 q only (the wide
+// kernel, with a bf16 or an fp32 dO).
 template <typename T, int kDoTerms>
 int launch_dkv_sm90_d(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
@@ -640,18 +685,20 @@ int launch_dkv_sm90_d(const void* q, const void* k, const void* v, const void* d
     }
     if constexpr (!std::is_same<T, float>::value) {
       if (D == 192)
-        return launch_dkv_sm90_wide<192, 192>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
-                                              scale, causal, st);
+        return launch_dkv_sm90_wide<192, 192, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
+                                                 D, scale, causal, st);
       if (D == 256)
-        return launch_dkv_sm90_wide<256, 256>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
-                                              scale, causal, st);
-      if (D > 192)
-        return launch_dkv_sm90_wide<256, 0>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
-                                            scale, causal, st);
-      if (D > 128)
-        return launch_dkv_sm90_wide<192, 0>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
-                                            scale, causal, st);
+        return launch_dkv_sm90_wide<256, 256, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
+                                                 D, scale, causal, st);
     }
+  }
+  if constexpr (!std::is_same<T, float>::value) {
+    if (D > 192)
+      return launch_dkv_sm90_wide<256, 0, kDoTerms>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                                                    Hkv, D, scale, causal, st);
+    if (D > 128)
+      return launch_dkv_sm90_wide<192, 0, kDoTerms>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                                                    Hkv, D, scale, causal, st);
   }
   if (D > 128) return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value) {
@@ -682,7 +729,7 @@ int launch_dkv_sm90_d(const void* q, const void* k, const void* v, const void* d
 }  // namespace hvt
 
 // Returns 0 or the CUDA error of the launch. The port's head_dims (8..128 in
-// steps of 8; 8..256 with bf16 q and dO) and dtypes: q, k, v and dO fp32
+// steps of 8; 8..256 with bf16 q) and dtypes: q, k, v and dO fp32
 // (dtype and dout_dtype 0), dk, dv fp32; q, k, v bf16 (dtype 1) with dO
 // bf16 (dout_dtype 1) or fp32 (0), dk, dv bf16. dk, dv are [B, S, H_kv,
 // D]. The signature is hvt_flash_dkv's.

@@ -3,7 +3,8 @@
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_dq_kernel (pl.pallas_call in
 // _flash_bwd) for q/k/v in bf16 or fp32 with any head_dim the port takes
-// (8..128 in steps of 8, and bf16 q with a bf16 dO up to 256); flash_dq.cu
+// (8..128 in steps of 8, and bf16 q up to 256; the wrappers pad other
+// head_dims with zero columns); flash_dq.cu
 // stays built and checked as the SIMT
 // design, on no route. Same function:
 //   p = exp(scale q k^T - lse) with the causal fill, keys past S weigh 0,
@@ -23,8 +24,7 @@
 // products: the plain version rounds nothing.
 //
 // Head dims. A kernel is instantiated per padded width DP (64, 128, 192 or
-// 256 in bf16, the last two with a bf16 dO only; 32, 64, 96 or 128 in
-// fp32): TMA zero-fills the columns past D, which add nothing to any
+// 256 in bf16; 32, 64, 96 or 128 in fp32): TMA zero-fills the columns past D, which add nothing to any
 // product, and only D columns of dq are written. The bf16 instances at D
 // 64, 128, 192 and 256 with a bf16 dO fix D at compile time; every other
 // head_dim comes at run time.
@@ -92,7 +92,15 @@
 // the K/V tiles are 32 keys (two stages, 64 KB in all, 192 KB with Q and
 // dO), S and dP run as m64n32k16 and dS K as two k-steps of m64n256k16 a
 // tile: 128 + 16 + 16 accumulator registers a thread. One block per SM.
-// dq keeps its one owner: no atomics, the same bits every run.
+// dq keeps its one owner: no atomics, the same bits every run. With the
+// sequence ring's fp32 dO a block of two warpgroups would hold Q and dO's
+// two terms for 128 rows, 3 * 128 * DP * 2 B (192 KB at DP 256), beside
+// the K/V stages: that does not fit. So that route's block is one
+// warpgroup of 64 query rows, as the 3xTF32 design's at DP 32: Q, dO hi and
+// dO lo take 72 KB at DP 192 and 96 KB at DP 256, and the fp32 dO tile
+// (48 KB, 64 KB) lands in the K/V ring (96 KB, 64 KB) as on the route up
+// to 128: 168 KB and 160 KB in all. The grid has twice the blocks, and a
+// block's softmax no longer runs beside another warpgroup's products.
 //
 // Bound. At the main path's shape (B 8, H 12, S 1024, D 64, bf16, causal)
 // the work is 19.3 GFLOP of bf16 products and 63.7 MB: 20 us of tensor-core
@@ -106,7 +114,6 @@
 namespace hvt {
 namespace {
 
-constexpr int kBM = 128;  // bf16: query rows per block (two warpgroups of 64)
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -114,7 +121,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 // hi and lo).
 template <int DP, int kDoTerms>
 struct DqSmem {
-  static_assert(DP % 64 == 0 && DP <= 256 && (kDoTerms == 1 || DP <= 128), "DP: whole panels");
+  static_assert(DP % 64 == 0 && DP <= 256, "DP: whole panels");
+  // warpgroups, 64 query rows each: two, but one where an fp32 dO's two
+  // terms sit beside Q at the wide heads (see Wide heads)
+  static constexpr int kWG = kDoTerms == 2 && DP > 128 ? 1 : 2;
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kBM = 64 * kWG;             // query rows per block
   static constexpr int kBN = DP <= 192 ? 64 : 32;  // bf16: keys per K/V tile (see Wide heads)
   static constexpr int kQ = kBM * DP * 2;   // bytes of the Q (or a dO) tile
   static constexpr int kKV = kBN * DP * 2;  // bytes of one K (or V) tile
@@ -122,13 +134,14 @@ struct DqSmem {
   static constexpr int kBytes =
       (1 + kDoTerms) * kQ + 2 * kStages * kKV + kBarriers + sm90::kAtomBytes;
   // an fp32 dO tile lands in the K/V ring before its first tiles
-  static_assert(kDoTerms == 1 || 2 * kStages * kKV == 2 * kQ, "fp32 dO fits the ring");
+  static_assert(kDoTerms == 1 || 2 * kStages * kKV >= 2 * kQ, "fp32 dO fits the ring");
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
 // kD: the head_dim where it is fixed at compile time (kD == DP), else 0 and
 // d_rt gives it. kDoTerms 2: tdo maps an fp32 dO.
 template <int DP, int kD, int kDoTerms>
-__global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)
+__global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 : 1)
     flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
@@ -138,7 +151,7 @@ __global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)
                          float scale, float scale_log2, int causal) {
   using namespace sm90;
   using L = DqSmem<DP, kDoTerms>;
-  constexpr int kBN = L::kBN;
+  constexpr int kBM = L::kBM, kBN = L::kBN, kThreads = L::kThreads;
   const int D = kD ? kD : d_rt;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1k(smem_raw);
@@ -484,21 +497,21 @@ template <int DP, int kD, int kDoTerms>
 int launch_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dq, int B, int S, int H, int Hkv,
                    int D, float scale, int causal, cudaStream_t stream) {
-  constexpr int kBN = DqSmem<DP, kDoTerms>::kBN;
+  using L = DqSmem<DP, kDoTerms>;
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_bshd_map(&tq, q, B, S, H, D, kBM);
-  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, kBM, kDoTerms == 2 ? 4 : 2);
-  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, kBN);
-  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, kBN);
+  int err = make_bshd_map(&tq, q, B, S, H, D, L::kBM);
+  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, L::kBM, kDoTerms == 2 ? 4 : 2);
+  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, L::kBN);
+  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, L::kBN);
   if (err != 0) return err;
-  const dim3 grid((S + kBM - 1) / kBM, H, B);
-  return launch(flash_dq_sm90_kernel<DP, kD, kDoTerms>, grid, DqSmem<DP, kDoTerms>::kBytes,
-                stream, tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
-                (__nv_bfloat16*)dq, S, H, Hkv, D, scale, scale * kLog2e, causal);
+  const dim3 grid((S + L::kBM - 1) / L::kBM, H, B);
+  return launch_n(flash_dq_sm90_kernel<DP, kD, kDoTerms>, grid, L::kThreads, L::kBytes, stream,
+                  tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq, S,
+                  H, Hkv, D, scale, scale * kLog2e, causal);
 }
 
 // bf16: D 64, 128, 192 and 256 with a bf16 dO at D fixed, every other case
-// at its padded width with D at run time; D above 128 with a bf16 dO only.
+// (an fp32 dO at every D) at its padded width with D at run time.
 template <int kDoTerms>
 int launch_dq_sm90_d(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dq, int B, int S, int H, int Hkv,
@@ -522,8 +535,14 @@ int launch_dq_sm90_d(const void* q, const void* k, const void* v, const void* do
     if (D > 128)
       return launch_dq_sm90<192, 0, 1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
                                        causal, st);
+  } else {
+    if (D > 192)
+      return launch_dq_sm90<256, 0, 2>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+                                       causal, st);
+    if (D > 128)
+      return launch_dq_sm90<192, 0, 2>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
+                                       causal, st);
   }
-  if (D > 128) return (int)cudaErrorInvalidValue;
   return D <= 64 ? launch_dq_sm90<64, 0, kDoTerms>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv,
                                                    D, scale, causal, st)
                  : launch_dq_sm90<128, 0, kDoTerms>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv,
@@ -551,7 +570,7 @@ int launch_dq_sm90_tf32(const void* q, const void* k, const void* v, const void*
 }  // namespace hvt
 
 // Returns 0 or the CUDA error of the launch. The port's head_dims (8..128 in
-// steps of 8; 8..256 with bf16 q and dO) and dtypes: q, k, v and dO fp32
+// steps of 8; 8..256 with bf16 q) and dtypes: q, k, v and dO fp32
 // (dtype and dout_dtype 0), dq fp32; q, k, v bf16 (dtype 1) with dO bf16
 // (dout_dtype 1) or fp32 (0), dq bf16. The signature is hvt_flash_dq's.
 extern "C" int hvt_flash_dq_sm90(const void* q, const void* k, const void* v, const void* dout,

@@ -4,7 +4,8 @@
 // Replaces horovod_tpu/ops/flash_attention.py:_fwd_kernel (launched by
 // _flash_fwd_impl through pl.pallas_call) for q/k/v in bf16 or fp32 with
 // any head_dim the port takes (8..128 in steps of 8, and bf16 q with a bf16
-// o up to 256); flash_fwd.cu stays
+// or fp32 o up to 256; the wrappers pad other head_dims with zero columns);
+// flash_fwd.cu stays
 // built and checked as the SIMT design, on no route. Same arithmetic:
 // scores scale * q k^T summed in fp32, causal fill
 // -1e30 where k_pos > q_pos, keys past S weigh 0, an online softmax with a
@@ -71,6 +72,8 @@
 // keys: Q and two stages take 144 KB at DP 192 and 192 KB at DP 256, the
 // scores 32 registers a thread, and P V runs as wgmma m64n192k16 or
 // m64n256k16 with V MN-major over three or four panels. One block per SM.
+// o goes from the accumulators straight to device memory, so the sequence
+// ring's fp32 o takes the same instances: only the store differs.
 //
 // Bound. At B 8, S 1024, causal, d_model 768 (H = 768 / D) every head_dim
 // does the same 12.9 GFLOP of products. bf16 moves 50.7 MB: 15 us of HBM
@@ -318,9 +321,9 @@ int launch_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* 
 
 // The instance for head_dim D: D 32, 64, 96 and 128 with D fixed at
 // compile time (the head_dims these instances took before every head_dim
-// had a route, so their code stands), and bf16 with a bf16 o at D 192 and
-// 256; every other D at its padded width with D at run time. Wide heads
-// (DP 192, 256) take bf16 q with a bf16 o only.
+// had a route, so their code stands), and bf16 at D 192 and 256; every
+// other D at its padded width with D at run time. Wide heads (DP 192, 256)
+// take bf16 q, with a bf16 o or the sequence ring's fp32 one.
 template <typename T, typename TO>
 int launch_fwd_sm90_d(int D, const void* q, const void* k, const void* v, void* o, void* lse,
                       int B, int S, int H, int Hkv, float scale, int causal, cudaStream_t st) {
@@ -339,7 +342,7 @@ int launch_fwd_sm90_d(int D, const void* q, const void* k, const void* v, void* 
                                               st);
   }
   constexpr bool kBf16 = !std::is_same<T, float>::value;
-  constexpr bool kWide = kBf16 && std::is_same<TO, __nv_bfloat16>::value;
+  constexpr bool kWide = kBf16;  // o in bf16 or fp32: only the store differs
   if constexpr (kWide) {
     if (D == 192)
       return launch_fwd_sm90<192, 192, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
@@ -577,8 +580,8 @@ __global__ void __launch_bounds__(128, 1)
 }  // namespace hvt
 
 // Returns 0 or the CUDA error of the launch. q, k, v bf16 (dtype 1) or fp32
-// (0) with any D the port takes (8..128 in steps of 8; bf16 q with a bf16 o
-// up to 256); out_dtype: the dtype of o, q's or fp32 (0).
+// (0) with any D the port takes (8..128 in steps of 8; bf16 q up to 256);
+// out_dtype: the dtype of o, q's or fp32 (0).
 extern "C" int hvt_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int B, int S, int H, int Hkv, int D, float scale,
                                   int causal, int dtype, int out_dtype, void* stream) {

@@ -1,8 +1,8 @@
 // Hopper building blocks of the tensor-core flash kernels (flash_fwd_sm90.cu,
 // flash_dq_sm90.cu, flash_dkv_sm90.cu): raw PTX for mbarriers, TMA loads,
 // wgmma descriptors and wgmma products in bf16 and tf32, the 3xTF32 split,
-// the split of an fp32 tile into two bf16 terms (an fp32 dO with bf16 q),
-// plus the host code that encodes a TMA tensor map. sm_90a only: wgmma does
+// the split of an fp32 tile into two bf16 terms (an fp32 dO with bf16 q:
+// beside the tile, or in place at the wide heads' dk/dv), plus the host code that encodes a TMA tensor map. sm_90a only: wgmma does
 // not exist on plain sm_90.
 //
 // Shared-memory tiles. Every tile is a stack of "panels" of 128 bytes a row:
@@ -306,6 +306,41 @@ __device__ __forceinline__ void split_bf16_terms(const uint8_t* f32, uint8_t* hi
     const int off = (c8 / 8) * kRows * kRowBytes + r * kRowBytes + (((c8 % 8) ^ (r % 8)) * 16);
     *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
     *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// split_bf16_terms in place, where no room is left beside the fp32 tile:
+// bf16 panel p of hi takes the bytes of fp32 panels 2 p and lo those of
+// 2 p + 1, so hi and lo are bf16 tiles whose 64-column panels lie 2 kRows *
+// 128 B apart, lo kRows * 128 B after hi (descriptors with a panel stride of
+// 2 kRows rows read them). Eight consecutive lanes take the eight 8-column
+// steps of one row of one bf16 panel: together they read the 256 bytes that
+// their hi and lo chunks overwrite, so a warp barrier between the reads and
+// the writes suffices. nthreads: a multiple of 32 that divides kRows * D / 8.
+template <int D, int kRows>
+__device__ __forceinline__ void split_bf16_terms_in_place(uint8_t* tile, int tid, int nthreads) {
+  static_assert(D % 64 == 0, "D: whole bf16 panels");
+  for (int i = tid; i < kRows * D / 8; i += nthreads) {
+    // bf16 panel p, row r, columns 64 p + 8 c8 .. 64 p + 8 c8 + 7
+    const int c8 = i % 8, r = (i / 8) % kRows, p = i / (8 * kRows);
+    uint8_t* pair = tile + 2 * p * kRows * kRowBytes;  // fp32 panels 2 p and 2 p + 1
+    const uint8_t* src = pair + (c8 / 4) * kRows * kRowBytes + r * kRowBytes;
+    const int ch = 2 * (c8 % 4);  // the first of its two fp32 chunks
+    const float4 x0 = *reinterpret_cast<const float4*>(src + ((ch ^ (r % 8)) * 16));
+    const float4 x1 = *reinterpret_cast<const float4*>(src + (((ch + 1) ^ (r % 8)) * 16));
+    const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float a = __bfloat162float(__float2bfloat16_rn(x[2 * j]));
+      const float b = __bfloat162float(__float2bfloat16_rn(x[2 * j + 1]));
+      h[j] = pack_bf16(a, b);  // exact: a and b are bf16 values
+      l[j] = pack_bf16(x[2 * j] - a, x[2 * j + 1] - b);
+    }
+    __syncwarp();  // the row's eight lanes have read it
+    const int off = r * kRowBytes + ((c8 ^ (r % 8)) * 16);
+    *reinterpret_cast<uint4*>(pair + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(pair + kRows * kRowBytes + off) = make_uint4(l[0], l[1], l[2], l[3]);
   }
 }
 

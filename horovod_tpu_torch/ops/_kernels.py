@@ -18,16 +18,20 @@ kernel              source (``csrc/``)        replaces
 
 The ``*_sm90`` kernels run their products on the tensor cores (``wgmma``,
 tiles brought by TMA) and take what ``SM90_ROUTES`` lists, keyed by q's
-dtype and o's (dO's) dtype: bf16 q with a bf16 o at every head_dim 8..256
-in steps of 8, and fp32 (products as 3xTF32: each operand split into two
-TF32 terms, three products summed in fp32) and bf16 q with an fp32 o (the
-sequence ring's; ``flash_dq_sm90`` and ``flash_dkv_sm90`` take its fp32 dO
-as two bf16 terms) at 8..128. A head_dim that is not a whole number of
-128-byte panels runs padded by TMA's zero fill. The others (SIMT) do fp32
-FMAs on the CUDA cores and take fp32 or bf16 with any head_dim up to 128;
-no route reaches them, and all three stay built and checked on the card as
-``variant="simt"``. A shape that no tensor-core kernel takes raises on a
-CUDA tensor (``_check``); ``use_flash="auto"`` takes the kernels only where
+dtype and o's (dO's) dtype: bf16 q at every head_dim 1..256, with a bf16
+o or the sequence ring's fp32 one (``flash_dq_sm90`` and ``flash_dkv_sm90``
+take an fp32 dO as two bf16 terms), and fp32 (products as 3xTF32: each
+operand split into two TF32 terms, three products summed in fp32) at
+1..128. The kernels take head_dims in steps of 8: the wrappers give them
+any other head_dim zero-padded to the next multiple of 8 (``pad_head_dim``;
+zero columns add nothing to q k^T and give zero columns of o, dq, dk and
+dv, which are cut off), and a head_dim that is not a whole number of
+128-byte panels runs padded further by TMA's zero fill. The others (SIMT)
+do fp32 FMAs on the CUDA cores and take fp32 or bf16 with any head_dim up
+to 128; no route reaches them, and all three stay built and checked on the
+card as ``variant="simt"``. A shape that no tensor-core kernel takes (fp32
+above head_dim 128, fp16, above 256) raises ``ValueError`` on a CUDA tensor,
+naming the routes; ``use_flash="auto"`` takes the kernels only where
 ``sm90_takes`` says all three do. A kernel that fails to build or launch
 raises.
 
@@ -200,8 +204,9 @@ def _check(q, k, v, out_dtype, dout=None, lse=None, delta=None,
     [B, S, H, D] q and [B, S, H_kv, D] k, v of one dtype (fp32 or bf16),
     H % H_kv == 0; o/dO in q's dtype or fp32; a head_dim that ``kernel``
     takes with these dtypes (a tensor-core kernel: ``SM90_ROUTES``; a SIMT
-    kernel: 8..128 in steps of 8); dO [B, S, H, D]; lse, delta fp32
-    [B, H, S]; all contiguous on one CUDA device."""
+    kernel: up to 128), in steps of 8 (the wrappers pad the others); dO
+    [B, S, H, D]; lse, delta fp32 [B, H, S]; all contiguous on one CUDA
+    device."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"expected q [B,S,H,D] and k, v [B,S,H_kv,D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -224,6 +229,9 @@ def _check(q, k, v, out_dtype, dout=None, lse=None, delta=None,
                              f"steps of 8; got {d}")
     elif _variant(kernel[:-len("_sm90")], q.dtype, d, out_dtype) != "sm90":
         raise ValueError(_refusal(kernel, q.dtype, out_dtype, d))
+    if d % 8:
+        raise ValueError(f"{kernel} takes head_dim in steps of 8 (the "
+                         f"wrappers pad the others); got {d}")
     if dout is not None and (dout.shape != q.shape or dout.dtype != out_dtype):
         raise ValueError(f"dO must be {out_dtype} of q's shape "
                          f"{tuple(q.shape)}; got {dout.dtype} "
@@ -348,27 +356,41 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
 # --------------------------------------------------------------------------
 
 # what each tensor-core kernel takes: {(q's dtype, o's or dO's dtype): the
-# head_dims}. Off these routes: fp32 q above head_dim 128 (the 3xTF32 tiles
-# do not fit as they are), the sequence ring's bf16 q with an fp32 o/dO
-# above 128, head_dims off the 8-grid, fp16 (ROADMAP).
-HEAD_DIMS = tuple(range(8, 129, 8))       # every dtype
-WIDE_HEAD_DIMS = tuple(range(136, 257, 8))  # bf16 q with a bf16 o/dO only
+# head_dims the kernels see, in steps of 8; every head_dim up to the last
+# reaches them zero-padded (padded_head_dim)}. Off these routes: fp32 q
+# above head_dim 128 (the 3xTF32 tiles do not fit as they are), fp16, and
+# head_dims above 256 (ROADMAP).
+HEAD_DIMS = tuple(range(8, 129, 8))         # every dtype
+WIDE_HEAD_DIMS = tuple(range(136, 257, 8))  # bf16 q, o/dO bf16 or fp32
 SIMT_MAX_HEAD_DIM = 128
 _BF16, _FP32 = torch.bfloat16, torch.float32
 SM90_ROUTES = {base: {(_BF16, _BF16): HEAD_DIMS + WIDE_HEAD_DIMS,
-                      (_BF16, _FP32): HEAD_DIMS,
+                      (_BF16, _FP32): HEAD_DIMS + WIDE_HEAD_DIMS,
                       (_FP32, _FP32): HEAD_DIMS}
                for base in ("flash_fwd", "flash_dq", "flash_dkv")}
 
 
+def padded_head_dim(d) -> int:
+    """The head_dim the kernels see for head_dim ``d``: the next multiple
+    of 8."""
+    return -(-d // 8) * 8
+
+
+def pad_head_dim(x, width):
+    """``x`` with its last axis zero-padded to ``width`` columns; ``x``
+    itself where it has them (no copy)."""
+    d = x.shape[-1]
+    return x if d == width else torch.nn.functional.pad(x, (0, width - d))
+
+
 def _variant(base, dtype, d, out_dtype=None) -> str:
     """Which design of kernel ``base`` ("flash_fwd", "flash_dq" or
-    "flash_dkv") takes q/k/v of this dtype and head_dim with o (dO) in
-    ``out_dtype`` (default q's): "sm90" (tensor cores) where ``SM90_ROUTES``
-    lists them, else "simt" (which no route reaches: on a CUDA tensor the
-    wrappers raise there)."""
+    "flash_dkv") takes q/k/v of this dtype and head_dim (padded to the
+    next multiple of 8) with o (dO) in ``out_dtype`` (default q's): "sm90"
+    (tensor cores) where ``SM90_ROUTES`` lists them, else "simt" (which no
+    route reaches: on a CUDA tensor the wrappers raise there)."""
     dims = SM90_ROUTES[base].get((dtype, out_dtype or dtype), ())
-    return "sm90" if d in dims else "simt"
+    return "sm90" if d > 0 and padded_head_dim(d) in dims else "simt"
 
 
 def sm90_takes(dtype, head_dim, out_dtype=None) -> bool:
@@ -380,24 +402,24 @@ def sm90_takes(dtype, head_dim, out_dtype=None) -> bool:
 
 def _refusal(name, dtype, out_dtype, d) -> str:
     short = lambda t: str(t).split(".")[-1]
-    return (f"{name} takes bfloat16 or float32 with head_dim "
-            f"{', '.join(map(str, HEAD_DIMS))}, and bfloat16 with a "
-            f"bfloat16 o/dO also with head_dim "
-            f"{', '.join(map(str, WIDE_HEAD_DIMS))}; got {short(dtype)} q "
-            f"with {short(out_dtype)} o/dO, head_dim {d}")
+    return (f"{name} takes bfloat16 q with head_dim 1..{WIDE_HEAD_DIMS[-1]} "
+            f"(o/dO bfloat16 or float32) and float32 q with head_dim "
+            f"1..{HEAD_DIMS[-1]} (o/dO float32); got {short(dtype)} q with "
+            f"{short(out_dtype)} o/dO, head_dim {d}")
 
 
 def _kernel(base, q, variant, out_dtype=None):
     """The kernel of ``base`` for q with o (dO) in ``out_dtype`` (default
-    q's): the tensor-core one unless ``variant`` is "simt". "sm90" asked for
-    by name raises where ``SM90_ROUTES`` does not list the inputs; with
-    ``variant`` None ``_check`` raises there on a CUDA tensor, and on a CPU
-    tensor the plain version runs with fp32 operands."""
+    q's): the tensor-core one unless ``variant`` is "simt". Where
+    ``SM90_ROUTES`` does not list the inputs it raises ``ValueError``,
+    naming the routes, for "sm90" asked for by name and, with ``variant``
+    None, for a tensor off the CPU; on a CPU tensor the plain version then
+    runs with fp32 operands."""
     if variant not in (None, "sm90", "simt"):
         raise ValueError(f"variant must be None, 'sm90' or 'simt'; got "
                          f"{variant!r}")
-    if variant == "sm90" and _variant(base, q.dtype, q.shape[-1],
-                                      out_dtype) != "sm90":
+    if variant != "simt" and (variant == "sm90" or q.device.type != "cpu") \
+            and _variant(base, q.dtype, q.shape[-1], out_dtype) != "sm90":
         raise ValueError(_refusal(base + "_sm90", q.dtype,
                                   out_dtype or q.dtype, q.shape[-1]))
     return base if variant == "simt" else base + "_sm90"
@@ -417,6 +439,11 @@ def flash_fwd(q, k, v, scale, causal, out_dtype, variant=None):
     name = _kernel("flash_fwd", q, variant, out_dtype)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale, causal, out_dtype)
+    d, dp = q.shape[-1], padded_head_dim(q.shape[-1])
+    if d != dp:
+        o, lse = flash_fwd(*(pad_head_dim(t, dp) for t in (q, k, v)), scale,
+                           causal, out_dtype, variant)
+        return o[..., :d].contiguous(), lse
     _check(q, k, v, out_dtype, kernel=name)
     b, s, h, _ = q.shape
     o = torch.empty(q.shape, dtype=out_dtype, device=q.device)
@@ -436,6 +463,11 @@ def flash_dq(q, k, v, dout, lse, delta, scale, causal, variant=None):
         return flash_dq_plain(q, k, v, dout, lse, delta, scale, causal,
                               split_dout=bf16_operands,
                               round_ds=bf16_operands)
+    d, dp = q.shape[-1], padded_head_dim(q.shape[-1])
+    if d != dp:
+        padded = (pad_head_dim(t, dp) for t in (q, k, v, dout))
+        return flash_dq(*padded, lse, delta, scale, causal,
+                        variant)[..., :d].contiguous()
     _check(q, k, v, dout.dtype, dout, lse, delta, kernel=name)
     dq = torch.empty_like(q)
     _run(name, (q, k, v, dout, lse, delta, dq), q, k, scale, causal,
@@ -454,6 +486,11 @@ def flash_dkv(q, k, v, dout, lse, delta, scale, causal, variant=None):
         return flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
                                split_dout=bf16_operands,
                                round_operands=bf16_operands)
+    d, dp = q.shape[-1], padded_head_dim(q.shape[-1])
+    if d != dp:
+        padded = (pad_head_dim(t, dp) for t in (q, k, v, dout))
+        dk, dv = flash_dkv(*padded, lse, delta, scale, causal, variant)
+        return dk[..., :d].contiguous(), dv[..., :d].contiguous()
     _check(q, k, v, dout.dtype, dout, lse, delta, kernel=name)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _run(name, (q, k, v, dout, lse, delta, dk, dv), q, k, scale, causal,

@@ -8,7 +8,13 @@ tensors in and out, lse as fp32 ``[B, S, H]``, gradients through both o and
 lse (a lse cotangent folds into ``delta = rowsum(dO∘O) − dlse``), GQA served
 without repeating K/V, and ``ValueError`` on indivisible heads. Block sizes
 are the kernels' own (any sequence length), so the JAX function's
-``block_q``/``block_k`` arguments have no counterpart here.
+``block_q``/``block_k`` arguments have no counterpart here. Any head_dim
+up to the kernels' widest reaches them: one off their grid of 8 is
+zero-padded once in the forward (q, k, v) and once in the backward (dO),
+and o, dq, dk and dv are cut back. That is exact: zero columns of q and k
+add nothing to q·kᵀ, zero columns of v and dO give zero columns of o, dq,
+dk and dv, and delta is unchanged; ``scale`` keeps the true head_dim's
+value. A head_dim on the grid makes no copy.
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ def resolve_flash(use_flash, local_seq, dtype, head_dim,
     ``local_seq`` positions of q in ``dtype`` with ``head_dim``, o in
     ``out_dtype`` (default q's): "auto" is True above
     ``FLASH_AUTO_THRESHOLD`` where all three kernels take the shape
-    (``_kernels.sm90_takes``), else the einsum path; True stays True, and
-    the kernels then raise on a CUDA tensor whose shape they do not take."""
+    (``_kernels.sm90_takes``: bf16 q at head_dim 1..256 with a bf16 or
+    fp32 o, fp32 at 1..128), else the einsum path; True stays True, and the
+    kernels then raise on a CUDA tensor whose shape they do not take."""
     if isinstance(use_flash, str):
         if use_flash != "auto":
             raise ValueError(
@@ -45,23 +52,28 @@ def resolve_flash(use_flash, local_seq, dtype, head_dim,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """(q, k, v) [B, S, H(_kv), D] → (o [B, S, H, D], lse [B, H, S])."""
+    """(q, k, v) [B, S, H(_kv), D] → (o [B, S, H, D], lse [B, H, S]); a D
+    off the kernels' grid of 8 runs zero-padded (module docstring)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, out_dtype):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        d = q.shape[-1]
+        dp = _kernels.padded_head_dim(d)
+        q, k, v = (_kernels.pad_head_dim(t.contiguous(), dp)
+                   for t in (q, k, v))
         o, lse = _kernels.flash_fwd(q, k, v, scale, causal, out_dtype)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.scale, ctx.causal, ctx.d = scale, causal, d
         ctx.set_materialize_grads(False)
-        return o, lse
+        return (o if dp == d else o[..., :d].contiguous()), lse
 
     @staticmethod
     def backward(ctx, do, dlse):
         q, k, v, o, lse = ctx.saved_tensors
+        d = ctx.d
         if do is None:
             do = torch.zeros_like(o)
-        do = do.contiguous()
+        do = _kernels.pad_head_dim(do.contiguous(), o.shape[-1])
         delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)
         if dlse is not None:
             delta = delta - dlse.float()
@@ -69,7 +81,7 @@ class _FlashAttention(torch.autograd.Function):
         dq = _kernels.flash_dq(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
         dk, dv = _kernels.flash_dkv(q, k, v, do, lse, delta, ctx.scale,
                                     ctx.causal)
-        return dq, dk, dv, None, None, None
+        return dq[..., :d], dk[..., :d], dv[..., :d], None, None, None
 
 
 def _prepare(q, k, scale):

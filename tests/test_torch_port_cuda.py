@@ -51,15 +51,24 @@ CASES = [
     (1, 300, 4, 1, 80, torch.bfloat16, False, torch.bfloat16),   # MQA, D 80
     (2, 130, 2, 2, 8, torch.bfloat16, True, torch.bfloat16),     # smallest D
     (2, 256, 4, 2, 96, torch.bfloat16, True, torch.float32),     # fp32 dO
+    # head_dims off the kernels' grid of 8, zero-padded by the wrappers
+    (2, 130, 4, 2, 36, torch.float32, True, torch.float32),      # to 40
+    (2, 200, 4, 4, 4, torch.bfloat16, True, torch.bfloat16),     # to 8
+    (1, 300, 8, 2, 100, torch.bfloat16, False, torch.bfloat16),  # to 104
 ]
-# the wide heads, bf16 q, o and dO at head_dim 136..256, which only the
-# tensor-core kernels take: their padded widths 192 and 256, D fixed at 192
-# and 256 and at run time between
+# the wide heads, bf16 q at head_dim 136..256, which only the tensor-core
+# kernels take: their padded widths 192 and 256, D fixed at 192 and 256 and
+# at run time between; o and dO in bf16, or in fp32 as the sequence ring
+# has them
 WIDE_CASES = [
     (2, 300, 4, 1, 256, torch.bfloat16, True, torch.bfloat16),   # MQA
     (2, 256, 3, 3, 192, torch.bfloat16, False, torch.bfloat16),
     (1, 200, 2, 2, 200, torch.bfloat16, True, torch.bfloat16),   # to 256
     (2, 130, 4, 2, 136, torch.bfloat16, True, torch.bfloat16),   # to 192
+    (2, 300, 4, 1, 256, torch.bfloat16, True, torch.float32),    # MQA
+    (2, 256, 3, 3, 192, torch.bfloat16, False, torch.float32),
+    (1, 200, 8, 1, 250, torch.bfloat16, True, torch.float32),    # to 256
+    (2, 130, 4, 2, 136, torch.bfloat16, True, torch.float32),    # to 192
 ]
 # every case on the SIMT kernels, and on each kernel's own route (None:
 # _variant's choice) where that reaches a tensor-core kernel; the wide heads
@@ -130,7 +139,7 @@ def test_kernels_match_plain_versions(cuda, case, variant):
 
 
 # bf16 q with an fp32 o, and so an fp32 dO: the sequence ring's blocks
-FP32_DOUT_CASES = [c for c in CASES
+FP32_DOUT_CASES = [c for c in CASES + WIDE_CASES
                    if c[5] == torch.bfloat16 and c[7] == torch.float32]
 
 
@@ -344,15 +353,20 @@ def test_wire_codec_kernels_match_plain_versions_bit_for_bit(cuda, codec):
 
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
-    q = torch.zeros(1, 16, 2, 12, device=cuda)          # D % 8 != 0
-    with pytest.raises(ValueError, match="head_dim"):
-        _kernels.flash_fwd(q, q, q, 1.0, True, torch.float32)
-    q = torch.zeros(1, 16, 2, 256, device=cuda)         # D > 128
-    with pytest.raises(ValueError, match="head_dim"):
-        _kernels.flash_fwd(q, q, q, 1.0, True, torch.float32)
-    q = torch.zeros(1, 16, 2, 16, device=cuda, dtype=torch.float16)
-    with pytest.raises(TypeError):
-        _kernels.flash_fwd(q, q, q, 1.0, True, torch.float16)
+    """What the tensor-core kernels still refuse raises ValueError naming
+    the routes, before any launch: fp32 above head_dim 128, fp16, and
+    head_dims above 256 (bf16 o or the ring's fp32 one)."""
+    before = dict(_kernels.LAUNCHES)
+    for d, dtype, out_dtype in ((136, torch.float32, torch.float32),
+                                (256, torch.float32, torch.float32),
+                                (16, torch.float16, torch.float16),
+                                (264, torch.bfloat16, torch.bfloat16),
+                                (264, torch.bfloat16, torch.float32)):
+        q = torch.zeros(1, 16, 2, d, device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="flash_fwd_sm90 takes "
+                                             "bfloat16 q with head_dim"):
+            _kernels.flash_fwd(q, q, q, 1.0, True, out_dtype)
+    assert dict(_kernels.LAUNCHES) == before
 
 
 DP_WORKER = r"""
@@ -527,6 +541,59 @@ def test_nccl_dryrun_and_full_width_sp_tp_step(cuda, tmp_path):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     print("PARALLEL4 " + json.dumps(summary))
+
+
+@pytest.mark.cuda
+def test_nccl_ring_wide_head_on_four_cards(cuda, tmp_path):
+    """On four cards (NCCL, two fake hosts of two cards), the gang of
+    tests/torch_port_parallel_gang.py trains chip_smoke.py's wide_head GPT
+    (Gemma-2B's attention widths: 8 heads of 256, one K/V head) at sp 4
+    with ring attention, seven steps with use_flash="auto" and seven with
+    the einsum ring blocks from the same weights and batch: the losses
+    within 1e-2 (LOSS_RTOL) at steps 1 and 7 on every card. A causal ring
+    of four shards: shard i attends i + 1 blocks a layer, each through the
+    fp32-o instances of the three sm90 kernels; the einsum run launches
+    nothing. Prints per-card step times, peak memory and launches as one
+    RINGWIDE4 JSON line (run with -s)."""
+    import json
+    import statistics
+    import subprocess
+
+    import torch_port_parallel_gang as PG
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    gang = PG.Gang("ringwide", str(tmp_path / "ringwide"), n=4,
+                   device="cuda", timeout=600)
+    summary = {"ranks": []}
+    for r in gang.results():
+        flash, einsum = r["ringwide_flash"], r["ringwide_einsum"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(flash["losses"],
+                                                    einsum["losses"])]
+        assert rel[0] <= LOSS_RTOL and rel[-1] <= LOSS_RTOL, (
+            flash["losses"], einsum["losses"])
+        blocks = 4 * (flash["coords"]["sp"] + 1) * PG.RINGWIDE_STEPS
+        assert flash["launches"] == {
+            "flash_fwd_sm90": blocks, "flash_dq_sm90": blocks,
+            "flash_dkv_sm90": blocks, "flash_fwd": 0, "flash_dq": 0,
+            "flash_dkv": 0, **NO_CODEC}
+        assert not any(einsum["launches"].values()), einsum["launches"]
+        summary["ranks"].append({
+            "coords": flash["coords"], "device": flash["device"],
+            "losses": flash["losses"], "einsum_losses": einsum["losses"],
+            "rel_diff": rel, "launches": flash["launches"],
+            **{f"{name}_step_ms_median":
+               statistics.median(run["step_s"][2:]) * 1e3
+               for name, run in (("flash", flash), ("einsum", einsum))},
+            "flash_step_s": flash["step_s"], "einsum_step_s": einsum["step_s"],
+            **{f"{name}_max_memory_allocated_bytes":
+               run["max_memory_allocated_bytes"]
+               for name, run in (("flash", flash), ("einsum", einsum))}})
+    summary["nvidia_smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print("RINGWIDE4 " + json.dumps(summary))
 
 
 def _start_gang(n, argv, tag, out_dir):

@@ -2,13 +2,16 @@
 CPU: the forward and dk/dv kernels' fp32 at head_dim 32/64/96/128 and bf16
 at head_dim 32 and 96, then dq's fp32 and bf16 at every head_dim, the
 forward's and dk/dv's head_dims off the 32-grid (8, 48, 80), the sequence
-ring's bf16 q with an fp32 o and dO, and bf16 at the wide heads (head_dim
-136..256, padded to 192 or 256). Each wrapper runs the plain version of the
-kernel it would launch on a CUDA tensor, and the port's flash attention on
-these routes is held against the JAX package's (Pallas interpret mode, as
-tests/test_flash_attention.py runs it) on the same numpy inputs. Then
-``use_flash="auto"``: it takes the kernels only where all three take the
-shape, and the model and the sequence-parallel paths follow it.
+ring's bf16 q with an fp32 o and dO, bf16 at the wide heads (head_dim
+136..256, padded to 192 or 256), the ring's fp32 o and dO at the wide heads
+too, and head_dims off the kernels' grid of 8 (1..7 and the rest), which the
+port's flash attention zero-pads to the next multiple of 8. Each wrapper
+runs the plain version of the kernel it would launch on a CUDA tensor, and
+the port's flash attention on these routes is held against the JAX
+package's (Pallas interpret mode, as tests/test_flash_attention.py runs it)
+on the same numpy inputs. Then ``use_flash="auto"``: it takes the kernels
+only where all three take the shape, and the model and the
+sequence-parallel paths follow it.
 
 Tolerances: bf16 5e-2 (tests/test_torch_port_flash.py's: the two sides
 round p, o and, on the sm90 route, p and ds before the dk/dv products and
@@ -215,28 +218,29 @@ def test_ring_route_dkv_carries_fp32_dout_as_two_terms(causal):
 
 def test_dq_and_fwd_take_sm90_on_every_route_and_dkv_refuses_it_off_the_grid():
     """flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90 take bf16 and fp32
-    at every head_dim on the kernels' grid (8..128 in steps of 8), so no
-    route reaches a SIMT kernel, and each works asked for by name at a
-    padded head_dim (48); off that grid (a head_dim that is no multiple of
-    8) dkv's tensor-core kernel, asked for by name, raises."""
+    at every head_dim 1..128 (off the kernels' grid of 8 zero-padded to it),
+    so no route reaches a SIMT kernel, and each works asked for by name at a
+    padded head_dim (48) and at one off the grid (44); off the routes' grid
+    of head_dims (fp32 above 128) dkv's tensor-core kernel, asked for by
+    name, raises."""
     lse = torch.zeros(1, 2, 8)
     for dtype in (torch.bfloat16, torch.float32):
-        for d in range(8, 129, 8):
+        for d in range(1, 129):
             for base in ("flash_fwd", "flash_dq", "flash_dkv"):
                 assert _kernels._variant(base, dtype, d) == "sm90"
-        q = torch.zeros(1, 8, 2, 48, dtype=dtype)
-        _kernels.flash_fwd(q, q, q, 1.0, True, dtype, variant="sm90")
-        _kernels.flash_dq(q, q, q, q, lse, lse, 1.0, True, variant="sm90")
-        dk, dv = _kernels.flash_dkv(q, q, q, q, lse, lse, 1.0, True,
-                                    variant="sm90")
-        assert dk.shape == dv.shape == q.shape and dk.dtype == dtype
-        q = torch.zeros(1, 8, 2, 44, dtype=dtype)
-        assert _kernels._variant("flash_dkv", dtype, 44) == "simt"
-        with pytest.raises(ValueError, match="flash_dkv_sm90 takes bfloat16 "
-                                             "or float32 with head_dim 8, "
-                                             "16, 24"):
-            _kernels.flash_dkv(q, q, q, q, lse, lse, 1.0, True,
-                               variant="sm90")
+        for d in (48, 44):
+            q = torch.zeros(1, 8, 2, d, dtype=dtype)
+            _kernels.flash_fwd(q, q, q, 1.0, True, dtype, variant="sm90")
+            _kernels.flash_dq(q, q, q, q, lse, lse, 1.0, True,
+                              variant="sm90")
+            dk, dv = _kernels.flash_dkv(q, q, q, q, lse, lse, 1.0, True,
+                                        variant="sm90")
+            assert dk.shape == dv.shape == q.shape and dk.dtype == dtype
+    q = torch.zeros(1, 8, 2, 200)
+    assert _kernels._variant("flash_dkv", torch.float32, 200) == "simt"
+    with pytest.raises(ValueError, match="flash_dkv_sm90 takes bfloat16 q "
+                                         "with head_dim 1..256"):
+        _kernels.flash_dkv(q, q, q, q, lse, lse, 1.0, True, variant="sm90")
 
 
 # ---- the wide heads (bf16 q with a bf16 o/dO at head_dim 136..256) -------
@@ -287,15 +291,17 @@ def test_wide_heads_take_the_sm90_route_and_its_rounding(d):
 @pytest.mark.parametrize("dtype,d,out_dtype", [
     (torch.float32, 136, None),            # 3xTF32 stops at 128
     (torch.float32, 256, None),
-    (torch.bfloat16, 256, torch.float32),  # the ring's fp32 o and dO
+    (torch.float32, 200, None),
+    (torch.bfloat16, 264, torch.float32),  # the ring's fp32 o past 256
     (torch.bfloat16, 264, None),           # past 256
-    (torch.bfloat16, 100, None),           # off the 8-grid
+    (torch.float16, 100, None),            # fp16
 ])
 def test_shapes_no_kernel_takes_raise_on_a_cuda_tensor(monkeypatch, dtype,
                                                        d, out_dtype):
     """Where no tensor-core kernel takes the shape, each wrapper raises
-    before a launch, naming the route, whatever ``variant`` None chose; a
-    SIMT kernel asked for by name above head_dim 128 raises too."""
+    ``ValueError`` before a launch, naming the routes, whatever ``variant``
+    None chose; a SIMT kernel asked for by name above head_dim 128 raises
+    too."""
     def no_launch(*args, **kwargs):
         raise AssertionError("a kernel was launched")
 
@@ -306,8 +312,10 @@ def test_shapes_no_kernel_takes_raise_on_a_cuda_tensor(monkeypatch, dtype,
     do = meta((1, 16, 2, d), o_dtype)
     lse = meta((1, 2, 16), torch.float32)
     assert not _kernels.sm90_takes(dtype, d, out_dtype)
-    with pytest.raises(ValueError, match="flash_fwd_sm90 takes bfloat16 or "
-                                         "float32 with head_dim 8, 16, "):
+    with pytest.raises(ValueError, match=r"flash_fwd_sm90 takes bfloat16 q "
+                                         r"with head_dim 1\.\.256 \(o/dO "
+                                         r"bfloat16 or float32\) and float32 "
+                                         r"q with head_dim 1\.\.128"):
         _kernels.flash_fwd(q, q, q, 1.0, True, o_dtype)
     with pytest.raises(ValueError, match="flash_dq_sm90 takes"):
         _kernels.flash_dq(q, q, q, do, lse, lse, 1.0, True)
@@ -319,6 +327,184 @@ def test_shapes_no_kernel_takes_raise_on_a_cuda_tensor(monkeypatch, dtype,
                                variant="simt")
 
 
+@pytest.mark.parametrize("dtype,d,out_dtype", [
+    (torch.bfloat16, 256, torch.float32),  # the ring's fp32 o and dO
+    (torch.bfloat16, 200, torch.float32),  # the same, padded to 256
+    (torch.bfloat16, 100, None),           # off the 8-grid
+    (torch.float32, 36, None),
+    (torch.bfloat16, 250, torch.float32),  # the ring and off the grid
+    (torch.float32, 4, None),              # below 8
+])
+def test_new_routes_reach_the_kernels_on_a_cuda_tensor(monkeypatch, dtype, d,
+                                                       out_dtype):
+    """Where a tensor-core kernel takes the shape, each wrapper gets past
+    the route check on a tensor off the CPU and hands its kernel the inputs
+    zero-padded to the next multiple of 8 (none where the head_dim is one),
+    and its outputs come back at the true head_dim. The kernel's launch and
+    the device check are stood in for: there is no card here."""
+    launched = []
+    monkeypatch.setattr(_kernels, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(_kernels, "_run", lambda name, tensors, *rest:
+                        launched.append((name, tensors[0].shape[-1])))
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    o_dtype = out_dtype or dtype
+    q = meta((1, 16, 2, d), dtype)
+    do = meta((1, 16, 2, d), o_dtype)
+    lse = meta((1, 2, 16), torch.float32)
+    assert _kernels.sm90_takes(dtype, d, out_dtype)
+    o, _ = _kernels.flash_fwd(q, q, q, 1.0, True, o_dtype)
+    dq = _kernels.flash_dq(q, q, q, do, lse, lse, 1.0, True)
+    dk, dv = _kernels.flash_dkv(q, q, q, do, lse, lse, 1.0, True)
+    dp = -(-d // 8) * 8
+    assert launched == [(n, dp) for n in ("flash_fwd_sm90", "flash_dq_sm90",
+                                          "flash_dkv_sm90")]
+    assert o.shape == dq.shape == dk.shape == dv.shape == q.shape
+    assert o.dtype == o_dtype and dq.dtype == dk.dtype == dtype
+
+
+# ---- the ring's fp32 o and dO at the wide heads ----------------------------
+
+@pytest.mark.parametrize("d", [200, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_route_at_wide_heads_matches_jax(d, causal):
+    """The sequence ring's blocks at the wide heads: bf16 q, k, v with an
+    fp32 o, so an fp32 dO, GQA with one K/V head (the wide_head GPT's
+    attention, cut down). Held against the JAX package with the same
+    out_dtype at BF16, the file's bf16 tolerance."""
+    q, k, v, do = _inputs(1, 64, 4, 1, d, seed=6)
+    o_j, lse_j, g_j = _jax_side(q, k, v, do, causal, jnp.bfloat16, 32,
+                                out_dtype=jnp.float32)
+    o_t, lse_t, g_t = _torch_side(q, k, v, do, causal, torch.bfloat16,
+                                  out_dtype=torch.float32)
+    assert o_t.dtype == torch.float32
+    np.testing.assert_allclose(o_t.numpy(), o_j, rtol=BF16, atol=BF16)
+    np.testing.assert_allclose(lse_t.numpy(), lse_j, rtol=FP32_GRAD,
+                               atol=FP32_GRAD)
+    for name, got, want in zip(("dq", "dk", "dv"), g_t, g_j):
+        assert got.dtype == torch.bfloat16 and got.shape[-1] == d
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16,
+                                   atol=BF16, err_msg=name)
+
+
+def test_wide_ring_route_carries_fp32_dout_as_two_terms():
+    """At head_dim 256 the ring's fp32 dO reaches flash_dq_sm90's and
+    flash_dkv_sm90's plain versions as two bf16 terms: in fp32 (before the
+    final rounding to bf16), with ds (and p) rounded on every side, dq, dk
+    and dv lie nearer the fp32-dO version than one rounding of dO does."""
+    d = 256
+    q, k, v, do = _inputs(1, 64, 4, 1, d, seed=7)
+    qt, kt, vt = (torch.tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    dot = torch.tensor(do)
+    scale = d ** -0.5
+    o, lse = _kernels.flash_fwd(qt, kt, vt, scale, True, torch.float32)
+    delta = (dot * o).sum(-1).transpose(1, 2).contiguous()
+    args = (qt, kt, vt, dot, lse, delta, scale, True)
+    assert torch.equal(_kernels.flash_dq(*args), _kernels.flash_dq_plain(
+        *args, split_dout=True, round_ds=True))
+    for got, want in zip(_kernels.flash_dkv(*args), _kernels.flash_dkv_plain(
+            *args, split_dout=True, round_operands=True)):
+        assert torch.equal(got, want)
+    f32 = [x.float() for x in (qt, kt, vt)]
+    rest = (lse, delta, scale, True)
+    for fn, flag in ((_kernels.flash_dq_plain, "round_ds"),
+                     (_kernels.flash_dkv_plain, "round_operands")):
+        want = fn(*f32, dot, *rest, **{flag: True})
+        two = fn(*f32, dot, *rest, split_dout=True, **{flag: True})
+        one = fn(*f32, dot.to(torch.bfloat16), *rest, **{flag: True})
+        if isinstance(want, torch.Tensor):
+            want, two, one = (want,), (two,), (one,)
+        for w, t, o1 in zip(want, two, one):
+            assert (t - w).abs().max() < (o1 - w).abs().max(), fn.__name__
+
+
+# ---- head_dims off the kernels' grid of 8 --------------------------------
+
+@pytest.mark.parametrize("d,dtype,out_dtype", [
+    (4, torch.float32, None),
+    (36, torch.float32, None),
+    (100, torch.float32, None),
+    (4, torch.bfloat16, None),
+    (36, torch.bfloat16, None),
+    (100, torch.bfloat16, None),
+    (250, torch.bfloat16, None),
+    (250, torch.bfloat16, torch.float32),   # the ring's, off the grid
+])
+def test_off_grid_head_dims_match_jax(d, dtype, out_dtype):
+    """Head_dims that are no multiple of 8, which the port's flash attention
+    zero-pads to the next one, against the JAX package's flash attention,
+    which takes them as they are, causal, GQA: fp32 at FP32_FWD (forward)
+    and FP32_GRAD (gradients, lse), bf16 at BF16."""
+    q, k, v, do = _inputs(1, 64, 4, 2, d, seed=8)
+    bf16 = dtype == torch.bfloat16
+    jdtype = jnp.bfloat16 if bf16 else jnp.float32
+    o_j, lse_j, g_j = _jax_side(
+        q, k, v, do, True, jdtype, 32,
+        out_dtype=None if out_dtype is None else jnp.float32)
+    o_t, lse_t, g_t = _torch_side(q, k, v, do, True, dtype,
+                                  out_dtype=out_dtype)
+    fwd, grad = (BF16, BF16) if bf16 else (FP32_FWD, FP32_GRAD)
+    assert o_t.dtype == (out_dtype or dtype) and o_t.shape[-1] == d
+    np.testing.assert_allclose(o_t.float().numpy(), o_j, rtol=fwd, atol=fwd)
+    np.testing.assert_allclose(lse_t.numpy(), lse_j, rtol=FP32_GRAD,
+                               atol=FP32_GRAD)
+    for name, got, want in zip(("dq", "dk", "dv"), g_t, g_j):
+        assert got.dtype == dtype and got.shape[-1] == d
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=grad,
+                                   atol=grad, err_msg=name)
+
+
+@pytest.mark.parametrize("d,dtype,out_dtype", [
+    (36, torch.float32, None),
+    (100, torch.bfloat16, None),
+    (250, torch.bfloat16, torch.float32),
+])
+def test_padded_path_matches_the_unpadded_plain_version(monkeypatch, d,
+                                                        dtype, out_dtype):
+    """The port's flash attention at a head_dim off the grid hands the
+    kernels' wrappers q, k, v and dO zero-padded to the next multiple of 8
+    and cuts o, dq, dk and dv back; that equals the plain versions of the
+    kernels run at the true head_dim on the same inputs, up to the order of
+    fp32 sums: 1e-5 in fp32 (FP32_FWD), and in bf16 one bf16 rounding of
+    the outputs (2^-7 relative). A head_dim on the grid is not copied."""
+    widths = []
+    real = _kernels.flash_fwd
+
+    def spy(q, *args, **kwargs):
+        widths.append(q.shape[-1])
+        return real(q, *args, **kwargs)
+
+    monkeypatch.setattr(_kernels, "flash_fwd", spy)
+    q, k, v, do = (torch.tensor(x).to(dtype)
+                   for x in _inputs(2, 48, 4, 2, d, seed=9))
+    o_dtype = out_dtype or dtype
+    do = do.to(o_dtype)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o, lse = flash_attention_with_lse(*leaves, causal=True,
+                                      out_dtype=out_dtype)
+    o.backward(do)
+    assert widths == [-(-d // 8) * 8]
+
+    scale = d ** -0.5
+    ro, rlse = _kernels.flash_fwd_plain(q, k, v, scale, True, o_dtype)
+    delta = (do.float() * ro.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, rlse, delta, scale, True)
+    bf16 = dtype == torch.bfloat16
+    want = [ro, _kernels.flash_dq_plain(*args, split_dout=bf16,
+                                        round_ds=bf16),
+            *_kernels.flash_dkv_plain(*args, split_dout=bf16,
+                                      round_operands=bf16)]
+    tol = 2.0 ** -7 if bf16 else FP32_FWD
+    torch.testing.assert_close(lse, rlse.transpose(1, 2), rtol=FP32_FWD,
+                               atol=FP32_FWD)
+    for name, got, ref in zip(("o", "dq", "dk", "dv"),
+                              [o.detach()] + [x.grad for x in leaves], want):
+        assert got.shape == ref.shape and got.dtype == ref.dtype, name
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                   atol=tol, msg=name)
+    x = torch.zeros(1, 2, 2, 64)
+    assert _kernels.pad_head_dim(x, _kernels.padded_head_dim(64)) is x
+
+
 # ---- use_flash="auto" ----------------------------------------------------
 
 AUTO = [
@@ -327,10 +513,14 @@ AUTO = [
     (torch.bfloat16, 64, torch.float32, True),   # the ring's blocks
     (torch.float32, 128, None, True),
     (torch.bfloat16, 264, None, False),
-    (torch.bfloat16, 100, None, False),
+    (torch.bfloat16, 100, None, True),     # off the 8-grid: padded
     (torch.float16, 64, None, False),
     (torch.float32, 256, None, False),
-    (torch.bfloat16, 256, torch.float32, False),  # the ring's at 256
+    (torch.bfloat16, 256, torch.float32, True),  # the ring's at 256
+    (torch.float32, 200, None, False),
+    (torch.bfloat16, 264, torch.float32, False),
+    (torch.float16, 100, None, False),
+    (torch.float32, 4, None, True),
 ]
 
 
@@ -395,9 +585,11 @@ class _OneMember:
 
 @pytest.mark.parametrize("dtype,d,ring_flash,ulysses_flash", [
     (torch.bfloat16, 64, True, True),
-    (torch.bfloat16, 256, False, True),    # the ring's fp32 o stops at 128
+    (torch.bfloat16, 256, True, True),     # the ring's fp32 o at 256
     (torch.bfloat16, 264, False, False),
     (torch.float16, 64, False, False),
+    (torch.bfloat16, 100, True, True),     # off the 8-grid: padded
+    (torch.float32, 200, False, False),
 ])
 def test_the_sequence_paths_follow_auto(monkeypatch, dtype, d, ring_flash,
                                         ulysses_flash):

@@ -234,11 +234,12 @@ def _dense_grads(arrays, causal):
 
 
 RING_CASES = [(shape, flash, causal) for shape in (G.RING, G.RING_GQA)
-              for flash in (False, True) for causal in (True, False)]
+              for flash in (False, True) for causal in (True, False)] + [
+    (G.RING_WIDE, True, causal) for causal in (True, False)]
 
 
 @pytest.mark.parametrize("shape,flash,causal", RING_CASES, ids=[
-    f"{'gqa' if s[2] != s[3] else 'mha'}-"
+    f"{'wide-' if s[4] > 128 else ''}{'gqa' if s[2] != s[3] else 'mha'}-"
     f"{'flash' if f else 'einsum'}-{'causal' if c else 'full'}"
     for s, f, c in RING_CASES])
 def test_ring_attention_matches_jax(gang, shape, flash, causal):

@@ -30,6 +30,9 @@ MESHES = [dict(dp=2, tp=2), dict(tp=2, dp=-1), dict(pp=4),
 # (B, S, H, H_kv, D) of the ring and Ulysses cases
 RING = (2, 32, 4, 4, 16)
 RING_GQA = (2, 32, 4, 2, 16)
+# a wide head with one K/V head (the wide_head GPT's attention, cut down),
+# flash blocks only
+RING_WIDE = (1, 32, 4, 1, 256)
 ULYSSES = (2, 32, 8, 8, 8)
 ULYSSES_GQA = (2, 32, 8, 4, 8)
 # the sharded GPT steps held against the JAX package's replicated step
@@ -213,9 +216,9 @@ def suite_parallel(res, inputs):
     res["tp_members"] = tp.global_ranks()
 
     # ring attention: einsum and flash blocks, causal and not, GQA
-    for shape in (RING, RING_GQA):
+    for shape in (RING, RING_GQA, RING_WIDE):
         arrays = qkv(shape)
-        for flash in (False, True):
+        for flash in ((True,) if shape == RING_WIDE else (False, True)):
             for causal in (True, False):
                 q, k, v = _shards(arrays, world, "sp")
                 o = ring_attention(q, k, v, mesh=world, causal=causal,
@@ -418,6 +421,67 @@ def suite_cuda(res, inputs):
     res["ulysses_least_tol"] = [
         ((a.float() - w.float()).abs() / (1 + w.float().abs())).max().item()
         for a, w in zip(outs["ulysses"], outs["whole"])]
+
+
+# the four-card ring at the wide heads: the wide_head GPT of chip_smoke.py
+# (Gemma-2B's attention widths) at sp 4, RINGWIDE_STEPS steps on a seeded
+# batch of RINGWIDE_BATCH rows of the whole sequence
+RINGWIDE_STEPS, RINGWIDE_BATCH = 7, 8
+
+
+def suite_ringwide(res, inputs):
+    """On four cards: the wide_head GPT at sp 4 with use_flash="auto" (each
+    ring block through the fp32-o instances of the sm90 kernels at padded
+    width 256) and with the einsum ring blocks, from the same weights and
+    batch: losses, step times, peak memory and launches of each.
+    ``inputs`` may shrink the run for a rehearsal on the CPU: ``config``
+    (GPTConfig overrides), ``batch``, ``steps``."""
+    import dataclasses
+    import time
+
+    import torch
+
+    import chip_smoke
+    import horovod_tpu_torch as hvt
+    from horovod_tpu_torch.models import GPT
+    from horovod_tpu_torch.models.transformer import GPTConfig
+    from horovod_tpu_torch.ops import _kernels as K
+    from horovod_tpu_torch.parallel.mesh import make_parallel_mesh
+    from horovod_tpu_torch.train import make_parallel_train_step
+
+    on_cuda = hvt.device().type == "cuda"
+    mesh = make_parallel_mesh(sp=hvt.size())
+    cfg = GPTConfig(**{**chip_smoke.WIDE_HEAD_CONFIG,
+                       **inputs.get("config", {})},
+                    dtype=torch.bfloat16, use_flash="auto", ring_mesh=mesh)
+    batch = inputs.get("batch", RINGWIDE_BATCH)
+    steps = inputs.get("steps", RINGWIDE_STEPS)
+    tokens = _t(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, cfg.max_seq_len)))
+    for name, use_flash in (("flash", "auto"), ("einsum", False)):
+        print(f"ring {name}", flush=True)
+        model = GPT(dataclasses.replace(cfg, use_flash=use_flash),
+                    device=hvt.device(), mesh=mesh, seed=0)
+        step = make_parallel_train_step(model, torch.optim.AdamW(
+            model.parameters(), lr=1e-4, weight_decay=1e-4), mesh)
+        if on_cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        losses, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(step(tokens)))     # waits for the device
+            times.append(time.perf_counter() - t0)
+        res["ringwide_" + name] = {
+            "losses": losses, "step_s": times,
+            "launches": dict(K.LAUNCHES), "coords": mesh.coords(),
+            "max_memory_allocated_bytes":
+                torch.cuda.max_memory_allocated() if on_cuda else None,
+            "device": torch.cuda.get_device_name() if on_cuda else "cpu"}
+        del model, step
+        if on_cuda:
+            torch.cuda.empty_cache()
 
 
 def _stage(params, x):

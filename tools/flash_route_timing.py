@@ -20,9 +20,12 @@ name given to ``--shapes``, in that order: ``routes``
 ``ring`` (chip_smoke.RING_CASES, the sequence ring's blocks, whose checks
 include each bf16 kernel's distance to the plain version with fp32
 operands; after ``main``, also held to the main shape's), ``ring_wide``
-(chip_smoke.RING_WIDE_CASE, a ring block at head_dim 128) and ``wide``
-(chip_smoke.WIDE_SHAPES, bf16 at head_dim 192 and 256), each in checkouts
-that have it. Every shape it runs is timed. Needs a CUDA card.
+(chip_smoke.RING_WIDE_CASE, a ring block at head_dim 128), ``wide``
+(chip_smoke.WIDE_SHAPES, bf16 at head_dim 192 and 256),
+``ring_wide_head`` (chip_smoke.RING_WIDE_HEAD_CASES, the ring's blocks at
+head_dim 256 and 192) and ``off_grid`` (chip_smoke.OFF_GRID_SHAPES,
+head_dims off the kernels' grid of 8), each in checkouts that have it.
+Every shape it runs is timed. Needs a CUDA card.
 """
 
 import argparse
@@ -38,7 +41,8 @@ def main():
     ap.add_argument("--repo", help="a checkout whose kernels to run "
                     "(default: this one)")
     ap.add_argument("--shapes", nargs="+",
-                    choices=("routes", "main", "ring", "ring_wide", "wide"),
+                    choices=("routes", "main", "ring", "ring_wide", "wide",
+                             "ring_wide_head", "off_grid"),
                     default=["routes"])
     args = ap.parse_args()
     root = Path(args.repo).resolve() if args.repo else REPO
@@ -63,7 +67,9 @@ def main():
     shapes = {"routes": lambda: C.ROUTE_SHAPES, "main": lambda: [C.MAIN_SHAPE],
               "ring": lambda: C.RING_CASES,
               "ring_wide": lambda: [C.RING_WIDE_CASE],
-              "wide": lambda: C.WIDE_SHAPES}
+              "wide": lambda: C.WIDE_SHAPES,
+              "ring_wide_head": lambda: C.RING_WIDE_HEAD_CASES,
+              "off_grid": lambda: C.OFF_GRID_SHAPES}
     cases = [c for name in args.shapes for c in shapes[name]()]
     # kernel_phase times only the shapes in TIMED
     C.TIMED.extend(c for c in cases if c not in C.TIMED)
