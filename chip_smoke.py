@@ -10,7 +10,7 @@ Phases, each of which exits non-zero on a failure:
    from csrc/ with nvcc, one process per source, in parallel.
 3. kernels: hold every kernel against its plain PyTorch version, and the
    autograd Function built on them (cotangents on o and on lse) against
-   autograd of flash_attention_reference, at thirty-four shapes: the main
+   autograd of flash_attention_reference, at forty-two shapes: the main
    path's (B 8, H 12, S 1024, D 64, bf16, causal), the accumulation
    phase's micro-batch (the same with B 4), non-causal, GQA (H 12,
    H_kv 4), ragged (S 1000, D 32, fp32), bf16 ragged (S 1000, D 64), bf16
@@ -46,9 +46,15 @@ Phases, each of which exits non-zero on a failure:
    8: the wrappers pad it to 104 with zero columns, and the kernel is timed
    on inputs padded once, the wrappers' copies apart. The other head_dims
    off the grid (fp32 D 36, bf16 D 4, and the ring's fp32 o at bf16 D 250
-   with one K/V head) are held to their plain versions. The build line
-   carries every instance's ptxas line, and the wide instances' lines are
-   printed again on their own.
+   with one K/V head) are held to their plain versions. fp32 at the wide
+   heads (3xTF32 at padded widths 192 and 256) is timed at the wide heads'
+   d_model 768 shapes and the wide_head attention, each in fp32, and at
+   D 136 (H 4, padded to 192), and held to its plain versions at fp32 D
+   250 off the grid (B 2, S 1000, H 8, H_kv 1), at a D 256 block not causal
+   at S 512 (H 8, H_kv 1), and at the longest sums dq and dk/dv see (B 1,
+   S 4096, H 4, H_kv 1, D 256). The build line carries every instance's
+   ptxas line, and the wide instances' lines are printed again on their
+   own.
 4. main path: hvt.init() (a one-process NCCL world), then
    horovod_tpu_torch.train.train on the bench.py GPT (vocab 32768, 12
    layers, d_model 768, 12 heads, d_ff 3072, seq 1024, bf16, flash
@@ -234,7 +240,7 @@ Phases, each of which exits non-zero on a failure:
    flash_dkv_sm90 at head_dim 256 (their padded-width-256 instances) once a
    layer a step and no other kernel, the einsum attention never; the
    einsum-attention model from the same seed within LOSS_RTOL at steps 1
-   and WIDE_HEAD_STEPS; step ms of both.
+   and WIDE_HEAD_STEPS; step ms and peak memory of both.
 26. ring_wide_head (after wide_head): ring attention at the wide heads.
    The sequence phase's block function over the wide_head attention (B 8,
    S 1024, H 8, H_kv 1, D 256, bf16, causal) at sp 2 and sp 4: each sm90
@@ -247,11 +253,18 @@ Phases, each of which exits non-zero on a failure:
    steps on train.train's seeded batch: each sm90 kernel once a layer a
    step, no einsum ring block; its einsum ring run from the same seed
    within LOSS_RTOL at steps 1 and WIDE_HEAD_STEPS; step ms of both.
-27. summary: one JSON line listing the kernels (launches on the main path,
+27. wide_head_fp32 (after wide_head): the wide_head GPT in fp32
+   (GPTConfig(dtype=torch.float32), use_flash="auto") through train.train,
+   WIDE_HEAD_STEPS steps on a seeded batch of 8 x 1024: the three sm90
+   kernels' fp32 instances at padded width 256 (3xTF32) once a layer a
+   step and no other kernel, the einsum attention never; the einsum model
+   from the same seed within ENTRY_RTOL's fp32 tolerance (1e-4) at steps 1
+   and WIDE_HEAD_STEPS; step ms and peak memory of both.
+28. summary: one JSON line listing the kernels (launches on the main path,
    or the wire phase's route for the codec kernels; the observe,
    accumulation, sequence, checkpoint, fsdp, launch, elastic, fleet,
-   serving, run, estimator, examples, entry, wide_head and ring_wide_head
-   phases; the
+   serving, run, estimator, examples, entry, wide_head, wide_head_fp32 and
+   ring_wide_head phases; the
    timings at the kernel's own route's shape, and at every timed shape in
    by_shape), the nvidia-smi line, and last the {"ok": true, ...} line.
 """
@@ -357,10 +370,25 @@ OFF_GRID_SHAPES = [(8, 1024, 8, 8, 100, "bfloat16", True, "bfloat16"),
                    (2, 1000, 4, 2, 36, "float32", True, "float32"),
                    (2, 1000, 4, 4, 4, "bfloat16", True, "bfloat16"),
                    (2, 1000, 8, 1, 250, "bfloat16", True, "float32")]
+# fp32 at the wide heads (3xTF32 at padded widths 192 and 256), timed:
+# d_model 768 at B 8, S 1024, causal with D 256 (H 3), D 192 (H 4) and D 200
+# (H 3, padded to 256, D at run time), the wide_head attention in fp32, and
+# D 136 (H 4, padded to 192, D at run time: the fourth new instance)
+WIDE_FP32_SHAPES = [(8, 1024, h, h, d, "float32", True, "float32")
+                    for d, h in ((256, 3), (192, 4), (200, 3))] + [
+    (*WIDE_HEAD_SHAPE[:5], "float32", True, "float32"),
+    (8, 1024, 4, 4, 136, "float32", True, "float32")]
+# and checked only: fp32 D 250 off the grid with one K/V head, a D 256 block
+# not causal at S 512 (what the sequence ring runs below the diagonal), and
+# the longest sums dq and dk/dv see (S 4096)
+WIDE_FP32_CHECKED = [(2, 1000, 8, 1, 250, "float32", True, "float32"),
+                     (8, 512, 8, 1, 256, "float32", False, "float32"),
+                     (1, 4096, 4, 1, 256, "float32", True, "float32")]
 # and the ring's causal blocks: bf16 q with an fp32 dO, which flash_dq_sm90
 # and flash_dkv_sm90 split into two bf16 terms in shared memory
 TIMED = [MAIN_SHAPE, RING_CASES[0], RING_WIDE_CASE, *ROUTE_SHAPES,
-         *WIDE_SHAPES, *RING_WIDE_HEAD_CASES, OFF_GRID_SHAPES[0]]
+         *WIDE_SHAPES, *RING_WIDE_HEAD_CASES, OFF_GRID_SHAPES[0],
+         *WIDE_FP32_SHAPES]
 CASES = [MAIN_SHAPE,
          MICRO_SHAPE,
          (8, 1024, 12, 12, 64, "bfloat16", False, "bfloat16"),
@@ -372,7 +400,8 @@ CASES = [MAIN_SHAPE,
          (2, 1000, 8, 2, 96, "bfloat16", True, "bfloat16"),
          (1, 4096, 4, 2, 64, "float32", True, "float32"),
          *RING_CASES, RING_WIDE_CASE, ULYSSES_CASE, *ROUTE_SHAPES,
-         *WIDE_SHAPES, *RING_WIDE_HEAD_CASES, *OFF_GRID_SHAPES]
+         *WIDE_SHAPES, *RING_WIDE_HEAD_CASES, *OFF_GRID_SHAPES,
+         *WIDE_FP32_SHAPES, *WIDE_FP32_CHECKED]
 # the shape whose timing stands in the kernels line for each SIMT kernel:
 # bf16 D 48 at d_model 768, where, since no route sends any kernel to the
 # SIMT design, they are timed as variant="simt" beside the padded sm90 ones
@@ -943,7 +972,10 @@ def kernel_phase(case, K, ref_fn, timings):
         bound_ms, bound_by = bound(name, b, s, h, h_kv, d, dtype_name,
                                    causal, out_name)
         ms, host_ms = cuda_ms(kern, 20)
+        # the instance that ran: its registers and shared memory a block
+        regs, smem = K.launch_attributes(name)
         record = {"shape": shape, "on_route": name in route,
+                  "registers": regs, "smem_bytes": smem,
                   "max_abs_err": max(e[0] for e in errs[name]),
                   "ms": ms, "plain_ms": cuda_ms(plain, 5)[0],
                   "bound_ms": bound_ms, "bound_by": bound_by,
@@ -955,6 +987,7 @@ def kernel_phase(case, K, ref_fn, timings):
             record["bound_3xtf32_ms"] = bound(name, b, s, h, h_kv, d,
                                               dtype_name, causal, out_name,
                                               passes=3)[0]
+            record["x_bound_3xtf32"] = ms / record["bound_3xtf32_ms"]
         timings.setdefault(name, {})[case] = record
         emit({"phase": "timing", "kernel": name, **record,
               "wrapper_host_ms": host_ms,
@@ -1090,12 +1123,13 @@ def entry_phase(K):
     return launches
 
 
-def wide_head_phase(K):
-    """A GPT with Gemma-2B's attention widths (module docstring, phase 25)
-    through train.train with use_flash="auto": the head_dim-256 instances of
-    the three sm90 kernels once a layer a step, no einsum attention, and the
-    einsum model's losses from the same seed within LOSS_RTOL at steps 1 and
-    WIDE_HEAD_STEPS. Returns the launches."""
+def wide_head_phase(K, dtype_name="bfloat16"):
+    """A GPT with Gemma-2B's attention widths (module docstring, phases 25
+    and 27) in ``dtype_name`` through train.train with use_flash="auto":
+    the head_dim-256 instances of the three sm90 kernels once a layer a
+    step, no einsum attention, and the einsum model's losses from the same
+    seed within LOSS_RTOL (bf16) or ENTRY_RTOL's fp32 tolerance at steps 1
+    and WIDE_HEAD_STEPS. Returns the launches."""
     import dataclasses
 
     import torch
@@ -1104,7 +1138,11 @@ def wide_head_phase(K):
     from horovod_tpu_torch.models.transformer import GPTConfig
     from horovod_tpu_torch.train import train
 
-    cfg = GPTConfig(**WIDE_HEAD_CONFIG, dtype=torch.bfloat16, use_flash="auto")
+    bf16 = dtype_name == "bfloat16"
+    phase = {"bfloat16": "wide_head", "float32": "wide_head_fp32"}[dtype_name]
+    rtol = LOSS_RTOL if bf16 else ENTRY_RTOL[dtype_name]
+    cfg = GPTConfig(**WIDE_HEAD_CONFIG, dtype=getattr(torch, dtype_name),
+                    use_flash="auto")
     d = cfg.d_model // cfg.n_heads
     batch, seq, steps = WIDE_HEAD_BATCH, cfg.max_seq_len, WIDE_HEAD_STEPS
     # the einsum path's one call of its own, counted for both runs
@@ -1125,11 +1163,14 @@ def wide_head_phase(K):
         peak = torch.cuda.max_memory_allocated()
         del res["model"], res["optimizer"]
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
         einsum = train(dataclasses.replace(cfg, use_flash=False), steps,
                        batch, seq, seed=0)
         einsum_launches = {n: c for n, c in K.LAUNCHES.items() if c}
+        einsum_peak = torch.cuda.max_memory_allocated()
         del einsum["model"], einsum["optimizer"]
+        torch.cuda.empty_cache()
     finally:
         transformer._repeat_kv = repeat_kv
     want = {n: cfg.n_layers * steps if n in route_launches(
@@ -1137,35 +1178,37 @@ def wide_head_phase(K):
         else 0 for n in launches}
     losses = res["loss"]
     rels = [abs(a - e) / abs(e) for a, e in zip(losses, einsum["loss"])]
-    emit({"phase": "wide_head", "config": {**WIDE_HEAD_CONFIG,
-                                           "dtype": "bfloat16",
-                                           "use_flash": "auto"},
+    emit({"phase": phase, "config": {**WIDE_HEAD_CONFIG,
+                                     "dtype": dtype_name,
+                                     "use_flash": "auto"},
           "batch": batch, "seq": seq, "head_dim": d,
-          "instances": "flash_{fwd,dq,dkv}_sm90 at padded width 256, D 256",
+          "instances": "flash_{fwd,dq,dkv}_sm90 at padded width 256, D 256"
+                       + ("" if bf16 else ", 3xTF32"),
           "losses": losses, "einsum_losses": einsum["loss"],
-          "rel_diff": rels, "rtol": LOSS_RTOL, "launches": launches,
+          "rel_diff": rels, "rtol": rtol, "launches": launches,
           "einsum_attention_calls": flash_einsum,
           "step_ms_median":
           statistics.median(res["step_s"][STEPS_WARMUP:]) * 1e3,
           "einsum_step_ms_median":
           statistics.median(einsum["step_s"][STEPS_WARMUP:]) * 1e3,
-          "max_memory_allocated_bytes": peak})
+          "max_memory_allocated_bytes": peak,
+          "einsum_max_memory_allocated_bytes": einsum_peak})
     if launches != want:
-        fail(f"wide_head: launched {launches}, expected {want}")
+        fail(f"{phase}: launched {launches}, expected {want}")
     if flash_einsum:
-        fail(f"wide_head: use_flash='auto' ran the einsum attention "
+        fail(f"{phase}: use_flash='auto' ran the einsum attention "
              f"{flash_einsum} times")
     if einsum_launches or len(einsum_calls) != cfg.n_layers * steps:
-        fail(f"wide_head: the einsum model launched {einsum_launches} or "
+        fail(f"{phase}: the einsum model launched {einsum_launches} or "
              f"ran its attention {len(einsum_calls)} times")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
-        fail(f"wide_head: losses {losses} are not finite and falling")
+        fail(f"{phase}: losses {losses} are not finite and falling")
     for i in (0, steps - 1):
-        if rels[i] > LOSS_RTOL:
-            fail(f"wide_head step {i + 1}: einsum loss {einsum['loss'][i]} "
+        if rels[i] > rtol:
+            fail(f"{phase} step {i + 1}: einsum loss {einsum['loss'][i]} "
                  f"vs flash loss {losses[i]}: rel diff {rels[i]:.3g} > "
-                 f"{LOSS_RTOL}")
+                 f"{rtol}")
     return launches
 
 
@@ -3180,6 +3223,11 @@ def main():
     hvt.shutdown()
     emit({"phase": "wide_head_seconds", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    wide_fp32_launches = wide_head_phase(K, "float32")
+    hvt.shutdown()
+    emit({"phase": "wide_head_fp32_seconds",
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     ring_wide_launches, ring_wide_block_launches = ring_wide_head_phase(
         hvt, K, flash_attention_reference)
     hvt.shutdown()
@@ -3213,6 +3261,7 @@ def main():
          "launches_entry_fp32": entry_launches[f"{name}@float32"],
          "launches_entry_bf16": entry_launches[f"{name}@bfloat16"],
          "launches_wide_head": wide_launches[name],
+         "launches_wide_head_fp32": wide_fp32_launches[name],
          "launches_ring_wide_head": ring_wide_launches[name],
          "launches_ring_wide_head_blocks": ring_wide_block_launches[name],
          **line_timing(K, name, timings)} for name in K.LAUNCHES]})

@@ -8,9 +8,9 @@
 //   q, k, v, o, dO   [B, S, H, D] contiguous (k and v carry H_kv heads)
 //   lse, delta       [B, H, S] fp32 contiguous
 //   H % H_kv == 0, D % 8 == 0 (the wrappers pad other head_dims with zero
-//   columns), any S; 0 < D <= 128 for the SIMT kernels and for fp32 on the
-//   tensor cores, 0 < D <= 256 for bf16 q (o and dO in bf16 or fp32) on the
-//   tensor cores.
+//   columns), any S; 0 < D <= 128 for the SIMT kernels, 0 < D <= 256 on the
+//   tensor cores (bf16 q with o and dO in bf16 or fp32, fp32 q with fp32 o
+//   and dO).
 //
 // Every SIMT kernel works on 64 x 64 tiles with 256 threads laid out 16 x 16:
 // thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of a
@@ -30,7 +30,7 @@ constexpr int kTile = 64;         // query rows and key rows per tile
 constexpr int kThreads = 256;     // 16 x 16
 constexpr int kPadS = kTile + 1;  // row stride of a 64 x 64 score tile in shared memory
 constexpr int kMaxD = 128;       // the SIMT kernels' widest head
-constexpr int kMaxDSm90 = 256;   // the tensor-core kernels' (bf16 q)
+constexpr int kMaxDSm90 = 256;   // the tensor-core kernels'
 constexpr float kMasked = -1e30f;  // the reference's fill for causally masked scores
 
 enum DType { kF32 = 0, kBF16 = 1 };
@@ -80,6 +80,13 @@ inline bool valid_shape(int B, int S, int H, int Hkv, int D, int max_d = kMaxD) 
          D % 8 == 0;
 }
 
+// The kernel instance that this library's last launch_n launched
+// (hvt_last_launch_attributes reads its registers and shared memory).
+inline const void*& last_kernel() {
+  static const void* kernel = nullptr;
+  return kernel;
+}
+
 // Raises the kernel's dynamic shared-memory limit (needed above 48 KB), then
 // launches it with `threads` threads a block and reports the launch's error,
 // if any.
@@ -90,6 +97,7 @@ inline int launch_n(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStre
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, threads, smem, stream>>>(args...);
+  last_kernel() = reinterpret_cast<const void*>(kernel);
   return (int)cudaGetLastError();
 }
 
@@ -102,4 +110,18 @@ inline int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream, Ar
 
 extern "C" const char* hvt_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// Registers a thread and shared memory a block (dynamic, as launched, plus
+// static) of the kernel instance this library launched last. Returns 0 or a
+// CUDA error code.
+extern "C" int hvt_last_launch_attributes(int* regs, int* smem) {
+  const void* kernel = hvt::last_kernel();
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *smem = attr.maxDynamicSharedSizeBytes + (int)attr.sharedSizeBytes;
+  return 0;
 }

@@ -3,8 +3,9 @@
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_dkv_kernel (pl.pallas_call in
 // _flash_bwd) for q/k/v in bf16 or fp32 with any head_dim the port takes
-// (8..128 in steps of 8, and bf16 q up to 256, in flash_dkv_sm90_wide_kernel;
-// the wrappers pad other head_dims with zero columns); flash_dkv.cu stays
+// (8..256 in steps of 8: above 128 bf16 q in flash_dkv_sm90_wide_kernel,
+// fp32 q in flash_dkv_sm90_tf32_wide_kernel; the wrappers pad other
+// head_dims with zero columns); flash_dkv.cu stays
 // built and checked as the SIMT
 // design, on no route. For each key tile:
 //   p = exp(scale q k^T - lse) with the causal fill, dv += p^T dO,
@@ -26,8 +27,9 @@
 // p^T dO and ds^T q included, runs as 3xTF32 (sm90.cuh) on fp32 operands,
 // within about 2^-21 of fp32 products: the plain version rounds nothing.
 //
-// Head dims. A kernel is instantiated per padded width DP (64 or 128 in
-// bf16; 32, 64, 96 or 128 in fp32): TMA zero-fills the columns past D, which
+// Head dims. A kernel is instantiated per padded width DP (64, 128, 192 or
+// 256 in bf16; 32, 64, 96, 128, 192 or 256 in fp32): TMA zero-fills the
+// columns past D, which
 // add nothing to any product, and only D columns of dk and dv are written.
 // At D 32, 64, 96 and 128 with dO in q's dtype D is fixed at compile time;
 // every other head_dim, and bf16 q with an fp32 dO, comes at run time.
@@ -114,6 +116,40 @@
 // 256, where the next Q/dO tile loads only once this one's products are
 // done. dP^T takes V dO_lo^T in the same commit group, and warpgroup 0 adds
 // P^T dO_lo to dV, a third more products than warpgroup 1's dK.
+//
+// Wide heads, fp32 q at DP 192 and 256 (flash_dkv_sm90_tf32_wide_kernel,
+// 3xTF32). The fp32 design above holds K, V and their lo for 64 keys (4 *
+// 64 * DP * 4 B, 256 KB at DP 256) and dK, dV with their fresh sums (2 *
+// DP registers a thread): neither fits. Here two warpgroups share a 64-key
+// tile. K and V stay raw (2 * 64 * DP * 4 B, 96 / 128 KB) and are register
+// A operands split a fragment at a time (sm90.cuh, mma_rows_tf32); Q/dO
+// tiles are 16 rows, split in place with their lo beside them (4 * 16 * DP
+// * 4 B a stage: two stages at DP 192, one at 256). Per Q/dO tile:
+//   S^T = K Q^T     warpgroup 0, and dP^T = V dO^T warpgroup 1: m64n16k8,
+//                   three a k-step, a fresh sum every two k-steps;
+//   P^T             warpgroup 0, written split into tf32 hi and lo as
+//                   K-major tiles of 64 key rows (store_frag_tf32); dS^T
+//                   = P^T (dP^T - delta) warpgroup 1, P^T read back as hi +
+//                   lo, written the same way;
+//   dV^T += dO^T P  warpgroup 0, and dK^T += Q^T dS warpgroup 1: the
+//                   transposed products, so that no operand needs a
+//                   transposed copy: M = 64 head-dim rows a slab (three or
+//                   four), A = dO^T (Q^T) read from the split tile
+//                   (mma_cols_tf32_add), B = P^T (dS^T), m64n64k8, each
+//                   slab's tile summed in a fresh accumulator and added in
+//                   fp32.
+// The A tiles hold 16 of a 128-byte row's 32 columns (4 * 8 KB). Shared
+// memory: 96 + 96 + 32 KB at DP 192 (225 KB), 128 + 64 + 32 at DP 256 (225
+// KB). A thread holds its warpgroup's dV^T or dK^T, three or four slabs
+// (96 / 128 registers), beside S^T or dP^T with two fresh sums (24) and its
+// fragments, and writes them out key by key (16 row addresses held at once
+// beside the 128 accumulators spilled at DP 256): 195 registers at DP 192,
+// 223 at 256 (ptxas -v), no spill; the query group is summed in the
+// kernel, and dk, dv leave it once. At the wide_head
+// attention (B 8, S 1024, H 8, H_kv 1, D 256, causal) the 68.7 GFLOP of
+// products take 139 us at TF32's rate and 417 us as 3xTF32 (the bound);
+// 128 blocks of one 64-key tile each, each walking 8 heads of 16-query
+// tiles with its stage's loads exposed, leave it far above that (PERF.md).
 #include "flash_attention.cuh"
 #include "sm90.cuh"
 
@@ -641,6 +677,216 @@ int launch_dkv_sm90_wide(const void* q, const void* k, const void* v, const void
                   (__nv_bfloat16*)dv, S, H, Hkv, D, scale, scale * kLog2e, causal);
 }
 
+// Tile sizes and the shared-memory layout of the fp32 kernel at padded
+// width 192 or 256 (see Wide heads, fp32).
+template <int DP>
+struct DkvTf32WideCfg {
+  static_assert(DP == 192 || DP == 256, "DP: six or eight fp32 panels");
+  static constexpr int kThreads = 256;  // two warpgroups
+  static constexpr int kBKV = 64;       // keys per block, shared
+  static constexpr int kBQ = 16;        // query rows a tile
+  static constexpr int kStages = DP == 192 ? 2 : 1;
+  static constexpr int kSlabs = DP / 64;  // 64-row slabs of dV^T or dK^T
+  static constexpr int kKV = kBKV * DP * 4;  // bytes of K or V, raw
+  static constexpr int kQ = kBQ * DP * 4;    // of Q, Q lo, dO or dO lo
+  static constexpr int kStage = 4 * kQ;
+  static constexpr int kA = kBKV * sm90::kRowBytes;  // P^T or dS^T, hi or lo: a row a key
+  static constexpr int kBarriers = (1 + 2 * kStages) * 8;
+  static constexpr int kBytes =
+      2 * kKV + kStages * kStage + 4 * kA + kBarriers + sm90::kAtomBytes;
+  static_assert(kBytes <= 232448, "a block's shared memory");
+};
+
+// kD: the head_dim where it is fixed at compile time, else 0 and d_rt
+// gives it.
+template <int DP, int kD>
+__global__ void __launch_bounds__(256, 1)
+    flash_dkv_sm90_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                                    const __grid_constant__ CUtensorMap tk,
+                                    const __grid_constant__ CUtensorMap tv,
+                                    const __grid_constant__ CUtensorMap tdo,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ delta, float* __restrict__ dk,
+                                    float* __restrict__ dv, int S, int H, int Hkv, int d_rt,
+                                    float scale, float scale_log2, int causal) {
+  using namespace sm90;
+  using C = DkvTf32WideCfg<DP>;
+  constexpr int kBKV = C::kBKV, kBQ = C::kBQ, kStages = C::kStages, kQ = C::kQ, kA = C::kA;
+  const int D = kD ? kD : d_rt;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1k(smem_raw);
+  uint8_t* k_s = smem;  // K, then V, raw
+  uint8_t* v_s = smem + C::kKV;
+  uint8_t* st = smem + 2 * C::kKV;  // stage s at st + s kStage: Q, Q lo, dO, dO lo
+  uint8_t* a_s = st + kStages * C::kStage;  // P^T hi, P^T lo, dS^T hi, dS^T lo
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(a_s + 4 * kA);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + kStages;
+
+  const int kt = blockIdx.x;  // low key tiles see the most queries: start them first
+  const int hk = blockIdx.y, b = blockIdx.z, group = H / Hkv;
+  const int k0 = kt * kBKV;
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  const int qt_start = causal ? k0 / kBQ : 0;  // earlier query tiles see none of these keys
+  const int per_head = n_qt - qt_start;
+  const int n_iter = group * per_head;
+  const int tid = threadIdx.x, warp = (tid % 128) / 32, lane = tid % 32;
+  // the warpgroup, through a shuffle so that the compiler knows it is warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::kThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  auto load_q = [&](int t, int s) {
+    const int h = hk * group + t / per_head, q0 = (qt_start + t % per_head) * kBQ;
+    uint8_t* dst = st + s * C::kStage;
+    mbar_expect_tx(&full[s], 2 * kQ);
+    tma_load_rows<DP, float>(dst, &tq, &full[s], kBQ, q0, h, b);
+    tma_load_rows<DP, float>(dst + 2 * kQ, &tdo, &full[s], kBQ, q0, h, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * C::kKV);
+    tma_load_rows<DP, float>(k_s, &tk, bar_kv, kBKV, k0, hk, b);
+    tma_load_rows<DP, float>(v_s, &tv, bar_kv, kBKV, k0, hk, b);
+    for (int t = 0; t < kStages && t < n_iter; ++t) load_q(t, t);
+  }
+
+  const uint32_t st_addr = smem_u32(st), a_addr = smem_u32(a_s);
+  // this warpgroup's product: dV^T += dO^T P (0) or dK^T += Q^T dS (1)
+  float acc[C::kSlabs][32];
+#pragma unroll
+  for (int m = 0; m < C::kSlabs; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+  for (int t = 0; t < n_iter; ++t) {
+    const int s = t % kStages;
+    const int h = hk * group + t / per_head, q0 = (qt_start + t % per_head) * kBQ;
+    uint8_t* q_s = st + s * C::kStage;  // Q, Q lo, dO, dO lo
+    const uint32_t q_addr = st_addr + s * C::kStage;
+
+    // lse (warpgroup 0) or delta (1) of this thread's four queries, read
+    // while the tile lands: column 8 (j / 2) + 2 (lane % 4) + j % 2
+    float vec[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int qp = q0 + 8 * (j / 2) + 2 * (lane % 4) + j % 2;
+      const long long off = ((long long)b * H + h) * S + qp;
+      vec[j] = qp >= S ? 0.f : wg == 0 ? lse[off] * kLog2e : delta[off];
+    }
+    mbar_wait(&full[s], (t / kStages) & 1);
+    // this thread's indices, opaque: the shared addresses of the split and of
+    // the A tiles are recomputed each tile, not held across the loop
+    const int tid_t = opaque(tid), warp_t = opaque(warp), lane_t = opaque(lane);
+    // Q and dO: hi in place, lo beside
+    split_tile<DP, kBQ, true, false>(q_s, q_s + kQ, nullptr, nullptr, tid_t, C::kThreads);
+    split_tile<DP, kBQ, true, false>(q_s + 2 * kQ, q_s + 3 * kQ, nullptr, nullptr, tid_t,
+                                     C::kThreads);
+    fence_proxy_async();
+    __syncthreads();
+
+    // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T (K and V split in
+    // registers)
+    float x[8];
+    const uint32_t b_addr = q_addr + 2 * wg * kQ;
+    mma_rows_tf32<DP>(x, wg == 0 ? k_s : v_s, kBKV, 0, b_addr, b_addr + kQ, kBQ, warp, lane);
+
+    const bool edge = q0 + kBQ > S || k0 + kBKV > S || (causal && k0 + kBKV - 1 > q0);
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float p = exp2f(fmaf(x[i], scale_log2, -vec[2 * (i / 4) + i % 2]));
+        if (edge) {
+          const int key = k0 + frag_row(i, warp, lane), qp = q0 + frag_col(i, lane);
+          if (qp >= S || key >= S || (causal && key > qp)) p = 0.f;
+        }
+        x[i] = p;
+      }
+      store_frag_tf32(x, a_s, a_s + kA, warp_t, lane_t);  // P^T
+      fence_proxy_async();
+    }
+    __syncthreads();  // P^T; and the previous tile's products have read dS^T
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < 8; i += 2) {
+        const int off = f32_offset(kBKV, frag_row(i, warp_t, lane_t), frag_col(i, lane_t));
+        const float2 ph = *reinterpret_cast<const float2*>(a_s + off);
+        const float2 pl = *reinterpret_cast<const float2*>(a_s + kA + off);
+        x[i] = (ph.x + pl.x) * (x[i] - vec[2 * (i / 4)]);
+        x[i + 1] = (ph.y + pl.y) * (x[i + 1] - vec[2 * (i / 4) + 1]);
+      }
+      store_frag_tf32(x, a_s + 2 * kA, a_s + 3 * kA, warp_t, lane_t);  // dS^T
+      fence_proxy_async();
+    }
+    __syncthreads();
+
+    // dV^T += dO^T P (warpgroup 0) or dK^T += Q^T dS (1): the A fragments
+    // from the split dO or Q tile, a fresh sum a slab
+    const uint32_t x_addr = q_addr + 2 * (1 - wg) * kQ, bt = a_addr + 2 * wg * kA;
+#pragma unroll
+    for (int m = 0; m < C::kSlabs; ++m)
+      mma_cols_tf32_add<kBQ / 8>(acc[m], x_addr, x_addr + kQ, kBQ, 64 * m, bt, bt + kA, kBKV,
+                                 warp, lane);
+
+    fence_proxy_async();  // the reads of this stage before TMA refills it
+    mbar_arrive(&empty[s]);
+    if (tid == 0 && t + kStages < n_iter) {
+      mbar_wait(&empty[s], (t / kStages) & 1);
+      load_q(t + kStages, s);
+    }
+  }
+
+  // warpgroup 0 writes dV, warpgroup 1 dK (with the softmax scale): element
+  // i of slab m of dV^T's fragment is head-dim row 64 m + 16 warp + lane / 4
+  // + 8 ((i / 2) % 2), key column k0 + 8 (i / 4) + 2 (lane % 4) + i % 2. Key
+  // by key, its row's address opaque, so that the compiler does not hold 16
+  // row addresses beside the 128 accumulators (at DP 256 that spilled)
+  float* out = wg == 0 ? dv : dk;
+  const float mult = wg == 0 ? 1.f : scale;
+  const long long kstride = (long long)Hkv * D;
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = opaque(k0 + 8 * c + 2 * (lane % 4) + e);
+      if (key >= S) continue;
+      float* row = out + ((long long)b * S + key) * kstride + (long long)hk * D;
+#pragma unroll
+      for (int m = 0; m < C::kSlabs; ++m)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int d = 64 * m + 16 * warp + lane / 4 + 8 * hh;
+          if (d < D) row[d] = acc[m][4 * c + 2 * hh + e] * mult;  // not the padded columns
+        }
+    }
+}
+
+template <int DP, int kD>
+int launch_dkv_sm90_tf32_wide(const void* q, const void* k, const void* v, const void* dout,
+                              const void* lse, const void* delta, void* dk, void* dv, int B,
+                              int S, int H, int Hkv, int D, float scale, int causal,
+                              cudaStream_t stream) {
+  using C = DkvTf32WideCfg<DP>;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_bshd_map(&tq, q, B, S, H, D, C::kBQ, 4);
+  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, C::kBQ, 4);
+  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, C::kBKV, 4);
+  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, C::kBKV, 4);
+  if (err != 0) return err;
+  const dim3 grid((S + C::kBKV - 1) / C::kBKV, Hkv, B);
+  return launch_n(flash_dkv_sm90_tf32_wide_kernel<DP, kD>, grid, C::kThreads, C::kBytes, stream,
+                  tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (float*)dk,
+                  (float*)dv, S, H, Hkv, D, scale, scale * kLog2e, causal);
+}
+
 template <int DP, int kD, typename T, int kDoTerms>
 int launch_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
@@ -700,8 +946,19 @@ int launch_dkv_sm90_d(const void* q, const void* k, const void* v, const void* d
       return launch_dkv_sm90_wide<192, 0, kDoTerms>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
                                                     Hkv, D, scale, causal, st);
   }
-  if (D > 128) return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value) {
+    if (D == 192)
+      return launch_dkv_sm90_tf32_wide<192, 192>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
+                                                 D, scale, causal, st);
+    if (D == 256)
+      return launch_dkv_sm90_tf32_wide<256, 256>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
+                                                 D, scale, causal, st);
+    if (D > 192)
+      return launch_dkv_sm90_tf32_wide<256, 0>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
+                                               D, scale, causal, st);
+    if (D > 128)
+      return launch_dkv_sm90_tf32_wide<192, 0>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
+                                               D, scale, causal, st);
     switch (padded_width<float>(D)) {
       case 32:
         return launch_dkv_sm90<32, 0, float, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,

@@ -3,8 +3,8 @@
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_dq_kernel (pl.pallas_call in
 // _flash_bwd) for q/k/v in bf16 or fp32 with any head_dim the port takes
-// (8..128 in steps of 8, and bf16 q up to 256; the wrappers pad other
-// head_dims with zero columns); flash_dq.cu
+// (8..256 in steps of 8; the wrappers pad other head_dims with zero
+// columns); flash_dq.cu
 // stays built and checked as the SIMT
 // design, on no route. Same function:
 //   p = exp(scale q k^T - lse) with the causal fill, keys past S weigh 0,
@@ -24,9 +24,10 @@
 // products: the plain version rounds nothing.
 //
 // Head dims. A kernel is instantiated per padded width DP (64, 128, 192 or
-// 256 in bf16; 32, 64, 96 or 128 in fp32): TMA zero-fills the columns past D, which add nothing to any
-// product, and only D columns of dq are written. The bf16 instances at D
-// 64, 128, 192 and 256 with a bf16 dO fix D at compile time; every other
+// 256 in bf16; 32, 64, 96, 128, 192 or 256 in fp32): TMA zero-fills the
+// columns past D, which add nothing to any product, and only D columns of
+// dq are written. The bf16 instances at D 64, 128, 192 and 256 with a bf16
+// dO and the fp32 ones at D 192 and 256 fix D at compile time; every other
 // head_dim comes at run time.
 //
 // Design, bf16. The TPU kernel carries dq in VMEM scratch across the grid's
@@ -101,6 +102,35 @@
 // (48 KB, 64 KB) lands in the K/V ring (96 KB, 64 KB) as on the route up
 // to 128: 168 KB and 160 KB in all. The grid has twice the blocks, and a
 // block's softmax no longer runs beside another warpgroup's products.
+//
+// Wide heads, fp32 DP 192 and 256 (flash_dq_sm90_tf32_wide_kernel). The
+// fp32 design above keeps Q, dO and their lo resident (4 * 64 * DP * 4 B,
+// 192 / 256 KB) and holds dq plus a fresh tile sum (192 / 256 registers a
+// thread): neither fits. Here a block of two warpgroups owns 64 query rows;
+// Q and dO stay raw (2 * 64 * DP * 4 B, 96 / 128 KB) and are register A
+// operands split a fragment at a time (sm90.cuh, mma_rows_tf32); K/V tiles
+// are 16 keys, split in place with their lo beside them (4 * 16 * DP * 4
+// B a stage, two stages at DP 192, one at 256). Per K/V tile:
+//   S  = Q K^T     warpgroup 0, and dP = dO V^T warpgroup 1: m64n16k8,
+//                  three a k-step, a fresh sum every two k-steps;
+//   P              warpgroup 0, into shared memory as fp32 in fragment
+//                  order; dS = P (dP - delta) warpgroup 1, written split
+//                  into tf32 hi and lo as the K-major tiles of 64 query
+//                  rows (store_frag_tf32);
+//   dQ^T += K^T dS^T  the transposed product, so that K needs no
+//                  transposed copy: M = 64 head-dim rows a slab (three or
+//                  four slabs, two a warpgroup, one at DP 192's second),
+//                  A = K^T read from the split K tiles (mma_cols_tf32_add),
+//                  B = dS, m64n64k8, each slab's tile summed in a fresh
+//                  accumulator and added in fp32.
+// Shared memory: 96 + 96 + 16 + 4 KB at DP 192, 128 + 64 + 16 + 4 KB at
+// DP 256 (213 KB either way). A thread holds two slabs of dQ^T (64
+// registers), S or dP with two fresh sums (24), two buffers of two
+// k-steps' fragments (32) and a slab's fresh sum (32): 157-168 registers
+// (ptxas -v), no spill. dq leaves the kernel once, from its one owner: the
+// same bits every run. At the wide_head attention (B 8, S 1024, H 8, H_kv 1,
+// D 256, causal) the 51.5 GFLOP of products take 104 us at TF32's rate and
+// 313 us as 3xTF32 (the bound), beside 65 us of HBM time.
 //
 // Bound. At the main path's shape (B 8, H 12, S 1024, D 64, bf16, causal)
 // the work is 19.3 GFLOP of bf16 products and 63.7 MB: 20 us of tensor-core
@@ -566,6 +596,199 @@ int launch_dq_sm90_tf32(const void* q, const void* k, const void* v, const void*
                   scale, scale * kLog2e, causal);
 }
 
+// Tile sizes and the shared-memory layout of the fp32 kernel at padded
+// width 192 or 256 (see Wide heads, fp32).
+template <int DP>
+struct DqTf32WideCfg {
+  static_assert(DP == 192 || DP == 256, "DP: six or eight fp32 panels");
+  static constexpr int kThreads = 256;  // two warpgroups
+  static constexpr int kBM = 64;        // query rows per block, shared
+  static constexpr int kBN = 16;        // keys per K/V tile
+  static constexpr int kStages = DP == 192 ? 2 : 1;
+  static constexpr int kSlabs = DP / 64;            // 64-row slabs of dQ^T
+  static constexpr int kMySlabs = (kSlabs + 1) / 2;  // a warpgroup's, at most
+  static constexpr int kQ = kBM * DP * 4;           // bytes of Q or dO, raw
+  static constexpr int kKV = kBN * DP * 4;          // of K, K lo, V or V lo
+  static constexpr int kStage = 4 * kKV;
+  static constexpr int kA = kBM * sm90::kRowBytes;  // dS hi or lo: a row a query
+  static constexpr int kP = kBM * kBN * 4;          // P, fp32, in fragment order
+  static constexpr int kBarriers = (1 + 2 * kStages) * 8;
+  static constexpr int kBytes =
+      2 * kQ + kStages * kStage + 2 * kA + kP + kBarriers + sm90::kAtomBytes;
+  static_assert(kBytes <= 232448, "a block's shared memory");
+};
+
+// kD: the head_dim where it is fixed at compile time (kD == DP), else 0 and
+// d_rt gives it.
+template <int DP, int kD>
+__global__ void __launch_bounds__(256, 1)
+    flash_dq_sm90_tf32_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const __grid_constant__ CUtensorMap tdo,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta, float* __restrict__ dq,
+                                   int S, int H, int Hkv, int d_rt, float scale, float scale_log2,
+                                   int causal) {
+  using namespace sm90;
+  using C = DqTf32WideCfg<DP>;
+  constexpr int kBM = C::kBM, kBN = C::kBN, kStages = C::kStages, kKV = C::kKV;
+  const int D = kD ? kD : d_rt;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1k(smem_raw);
+  uint8_t* q_s = smem;                 // Q, then dO, raw
+  uint8_t* do_s = smem + C::kQ;
+  uint8_t* st = smem + 2 * C::kQ;      // stage s at st + s kStage: K, K lo, V, V lo
+  uint8_t* ds_s = st + kStages * C::kStage;  // dS hi, then dS lo
+  float* p_s = reinterpret_cast<float*>(ds_s + 2 * C::kA);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(ds_s + 2 * C::kA + C::kP);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + kStages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows start first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
+  const int q0 = qt * kBM;
+  int n_kt = (S + kBN - 1) / kBN;
+  if (causal) n_kt = min(n_kt, (q0 + kBM - 1) / kBN + 1);
+  const int tid = threadIdx.x, warp = (tid % 128) / 32, lane = tid % 32;
+  // the warpgroup, through a shuffle so that the compiler knows it is warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::kThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  auto load_kv = [&](int j, int s) {
+    uint8_t* dst = st + s * C::kStage;
+    mbar_expect_tx(&full[s], 2 * kKV);
+    tma_load_rows<DP, float>(dst, &tk, &full[s], kBN, j * kBN, hk, b);
+    tma_load_rows<DP, float>(dst + 2 * kKV, &tv, &full[s], kBN, j * kBN, hk, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * C::kQ);
+    tma_load_rows<DP, float>(q_s, &tq, bar_q, kBM, q0, h, b);
+    tma_load_rows<DP, float>(do_s, &tdo, bar_q, kBM, q0, h, b);
+    for (int j = 0; j < kStages && j < n_kt; ++j) load_kv(j, j);
+  }
+
+  // this thread's two rows of S and dP: row_lo and row_lo + 8
+  const int row_lo = q0 + 16 * warp + lane / 4;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    const long long off = ((long long)b * H + h) * S + row;
+    lse2[r] = row < S ? lse[off] * kLog2e : 0.f;
+    dlt[r] = row < S ? delta[off] : 0.f;
+  }
+  // dQ^T, 64 head-dim rows a slab: warpgroup 0 owns slabs 0.., 1 the rest
+  const int slab0 = wg * C::kMySlabs;
+  float acc[C::kMySlabs][32];
+#pragma unroll
+  for (int m = 0; m < C::kMySlabs; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
+
+  const uint32_t st_addr = smem_u32(st), ds_addr = smem_u32(ds_s);
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_kt; ++j) {
+    const int s = j % kStages, k0 = j * kBN;
+    uint8_t* k_s = st + s * C::kStage;
+    const uint32_t k_addr = st_addr + s * C::kStage;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    // this thread's indices, opaque: the shared addresses of the split and of
+    // the dS tiles are recomputed each tile, not held across the loop
+    const int tid_t = opaque(tid), warp_t = opaque(warp), lane_t = opaque(lane);
+    // K and V: hi in place, lo beside
+    split_tile<DP, kBN, true, false>(k_s, k_s + kKV, nullptr, nullptr, tid_t, C::kThreads);
+    split_tile<DP, kBN, true, false>(k_s + 2 * kKV, k_s + 3 * kKV, nullptr, nullptr, tid_t,
+                                     C::kThreads);
+    fence_proxy_async();
+    __syncthreads();
+
+    // warpgroup 0: S = Q K^T; warpgroup 1: dP = dO V^T (Q and dO split in
+    // registers)
+    float x[8];
+    const uint32_t b_addr = k_addr + 2 * wg * kKV;
+    mma_rows_tf32<DP>(x, wg == 0 ? q_s : do_s, kBM, 0, b_addr, b_addr + kKV, kBN, warp, lane);
+
+    const bool edge = k0 + kBN > S || (causal && k0 + kBN - 1 > q0);
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = (i / 2) % 2;
+        float p = exp2f(fmaf(x[i], scale_log2, -lse2[r]));
+        if (edge) {
+          const int key = k0 + frag_col(i, lane);
+          if (key >= S || (causal && key > row_lo + 8 * r)) p = 0.f;  // the -1e30 fill
+        }
+        p_s[i * 128 + tid] = p;
+      }
+    }
+    __syncthreads();  // P; and the previous tile's products have read dS
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = p_s[i * 128 + tid - 128] * (x[i] - dlt[(i / 2) % 2]);
+      store_frag_tf32(x, ds_s, ds_s + C::kA, warp_t, lane_t);
+      fence_proxy_async();
+    }
+    __syncthreads();
+
+    // dQ^T += K^T dS^T: K^T from the K tiles, dS from shared memory, a
+    // fresh sum a slab
+#pragma unroll
+    for (int m = 0; m < C::kMySlabs; ++m)
+      if (slab0 + m < C::kSlabs)
+        mma_cols_tf32_add<kBN / 8>(acc[m], k_addr, k_addr + kKV, kBN, 64 * (slab0 + m), ds_addr,
+                                   ds_addr + C::kA, kBM, warp, lane);
+
+    fence_proxy_async();  // the reads of this stage before TMA refills it
+    mbar_arrive(&empty[s]);
+    if (tid == 0 && j + kStages < n_kt) {
+      mbar_wait(&empty[s], (j / kStages) & 1);
+      load_kv(j + kStages, s);
+    }
+  }
+
+  // dQ^T's fragment: head-dim row 64 slab + 16 warp + lane / 4 (+ 8), query
+  // column q0 + 8 (i / 4) + 2 (lane % 4) + i % 2
+  const long long qstride = (long long)H * D;
+#pragma unroll
+  for (int m = 0; m < C::kMySlabs; ++m) {
+    if (slab0 + m >= C::kSlabs) continue;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int d = 64 * (slab0 + m) + 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+      const int row = q0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+      if (d < D && row < S)  // the padded columns are not written
+        dq[((long long)b * S + row) * qstride + (long long)h * D + d] = acc[m][i] * scale;
+    }
+  }
+}
+
+template <int DP, int kD>
+int launch_dq_sm90_tf32_wide(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, void* dq, int B, int S, int H,
+                             int Hkv, int D, float scale, int causal, cudaStream_t stream) {
+  using C = DqTf32WideCfg<DP>;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_bshd_map(&tq, q, B, S, H, D, C::kBM, 4);
+  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, C::kBM, 4);
+  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, C::kBN, 4);
+  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, C::kBN, 4);
+  if (err != 0) return err;
+  const dim3 grid((S + C::kBM - 1) / C::kBM, H, B);
+  return launch_n(flash_dq_sm90_tf32_wide_kernel<DP, kD>, grid, C::kThreads, C::kBytes, stream,
+                  tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (float*)dq, S, H, Hkv,
+                  D, scale, scale * kLog2e, causal);
+}
+
 }  // namespace
 }  // namespace hvt
 
@@ -588,6 +811,18 @@ extern "C" int hvt_flash_dq_sm90(const void* q, const void* k, const void* v, co
                : launch_dq_sm90_d<2>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
                                      causal, st);
   if (dtype != kF32 || dout_dtype != kF32) return (int)cudaErrorInvalidValue;
+  if (D == 192)
+    return launch_dq_sm90_tf32_wide<192, 192>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D,
+                                              scale, causal, st);
+  if (D == 256)
+    return launch_dq_sm90_tf32_wide<256, 256>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D,
+                                              scale, causal, st);
+  if (D > 192)
+    return launch_dq_sm90_tf32_wide<256, 0>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D,
+                                            scale, causal, st);
+  if (D > 128)
+    return launch_dq_sm90_tf32_wide<192, 0>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D,
+                                            scale, causal, st);
   switch (sm90::padded_width<float>(D)) {
     case 32:
       return launch_dq_sm90_tf32<32>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,

@@ -3,8 +3,9 @@
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_fwd_kernel (launched by
 // _flash_fwd_impl through pl.pallas_call) for q/k/v in bf16 or fp32 with
-// any head_dim the port takes (8..128 in steps of 8, and bf16 q with a bf16
-// or fp32 o up to 256; the wrappers pad other head_dims with zero columns);
+// any head_dim the port takes (8..256 in steps of 8: bf16 q with a bf16 or
+// fp32 o, fp32 q with an fp32 o; the wrappers pad other head_dims with zero
+// columns);
 // flash_fwd.cu stays
 // built and checked as the SIMT design, on no route. Same arithmetic:
 // scores scale * q k^T summed in fp32, causal fill
@@ -16,7 +17,8 @@
 //
 // Head dims. A kernel is instantiated per padded width DP, the head_dim
 // rounded up to whole 128-byte panels (64, 128, 192 or 256 in bf16; 32, 64,
-// 96 or 128 in fp32): TMA zero-fills the columns past D, which add nothing
+// 96 or 128 in fp32, and 192 or 256 above 128): TMA zero-fills the columns
+// past D, which add nothing
 // to any product, and only D columns are written. The instances at D 32,
 // 64, 96, 128, 192 and 256 (bf16 D 32 and 96 padded) fix D at compile
 // time; every other head_dim comes at run time, for the store mask and the
@@ -75,6 +77,23 @@
 // o goes from the accumulators straight to device memory, so the sequence
 // ring's fp32 o takes the same instances: only the store differs.
 //
+// Wide heads, fp32 DP 192 and 256 (head_dim 136..256, 3xTF32). The fp32
+// layout above would keep Q and its lo for 64 rows (2 * 64 * DP * 4 B, 128
+// KB at DP 256) beside a 32-key stage of five tiles (160 KB): 288 KB. So Q
+// stays raw in shared memory and is the register A operand of S = Q K^T:
+// each k-step's fragment is loaded and split into hi and lo in registers,
+// and each k-step's three products sum in a fresh accumulator (two, in
+// turn, so one k-step's products run while the last one's sum is added in
+// fp32; sm90.cuh, mma_rows_tf32). One warpgroup of 64 query rows, 32-key
+// K/V tiles, one stage: Q 48 / 64 KB and the stage (K, K lo, V, V^T hi,
+// V^T lo) 120 / 160 KB, 169 / 225 KB in all at DP 192 / 256. P V runs as
+// wgmma m64n192k8 / m64n256k8 with P's hi and lo as register A operands
+// against V^T. A thread holds O (96 / 128 registers), S and its two fresh
+// sums (48) and one k-step's fragments in each of two buffers (16): 194 /
+// 224-225 registers (ptxas -v), no spill. At the wide_head attention (B 8,
+// S 1024, H 8, H_kv 1, D 256, causal) the 34.4 GFLOP of products move 151
+// MB (45 us): 70 us at TF32's rate, 208 us as 3xTF32 (PERF.md).
+//
 // Bound. At B 8, S 1024, causal, d_model 768 (H = 768 / D) every head_dim
 // does the same 12.9 GFLOP of products. bf16 moves 50.7 MB: 15 us of HBM
 // time against 13 us of tensor-core time (bytes bound); this kernel's
@@ -100,10 +119,12 @@ constexpr float kLn2 = 0.6931471805599453f;
 template <int DP, typename T>
 struct FwdCfg {
   static constexpr bool kTf32 = std::is_same<T, float>::value;
-  static_assert(DP % sm90::panel_cols<T>() == 0 && DP <= (kTf32 ? 128 : 256),
-                "DP: whole panels");
-  // warpgroups, 64 query rows each; fp32 at DP 32: one (see Design, fp32)
-  static constexpr int kWG = kTf32 && DP == 32 ? 1 : 2;
+  static_assert(DP % sm90::panel_cols<T>() == 0 && DP <= 256, "DP: whole panels");
+  // fp32 at DP 192 and 256: Q stays raw, split in registers (see Wide heads, fp32)
+  static constexpr bool kQRegs = kTf32 && DP > 128;
+  // warpgroups, 64 query rows each; fp32 at DP 32 and the wide heads: one
+  // (see Design, fp32)
+  static constexpr int kWG = kTf32 && (DP == 32 || kQRegs) ? 1 : 2;
   static constexpr int kThreads = 128 * kWG;
   static constexpr int kBM = 64 * kWG;               // query rows per block
   // keys per K/V tile; bf16 wide heads: 64 (see Wide heads)
@@ -114,10 +135,11 @@ struct FwdCfg {
   static constexpr int kKV = kBN * DP * (int)sizeof(T);  // of one K or V tile (or V^T)
   // a stage: K, V; for fp32 also K lo, V^T hi, V^T lo
   static constexpr int kStage = (kTf32 ? 5 : 2) * kKV;
-  static constexpr int kQAll = (kTf32 ? 2 : 1) * kQ;     // Q (and its lo)
+  static constexpr int kQAll = (kTf32 && !kQRegs ? 2 : 1) * kQ;  // Q (and its lo)
   static constexpr int kBarriers = (1 + 2 * kStages) * 8;
   static constexpr int kBytes = kQAll + kStages * kStage + kBarriers + sm90::kAtomBytes;
   static constexpr int kMinBlocks = !kTf32 && DP == 64 ? 2 : 1;
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
 // kD: the head_dim where it is fixed at compile time, else 0 and d_rt gives
@@ -180,7 +202,7 @@ __global__ void __launch_bounds__(FwdCfg<DP, T>::kThreads, FwdCfg<DP, T>::kMinBl
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // per thread: partial l
 
   mbar_wait(bar_q, 0);
-  if constexpr (C::kTf32) {
+  if constexpr (C::kTf32 && !C::kQRegs) {
     split_tile<DP, kBM, true, false>(q_s, q_s + C::kQ, nullptr, nullptr, tid, C::kThreads);
     fence_proxy_async();
     __syncthreads();
@@ -199,15 +221,20 @@ __global__ void __launch_bounds__(FwdCfg<DP, T>::kThreads, FwdCfg<DP, T>::kMinBl
       fence_proxy_async();
       __syncthreads();
       const uint32_t qlo_addr = q_addr + C::kQ, klo_addr = k_addr + 2 * kKV;
-      wgmma_fence();
+      if constexpr (C::kQRegs) {
+        mma_rows_tf32<DP>(sc, q_s, kBM, 0, k_addr, klo_addr, kBN, warp, lane);
+      } else {
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DP / 8; ++kk) {
-        const uint64_t qh = desc_kmajor(q_addr, kBM, 64 * wg, kk),
-                       ql = desc_kmajor(qlo_addr, kBM, 64 * wg, kk);
-        const uint64_t kh = desc_kmajor(k_addr, kBN, 0, kk), kl = desc_kmajor(klo_addr, kBN, 0, kk);
-        wgmma_ss_tf32(sc, ql, kh, kk > 0);
-        wgmma_ss_tf32(sc, qh, kl, 1);
-        wgmma_ss_tf32(sc, qh, kh, 1);
+        for (int kk = 0; kk < DP / 8; ++kk) {
+          const uint64_t qh = desc_kmajor(q_addr, kBM, 64 * wg, kk),
+                         ql = desc_kmajor(qlo_addr, kBM, 64 * wg, kk);
+          const uint64_t kh = desc_kmajor(k_addr, kBN, 0, kk),
+                         kl = desc_kmajor(klo_addr, kBN, 0, kk);
+          wgmma_ss_tf32(sc, ql, kh, kk > 0);
+          wgmma_ss_tf32(sc, qh, kl, 1);
+          wgmma_ss_tf32(sc, qh, kh, 1);
+        }
       }
     } else {
       wgmma_fence();
@@ -321,9 +348,10 @@ int launch_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* 
 
 // The instance for head_dim D: D 32, 64, 96 and 128 with D fixed at
 // compile time (the head_dims these instances took before every head_dim
-// had a route, so their code stands), and bf16 at D 192 and 256; every
-// other D at its padded width with D at run time. Wide heads (DP 192, 256)
-// take bf16 q, with a bf16 o or the sequence ring's fp32 one.
+// had a route, so their code stands), and the wide heads at D 192 and 256;
+// every other D at its padded width with D at run time. Wide heads (DP 192
+// for D 136..192, 256 above) take bf16 q with a bf16 o or the sequence
+// ring's fp32 one, and fp32 q with an fp32 o.
 template <typename T, typename TO>
 int launch_fwd_sm90_d(int D, const void* q, const void* k, const void* v, void* o, void* lse,
                       int B, int S, int H, int Hkv, float scale, int causal, cudaStream_t st) {
@@ -340,15 +368,16 @@ int launch_fwd_sm90_d(int D, const void* q, const void* k, const void* v, void* 
     case 128:
       return launch_fwd_sm90<128, 128, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal,
                                               st);
-  }
-  constexpr bool kBf16 = !std::is_same<T, float>::value;
-  constexpr bool kWide = kBf16;  // o in bf16 or fp32: only the store differs
-  if constexpr (kWide) {
-    if (D == 192)
+    case 192:
       return launch_fwd_sm90<192, 192, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
-    if (D == 256)
+    case 256:
       return launch_fwd_sm90<256, 256, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
   }
+  if (D > 192)
+    return launch_fwd_sm90<256, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+  if (D > 128)
+    return launch_fwd_sm90<192, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
   switch (padded_width<T>(D)) {
     case 32:
       if constexpr (!kBf16)
@@ -362,14 +391,6 @@ int launch_fwd_sm90_d(int D, const void* q, const void* k, const void* v, void* 
       break;
     case 128:
       return launch_fwd_sm90<128, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
-    case 192:
-      if constexpr (kWide)
-        return launch_fwd_sm90<192, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
-      break;
-    case 256:
-      if constexpr (kWide)
-        return launch_fwd_sm90<256, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
-      break;
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -576,6 +597,97 @@ __global__ void __launch_bounds__(128, 1)
   }
 }
 
+// The fp32 wide heads' building blocks on one product, for a [64, N] and b
+// [R, N] fp32 (N 192 or 256; R 16 or 32): c1 = a b^T with a's A fragments
+// loaded raw and split in registers and b split in place (mma_rows_tf32:
+// m64nRk8 over N / 8 k-steps, as S = Q K^T and S^T = K Q^T take them at DP
+// 192 and 256); c2 = c1 b with c1's fragment split into the register A
+// operand against b's transposed, permuted split (m64nNk8, as P V takes
+// it); c3 = (c1 b)^T with c1 written as K-major B tiles and b's split tiles
+// read transposed as A, a fresh sum a 64-row slab (store_frag_tf32,
+// mma_cols_tf32_add: m64n64k8, as dQ^T, dV^T and dK^T take them).
+template <int N, int R>
+__global__ void __launch_bounds__(128, 1)
+    wgmma_probe_tf32_wide_kernel(const __grid_constant__ CUtensorMap ta,
+                                 const __grid_constant__ CUtensorMap tb, float* c1, float* c2,
+                                 float* c3) {
+  using namespace sm90;
+  constexpr int kA = 64 * N * 4, kB = R * N * 4, kT = N * kRowBytes, kC = 64 * kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1k(smem_raw);
+  uint8_t* a_s = smem;
+  uint8_t* b_s = a_s + kA;      // b (hi once split), then b lo
+  uint8_t* t_s = b_s + 2 * kB;  // b^T hi, then b^T lo
+  uint8_t* c_s = t_s + 2 * kT;  // c1 hi, then c1 lo
+  uint64_t* bar = reinterpret_cast<uint64_t*>(c_s + 2 * kC);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, kA + kB);
+    tma_load_rows<N, float>(a_s, &ta, bar, 64, 0, 0, 0);
+    tma_load_rows<N, float>(b_s, &tb, bar, R, 0, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  split_tile<N, R, true, true>(b_s, b_s + kB, t_s, t_s + kT, tid, 128);
+  fence_proxy_async();
+  __syncthreads();
+  const uint32_t b_addr = smem_u32(b_s), t_addr = smem_u32(t_s), c_addr = smem_u32(c_s);
+  float d[R / 2];
+  mma_rows_tf32<N>(d, a_s, 64, 0, b_addr, b_addr + kB, R, warp, lane);
+#pragma unroll
+  for (int i = 0; i < R / 2; ++i) c1[frag_row(i, warp, lane) * R + frag_col(i, lane)] = d[i];
+
+  uint32_t hi[R / 8][4], lo[R / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk) a_fragment_tf32(hi[kk], lo[kk], d, kk);
+  float e[N / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk) {
+    const uint64_t th = desc_kmajor(t_addr, N, 0, kk), tl = desc_kmajor(t_addr + kT, N, 0, kk);
+    wgmma_rs_tf32(e, lo[kk], th, kk > 0);
+    wgmma_rs_tf32(e, hi[kk], tl, 1);
+    wgmma_rs_tf32(e, hi[kk], th, 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(e);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) c2[frag_row(i, warp, lane) * N + frag_col(i, lane)] = e[i];
+
+  store_frag_tf32(d, c_s, c_s + kC, warp, lane);
+  fence_proxy_async();
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < N / 64; ++m) {
+    float f[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) f[i] = 0.f;
+    mma_cols_tf32_add<R / 8>(f, b_addr, b_addr + kB, R, 64 * m, c_addr, c_addr + kC, 64, warp,
+                             lane);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      c3[(64 * m + frag_row(i, warp, lane)) * 64 + frag_col(i, lane)] = f[i];
+  }
+}
+
+template <int N, int R>
+int launch_probe_tf32_wide(const void* a, const void* b, void* c1, void* c2, void* c3,
+                           cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  int err = make_bshd_map(&ta, a, 1, 64, 1, N, 64, 4);
+  if (err == 0) err = make_bshd_map(&tb, b, 1, R, 1, N, R, 4);
+  if (err != 0) return err;
+  return launch_n(wgmma_probe_tf32_wide_kernel<N, R>, dim3(1), 128,
+                  64 * N * 4 + 2 * R * N * 4 + 2 * N * sm90::kRowBytes +
+                      2 * 64 * sm90::kRowBytes + 8 + sm90::kAtomBytes,
+                  stream, ta, tb, (float*)c1, (float*)c2, (float*)c3);
+}
+
 }  // namespace
 }  // namespace hvt
 
@@ -625,5 +737,19 @@ extern "C" int hvt_wgmma_probe_wide(const void* a, const void* b, const void* w,
   using namespace hvt;
   if (n == 192) return launch_probe_wide<192>(a, b, w, c1, c2, c3, (cudaStream_t)stream);
   if (n == 256) return launch_probe_wide<256>(a, b, w, c1, c2, c3, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// a: fp32 [64, n], b: fp32 [r, n] (n 192 or 256, r 16 or 32), row-major;
+// c1: fp32 [64, r], c2: fp32 [64, n], c3: fp32 [n, 64] (see
+// wgmma_probe_tf32_wide_kernel).
+extern "C" int hvt_wgmma_probe_wide_tf32(const void* a, const void* b, void* c1, void* c2,
+                                         void* c3, int n, int r, void* stream) {
+  using namespace hvt;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n == 192 && r == 16) return launch_probe_tf32_wide<192, 16>(a, b, c1, c2, c3, st);
+  if (n == 192 && r == 32) return launch_probe_tf32_wide<192, 32>(a, b, c1, c2, c3, st);
+  if (n == 256 && r == 16) return launch_probe_tf32_wide<256, 16>(a, b, c1, c2, c3, st);
+  if (n == 256 && r == 32) return launch_probe_tf32_wide<256, 32>(a, b, c1, c2, c3, st);
   return (int)cudaErrorInvalidValue;
 }

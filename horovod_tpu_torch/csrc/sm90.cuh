@@ -1,9 +1,11 @@
 // Hopper building blocks of the tensor-core flash kernels (flash_fwd_sm90.cu,
 // flash_dq_sm90.cu, flash_dkv_sm90.cu): raw PTX for mbarriers, TMA loads,
-// wgmma descriptors and wgmma products in bf16 and tf32, the 3xTF32 split,
-// the split of an fp32 tile into two bf16 terms (an fp32 dO with bf16 q:
-// beside the tile, or in place at the wide heads' dk/dv), plus the host code that encodes a TMA tensor map. sm_90a only: wgmma does
-// not exist on plain sm_90.
+// wgmma descriptors and wgmma products in bf16 and tf32, the 3xTF32 split
+// (of tiles in shared memory, and at the fp32 wide heads of A fragments in
+// registers), the split of an fp32 tile into two bf16 terms (an fp32 dO
+// with bf16 q: beside the tile, or in place at the wide heads' dk/dv), plus
+// the host code that encodes a TMA tensor map. sm_90a only: wgmma does not
+// exist on plain sm_90.
 //
 // Shared-memory tiles. Every tile is a stack of "panels" of 128 bytes a row:
 // 64 bf16 or 32 fp32 columns, one panel per 128 bytes of the head dimension
@@ -171,6 +173,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of an accumulator across
@@ -685,6 +692,247 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[64], const uint32_t (&a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+// d[0:8] (+)= A[64 x 8] B[8 x 16]; A from registers (tf32), B from shared memory.
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[0:96] (+)= A[64 x 8] B[8 x 192]; A from registers (tf32), B from shared memory.
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[96], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[0:128] (+)= A[64 x 8] B[8 x 256]; A from registers (tf32), B from shared memory.
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// ---- 3xTF32 with fp32 tiles read and written by the threads ------------------
+//
+// The fp32 kernels at padded widths 192 and 256 keep no split copy of an
+// operand that is A (M = 64 rows): its tf32 A fragments are loaded from the
+// raw tile that TMA landed and split in registers (mma_rows_tf32), or loaded
+// hi and lo from split tiles with the tile's rows as the reduced index
+// (A = the tile transposed: mma_cols_tf32_add). B tiles that the threads
+// write (P^T, dS, dS^T) take an accumulator fragment's rows as their rows
+// and its columns as the reduced index, unpermuted (store_frag_tf32).
+
+// Byte offset of element (r, c) of an fp32 tile of `rows` rows in 32-column
+// panels with the 128-byte swizzle, as TMA lands it.
+__device__ __forceinline__ int f32_offset(int rows, int r, int c) {
+  return (c / 32) * rows * kRowBytes + r * kRowBytes + ((((c % 32) / 4) ^ (r % 8)) * 16) +
+         (c % 4) * 4;
+}
+
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// x, which the compiler cannot see through: the shared addresses computed
+// from a thread's index are recomputed where they are used, instead of one
+// register for each load being hoisted out of the caller's loop (on the
+// card that spilled).
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// d = A B^T in 3xTF32 over DP columns: A = rows m0..m0 + 63 of the raw fp32
+// tile a (arows rows), split in registers kG k-steps at a time (two for N
+// 8, one above: the registers of two groups' fragments); B = the
+// K-major tf32 tiles at shared-memory addresses b_hi and b_lo (brows rows,
+// N = brows). The tf32 A fragment of m64k8 holds (row 16 warp + lane / 4
+// [+ 8], col lane % 4 [+ 4]); the 32 lanes of a warp read 8 rows of 4
+// words in 8 distinct swizzled chunks, no bank conflict. Each group's
+// fragments are split before its wgmma_fence and summed in a fresh
+// accumulator, added to d in fp32 once done (the tensor cores truncate as
+// they accumulate); the next group's fragments and sum go to the other
+// buffer (wgmma_wait<1>), so no register is written under a pending product.
+template <int DP, int N>
+__device__ __forceinline__ void mma_rows_tf32(float (&d)[N], const uint8_t* a, int arows, int m0,
+                                              uint32_t b_hi, uint32_t b_lo, int brows, int warp,
+                                              int lane) {
+  constexpr int kG = N >= 16 ? 1 : 2, kGroups = DP / 8 / kG;
+  lane = opaque(lane);
+  const int r = m0 + 16 * opaque(warp) + lane / 4;
+  // column lane % 4 of row r's eight 16-byte chunks, in the order before the
+  // swizzle; row r + 8 lies 1024 bytes on, panel p p * arows * 128 bytes on
+  const uint32_t row = smem_u32(a) + r * kRowBytes + (lane % 4) * 4;
+  uint32_t chunk[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) chunk[c] = row + ((c ^ (r % 8)) << 4);
+  uint32_t hi[2][kG][4], lo[2][kG][4];
+  float fresh[2][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+#pragma unroll
+    for (int e = 0; e < kG; ++e) {
+      const int kk = g * kG + e, c = 2 * (kk % 4);
+      const uint32_t po = (kk / 4) * arows * kRowBytes;
+      uint32_t(&h)[4] = hi[g % 2][e];
+      uint32_t(&l)[4] = lo[g % 2][e];
+      split_tf32(__uint_as_float(lds_u32(chunk[c] + po)), h[0], l[0]);
+      split_tf32(__uint_as_float(lds_u32(chunk[c] + po + 8 * kRowBytes)), h[1], l[1]);
+      split_tf32(__uint_as_float(lds_u32(chunk[c + 1] + po)), h[2], l[2]);
+      split_tf32(__uint_as_float(lds_u32(chunk[c + 1] + po + 8 * kRowBytes)), h[3], l[3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int e = 0; e < kG; ++e) {
+      const int kk = g * kG + e;
+      const uint64_t bh = desc_kmajor(b_hi, brows, 0, kk), bl = desc_kmajor(b_lo, brows, 0, kk);
+      wgmma_rs_tf32(fresh[g % 2], lo[g % 2][e], bh, e > 0);
+      wgmma_rs_tf32(fresh[g % 2], hi[g % 2][e], bl, 1);
+      wgmma_rs_tf32(fresh[g % 2], hi[g % 2][e], bh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (g > 0) {
+      fence_regs(fresh[(g - 1) % 2]);
+#pragma unroll
+      for (int i = 0; i < N; ++i) d[i] += fresh[(g - 1) % 2][i];
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(fresh[(kGroups - 1) % 2]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] += fresh[(kGroups - 1) % 2][i];
+}
+
+// acc += A B^T in 3xTF32 over kSteps k-steps, summed in a fresh accumulator
+// and then added in fp32: A = columns m0..m0 + 63 (m0 a multiple of 64) of
+// the split tf32 tiles at shared-memory addresses a_hi and a_lo (arows rows,
+// the reduced index; A is the tiles transposed, their values as they
+// stand); B = the K-major tf32 tiles at b_hi, b_lo (brows rows). Thread
+// (warp, lane) loads A's (m, k) = the tiles' (row k, column m) for m = m0 +
+// 16 warp + lane / 4 [+ 8], k = 8 kk + lane % 4 [+ 4]: four offsets at kk 0,
+// each k-step 1024 bytes on.
+template <int kSteps, int N>
+__device__ __forceinline__ void mma_cols_tf32_add(float (&acc)[N], uint32_t a_hi, uint32_t a_lo,
+                                                  int arows, int m0, uint32_t b_hi,
+                                                  uint32_t b_lo, int brows, int warp, int lane) {
+  lane = opaque(lane);
+  warp = opaque(warp);
+  uint32_t off[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    off[j] = f32_offset(arows, lane % 4 + 4 * (j / 2), m0 + 16 * warp + lane / 4 + 8 * (j % 2));
+  uint32_t hi[kSteps][4], lo[kSteps][4];
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      hi[kk][j] = lds_u32(a_hi + off[j] + kk * 8 * kRowBytes);
+      lo[kk][j] = lds_u32(a_lo + off[j] + kk * 8 * kRowBytes);
+    }
+  float fresh[N];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const uint64_t bh = desc_kmajor(b_hi, brows, 0, kk), bl = desc_kmajor(b_lo, brows, 0, kk);
+    wgmma_rs_tf32(fresh, lo[kk], bh, kk > 0);
+    wgmma_rs_tf32(fresh, hi[kk], bl, 1);
+    wgmma_rs_tf32(fresh, hi[kk], bh, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(fresh);
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += fresh[i];
+}
+
+// Element i of an m64nN accumulator fragment: row 16 warp + lane / 4 + 8 ((i
+// / 2) % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2.
+__device__ __forceinline__ int frag_row(int i, int warp, int lane) {
+  return 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+}
+__device__ __forceinline__ int frag_col(int i, int lane) {
+  return 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+}
+
+// An accumulator fragment x of m64n16 or m64n32 (8 or 16 registers), split
+// into tf32 hi and lo, written as the K-major B tiles t_hi and t_lo: its 64
+// rows, one 128-byte panel row each (16 columns take half of it), the
+// columns the reduced index.
+// A warp's 8-byte stores fill each 16-byte chunk of 8 rows twice: two
+// wavefronts, as few as 256 bytes take.
+template <int N>
+__device__ __forceinline__ void store_frag_tf32(const float (&x)[N], uint8_t* t_hi, uint8_t* t_lo,
+                                                int warp, int lane) {
+  static_assert(N <= 16, "one 32-column panel");
+#pragma unroll
+  for (int i = 0; i < N; i += 2) {
+    const int off = f32_offset(64, frag_row(i, warp, lane), frag_col(i, lane));
+    uint32_t h0, l0, h1, l1;
+    split_tf32(x[i], h0, l0);
+    split_tf32(x[i + 1], h1, l1);
+    *reinterpret_cast<uint2*>(t_hi + off) = make_uint2(h0, h1);
+    *reinterpret_cast<uint2*>(t_lo + off) = make_uint2(l0, l1);
+  }
 }
 }  // namespace sm90
 

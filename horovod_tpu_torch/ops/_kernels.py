@@ -20,17 +20,18 @@ The ``*_sm90`` kernels run their products on the tensor cores (``wgmma``,
 tiles brought by TMA) and take what ``SM90_ROUTES`` lists, keyed by q's
 dtype and o's (dO's) dtype: bf16 q at every head_dim 1..256, with a bf16
 o or the sequence ring's fp32 one (``flash_dq_sm90`` and ``flash_dkv_sm90``
-take an fp32 dO as two bf16 terms), and fp32 (products as 3xTF32: each
-operand split into two TF32 terms, three products summed in fp32) at
-1..128. The kernels take head_dims in steps of 8: the wrappers give them
+take an fp32 dO as two bf16 terms), and fp32 q with an fp32 o at every
+head_dim 1..256 too (products as 3xTF32: each operand split into two TF32
+terms, three products summed in fp32). The kernels take head_dims in steps
+of 8: the wrappers give them
 any other head_dim zero-padded to the next multiple of 8 (``pad_head_dim``;
 zero columns add nothing to q k^T and give zero columns of o, dq, dk and
 dv, which are cut off), and a head_dim that is not a whole number of
 128-byte panels runs padded further by TMA's zero fill. The others (SIMT)
 do fp32 FMAs on the CUDA cores and take fp32 or bf16 with any head_dim up
 to 128; no route reaches them, and all three stay built and checked on the
-card as ``variant="simt"``. A shape that no tensor-core kernel takes (fp32
-above head_dim 128, fp16, above 256) raises ``ValueError`` on a CUDA tensor,
+card as ``variant="simt"``. A shape that no tensor-core kernel takes (fp16,
+head_dims above 256) raises ``ValueError`` on a CUDA tensor,
 naming the routes; ``use_flash="auto"`` takes the kernels only where
 ``sm90_takes`` says all three do. A kernel that fails to build or launch
 raises.
@@ -175,6 +176,12 @@ def _lib(name: str):
                     lib.hvt_wgmma_probe.restype = ctypes.c_int
                     lib.hvt_wgmma_probe_wide.argtypes = [ptr] * 6 + [i32, ptr]
                     lib.hvt_wgmma_probe_wide.restype = ctypes.c_int
+                    lib.hvt_wgmma_probe_wide_tf32.argtypes = \
+                        [ptr] * 5 + [i32, i32, ptr]
+                    lib.hvt_wgmma_probe_wide_tf32.restype = ctypes.c_int
+                if n in FLASH_KERNELS:
+                    lib.hvt_last_launch_attributes.argtypes = [ptr, ptr]
+                    lib.hvt_last_launch_attributes.restype = ctypes.c_int
                 lib.hvt_cuda_error_string.argtypes = [ctypes.c_int]
                 lib.hvt_cuda_error_string.restype = ctypes.c_char_p
                 _libs[n] = lib
@@ -196,6 +203,20 @@ def _run(name: str, tensors, q, k, scale, causal, second_dtype):
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.hvt_cuda_error_string(rc).decode()}")
     LAUNCHES[name] += 1
+
+
+def launch_attributes(name: str):
+    """(registers a thread, shared-memory bytes a block) of the instance of
+    flash kernel ``name`` launched last (``cudaFuncGetAttributes``), as
+    chip_smoke.py records them beside each timing."""
+    regs, smem = ctypes.c_int(), ctypes.c_int()
+    lib = _lib(name)
+    rc = lib.hvt_last_launch_attributes(ctypes.byref(regs),
+                                        ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"{name}: no launch attributes: "
+                           f"{lib.hvt_cuda_error_string(rc).decode()}")
+    return regs.value, smem.value
 
 
 def _check(q, k, v, out_dtype, dout=None, lse=None, delta=None,
@@ -357,16 +378,15 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
 
 # what each tensor-core kernel takes: {(q's dtype, o's or dO's dtype): the
 # head_dims the kernels see, in steps of 8; every head_dim up to the last
-# reaches them zero-padded (padded_head_dim)}. Off these routes: fp32 q
-# above head_dim 128 (the 3xTF32 tiles do not fit as they are), fp16, and
+# reaches them zero-padded (padded_head_dim)}. Off these routes: fp16, and
 # head_dims above 256 (ROADMAP).
-HEAD_DIMS = tuple(range(8, 129, 8))         # every dtype
-WIDE_HEAD_DIMS = tuple(range(136, 257, 8))  # bf16 q, o/dO bf16 or fp32
+HEAD_DIMS = tuple(range(8, 129, 8))         # 1-4 fp32 or 1-2 bf16 panels
+WIDE_HEAD_DIMS = tuple(range(136, 257, 8))  # padded widths 192 and 256
 SIMT_MAX_HEAD_DIM = 128
 _BF16, _FP32 = torch.bfloat16, torch.float32
 SM90_ROUTES = {base: {(_BF16, _BF16): HEAD_DIMS + WIDE_HEAD_DIMS,
                       (_BF16, _FP32): HEAD_DIMS + WIDE_HEAD_DIMS,
-                      (_FP32, _FP32): HEAD_DIMS}
+                      (_FP32, _FP32): HEAD_DIMS + WIDE_HEAD_DIMS}
                for base in ("flash_fwd", "flash_dq", "flash_dkv")}
 
 
@@ -404,8 +424,8 @@ def _refusal(name, dtype, out_dtype, d) -> str:
     short = lambda t: str(t).split(".")[-1]
     return (f"{name} takes bfloat16 q with head_dim 1..{WIDE_HEAD_DIMS[-1]} "
             f"(o/dO bfloat16 or float32) and float32 q with head_dim "
-            f"1..{HEAD_DIMS[-1]} (o/dO float32); got {short(dtype)} q with "
-            f"{short(out_dtype)} o/dO, head_dim {d}")
+            f"1..{WIDE_HEAD_DIMS[-1]} (o/dO float32); got {short(dtype)} q "
+            f"with {short(out_dtype)} o/dO, head_dim {d}")
 
 
 def _kernel(base, q, variant, out_dtype=None):
@@ -524,18 +544,44 @@ def wgmma_probe(a, b):
     return c1, c2
 
 
-def wgmma_probe_wide(a, b, w):
+def wgmma_probe_wide(a, b, w=None):
     """The wide heads' products through the building blocks of the sm90
-    kernels, for bf16 CUDA tensors a, b [64, 64] and w [64, n], n 192 or
+    kernels. For bf16 CUDA tensors a, b [64, 64] and w [64, n], n 192 or
     256, whose MN-major tile spans n / 64 panels: returns (c1, c2, c3) =
     (a @ b^T, r(c1) @ w, a @ w) in fp32, r rounding to bf16, c2 with the
     register A operand (m64nNk16 as P V, dS K take it), c3 with A from
-    shared memory (as the wide dK, dV products). A check for the card
-    tests; not on any path."""
-    n = w.shape[-1]
-    if a.shape != (64, 64) or b.shape != (64, 64) or w.shape not in (
-            (64, 192), (64, 256)) or a.device.type != "cuda" or any(
-            t.dtype != torch.bfloat16 for t in (a, b, w)):
+    shared memory (as the wide dK, dV products). For fp32 CUDA tensors a
+    [64, n] and b [r, n], r 16 or 32 (no w), the 3xTF32 ones at padded
+    widths 192 and 256: (c1, c2, c3) = (a @ b^T, c1 @ b, (c1 @ b)^T), c1
+    with a's A fragments split in registers (m64nRk8 over n / 8 k-steps, as
+    S = Q K^T and S^T = K Q^T), c2 with c1's fragment as the register A
+    operand against b's transposed split (m64nNk8, as P V), c3 with c1
+    written as K-major B tiles and b's split tiles read transposed as A
+    (m64n64k8, as dQ^T, dV^T and dK^T). A check for the card tests; not on
+    any path."""
+    n = a.shape[-1] if w is None else w.shape[-1]
+    if a.dtype == torch.float32:
+        r = b.shape[0]
+        if a.shape != (64, n) or b.shape not in ((16, n), (32, n)) or \
+                n not in (192, 256) or w is not None or \
+                a.device.type != "cuda" or b.dtype != torch.float32:
+            raise ValueError("wgmma_probe_wide takes fp32 CUDA tensors a "
+                             "[64, n] and b [16 or 32, n], n 192 or 256")
+        a, b = a.contiguous(), b.contiguous()
+        outs = [torch.empty(shape, dtype=torch.float32, device=a.device)
+                for shape in ((64, r), (64, n), (n, 64))]
+        lib = _lib("flash_fwd_sm90")
+        with torch.cuda.device(a.device):
+            rc = lib.hvt_wgmma_probe_wide_tf32(
+                a.data_ptr(), b.data_ptr(), *[c.data_ptr() for c in outs],
+                n, r, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"wide tf32 wgmma probe launch failed: "
+                               f"{lib.hvt_cuda_error_string(rc).decode()}")
+        return tuple(outs)
+    if a.shape != (64, 64) or b.shape != (64, 64) or w is None or \
+            w.shape not in ((64, 192), (64, 256)) or a.device.type != "cuda" \
+            or any(t.dtype != torch.bfloat16 for t in (a, b, w)):
         raise ValueError("wgmma_probe_wide takes bf16 CUDA tensors a, b "
                          "[64, 64] and w [64, 192 or 256]")
     a, b, w = a.contiguous(), b.contiguous(), w.contiguous()

@@ -39,7 +39,7 @@ def resolve_flash(use_flash, local_seq, dtype, head_dim,
     ``out_dtype`` (default q's): "auto" is True above
     ``FLASH_AUTO_THRESHOLD`` where all three kernels take the shape
     (``_kernels.sm90_takes``: bf16 q at head_dim 1..256 with a bf16 or
-    fp32 o, fp32 at 1..128), else the einsum path; True stays True, and the
+    fp32 o, fp32 at 1..256), else the einsum path; True stays True, and the
     kernels then raise on a CUDA tensor whose shape they do not take."""
     if isinstance(use_flash, str):
         if use_flash != "auto":

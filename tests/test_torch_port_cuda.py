@@ -56,10 +56,10 @@ CASES = [
     (2, 200, 4, 4, 4, torch.bfloat16, True, torch.bfloat16),     # to 8
     (1, 300, 8, 2, 100, torch.bfloat16, False, torch.bfloat16),  # to 104
 ]
-# the wide heads, bf16 q at head_dim 136..256, which only the tensor-core
-# kernels take: their padded widths 192 and 256, D fixed at 192 and 256 and
-# at run time between; o and dO in bf16, or in fp32 as the sequence ring
-# has them
+# the wide heads, head_dim 136..256, which only the tensor-core kernels
+# take: their padded widths 192 and 256, D fixed at 192 and 256 and at run
+# time between; bf16 q with o and dO in bf16, or in fp32 as the sequence
+# ring has them, and fp32 q (3xTF32)
 WIDE_CASES = [
     (2, 300, 4, 1, 256, torch.bfloat16, True, torch.bfloat16),   # MQA
     (2, 256, 3, 3, 192, torch.bfloat16, False, torch.bfloat16),
@@ -69,6 +69,10 @@ WIDE_CASES = [
     (2, 256, 3, 3, 192, torch.bfloat16, False, torch.float32),
     (1, 200, 8, 1, 250, torch.bfloat16, True, torch.float32),    # to 256
     (2, 130, 4, 2, 136, torch.bfloat16, True, torch.float32),    # to 192
+    (2, 300, 4, 1, 256, torch.float32, True, torch.float32),     # MQA
+    (2, 256, 3, 3, 192, torch.float32, False, torch.float32),
+    (1, 200, 2, 2, 200, torch.float32, True, torch.float32),     # to 256
+    (2, 130, 4, 2, 136, torch.float32, True, torch.float32),     # to 192
 ]
 # every case on the SIMT kernels, and on each kernel's own route (None:
 # _variant's choice) where that reaches a tensor-core kernel; the wide heads
@@ -240,7 +244,7 @@ def test_wide_wgmma_products_match_matmul(cuda, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", WIDE_CASES[:1] + [
     (1, 64, 2, 1, 264, torch.bfloat16, True, torch.bfloat16),    # past 256
-    (1, 64, 2, 1, 256, torch.float32, True, torch.float32),
+    (1, 64, 2, 1, 264, torch.float32, True, torch.float32),      # past 256
     (1, 64, 2, 1, 256, torch.bfloat16, True, torch.float32),     # fp32 o
 ], ids=lambda c: "-".join(map(str, c[4:6] + c[7:])))
 def test_no_quiet_fallback_at_shapes_a_kernel_refuses(cuda, case):
@@ -276,6 +280,37 @@ def test_single_tf32_wgmma_product_matches_fp32_matmul(cuda):
         err = (got.double() - want).abs()
         assert bool((err <= 2.0 ** -18 * mass + 1e-6).all()), \
             float((err / mass).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", [(192, 16), (192, 32), (256, 16), (256, 32)])
+def test_wide_tf32_wgmma_products_match_fp32_matmul(cuda, n, r):
+    """The fp32 wide heads' 3xTF32 building blocks: c1 = a b^T with a's A
+    fragments loaded raw and split in registers over n / 8 k-steps
+    (m64n16k8, m64n32k8: S = Q K^T and S^T = K Q^T at DP 192 and 256), c2 =
+    c1 b with c1's fragment as the register A operand against b's
+    transposed split (m64n192k8, m64n256k8: P V), c3 = (c1 b)^T with c1
+    written as K-major B tiles and b's split tiles read transposed as A
+    (m64n64k8: dQ^T, dV^T, dK^T). Each is held to fp64 products of the same
+    operands within 2^-19 of the sum of |products| (the split keeps about
+    2^-21) plus 2^-23 for each of the 3 K / 8 products the tensor cores add
+    into one accumulator (they truncate as they accumulate)."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randn(64, n, generator=gen, device=cuda)
+    b = torch.randn(r, n, generator=gen, device=cuda)
+    c1, c2, c3 = _kernels.wgmma_probe_wide(a, b)
+    a64, b64, c64 = a.double(), b.double(), c1.double()
+    for name, got, want, mass, k in (
+            ("c1", c1, a64 @ b64.T, a64.abs() @ b64.abs().T, n),
+            ("c2", c2, c64 @ b64, c64.abs() @ b64.abs(), r),
+            ("c3", c3, (c64 @ b64).T, (c64.abs() @ b64.abs()).T, r)):
+        tol = 2.0 ** -19 + 3 * (k // 8) * 2.0 ** -23
+        ratio = float(((got.double() - want).abs() / mass).max())
+        print(f"tf32 probe n {n} r {r} {name}: max |err| / mass {ratio:.3g}"
+              f" (tol {tol:.3g})")
+        assert got.shape == want.shape
+        assert bool(((got.double() - want).abs()
+                     <= tol * mass + 1e-6).all()), (name, ratio)
 
 
 @pytest.mark.cuda
@@ -354,11 +389,11 @@ def test_wire_codec_kernels_match_plain_versions_bit_for_bit(cuda, codec):
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
     """What the tensor-core kernels still refuse raises ValueError naming
-    the routes, before any launch: fp32 above head_dim 128, fp16, and
-    head_dims above 256 (bf16 o or the ring's fp32 one)."""
+    the routes, before any launch: fp16, and head_dims above 256 (bf16 o or
+    the ring's fp32 one, and fp32)."""
     before = dict(_kernels.LAUNCHES)
-    for d, dtype, out_dtype in ((136, torch.float32, torch.float32),
-                                (256, torch.float32, torch.float32),
+    for d, dtype, out_dtype in ((264, torch.float32, torch.float32),
+                                (100, torch.float16, torch.float16),
                                 (16, torch.float16, torch.float16),
                                 (264, torch.bfloat16, torch.bfloat16),
                                 (264, torch.bfloat16, torch.float32)):

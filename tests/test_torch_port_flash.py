@@ -126,7 +126,7 @@ def test_contract_errors_and_auto_policy():
 
 @pytest.mark.parametrize("bad,err,match", [
     (dict(q=(1, 16, 2, 12), k=(1, 16, 2, 12)), ValueError, "head_dim"),
-    (dict(q=(1, 16, 2, 136), k=(1, 16, 2, 136)), ValueError, "head_dim"),
+    (dict(q=(1, 16, 2, 264), k=(1, 16, 2, 264)), ValueError, "head_dim"),
     (dict(k=(1, 16, 3, 16)), ValueError, "divisible"),
     (dict(k=(1, 8, 2, 16)), ValueError, "does not match"),
     (dict(dtype=torch.float16), TypeError, "fp32 or bf16"),

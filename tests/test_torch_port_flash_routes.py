@@ -4,8 +4,9 @@ at head_dim 32 and 96, then dq's fp32 and bf16 at every head_dim, the
 forward's and dk/dv's head_dims off the 32-grid (8, 48, 80), the sequence
 ring's bf16 q with an fp32 o and dO, bf16 at the wide heads (head_dim
 136..256, padded to 192 or 256), the ring's fp32 o and dO at the wide heads
-too, and head_dims off the kernels' grid of 8 (1..7 and the rest), which the
-port's flash attention zero-pads to the next multiple of 8. Each wrapper
+too, fp32 at the wide heads, and head_dims off the kernels' grid of 8 (1..7
+and the rest), which the port's flash attention zero-pads to the next
+multiple of 8. Each wrapper
 runs the plain version of the kernel it would launch on a CUDA tensor, and
 the port's flash attention on these routes is held against the JAX
 package's (Pallas interpret mode, as tests/test_flash_attention.py runs it)
@@ -218,14 +219,14 @@ def test_ring_route_dkv_carries_fp32_dout_as_two_terms(causal):
 
 def test_dq_and_fwd_take_sm90_on_every_route_and_dkv_refuses_it_off_the_grid():
     """flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90 take bf16 and fp32
-    at every head_dim 1..128 (off the kernels' grid of 8 zero-padded to it),
+    at every head_dim 1..256 (off the kernels' grid of 8 zero-padded to it),
     so no route reaches a SIMT kernel, and each works asked for by name at a
     padded head_dim (48) and at one off the grid (44); off the routes' grid
-    of head_dims (fp32 above 128) dkv's tensor-core kernel, asked for by
-    name, raises."""
+    of head_dims (above 256) dkv's tensor-core kernel, asked for by name,
+    raises."""
     lse = torch.zeros(1, 2, 8)
     for dtype in (torch.bfloat16, torch.float32):
-        for d in range(1, 129):
+        for d in range(1, 257):
             for base in ("flash_fwd", "flash_dq", "flash_dkv"):
                 assert _kernels._variant(base, dtype, d) == "sm90"
         for d in (48, 44):
@@ -236,11 +237,25 @@ def test_dq_and_fwd_take_sm90_on_every_route_and_dkv_refuses_it_off_the_grid():
             dk, dv = _kernels.flash_dkv(q, q, q, q, lse, lse, 1.0, True,
                                         variant="sm90")
             assert dk.shape == dv.shape == q.shape and dk.dtype == dtype
-    q = torch.zeros(1, 8, 2, 200)
-    assert _kernels._variant("flash_dkv", torch.float32, 200) == "simt"
+    q = torch.zeros(1, 8, 2, 264)
+    assert _kernels._variant("flash_dkv", torch.float32, 264) == "simt"
     with pytest.raises(ValueError, match="flash_dkv_sm90 takes bfloat16 q "
                                          "with head_dim 1..256"):
         _kernels.flash_dkv(q, q, q, q, lse, lse, 1.0, True, variant="sm90")
+
+
+def test_sm90_takes_fp32_and_bf16_up_to_256_and_no_fp16():
+    """sm90_takes, which use_flash="auto" asks: fp32 q with an fp32 o at
+    every head_dim 1..256 (3xTF32 at padded widths 192 and 256 above 128),
+    not at 264; bf16 q the same with either o; fp16 nowhere."""
+    for d in range(1, 257):
+        assert _kernels.sm90_takes(torch.float32, d)
+        assert _kernels.sm90_takes(torch.bfloat16, d)
+        assert _kernels.sm90_takes(torch.bfloat16, d, torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert not _kernels.sm90_takes(dtype, 264)
+    assert not _kernels.sm90_takes(torch.float16, 64)
+    assert not _kernels.sm90_takes(torch.float32, 64, torch.bfloat16)
 
 
 # ---- the wide heads (bf16 q with a bf16 o/dO at head_dim 136..256) -------
@@ -288,10 +303,59 @@ def test_wide_heads_take_the_sm90_route_and_its_rounding(d):
         assert torch.equal(got, want)
 
 
+# ---- fp32 at the wide heads (3xTF32 at padded widths 192 and 256) -------
+
+@pytest.mark.parametrize("d", [136, 200, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp32_wide_heads_match_jax(d, causal):
+    """fp32 at head_dim 136, 200 and 256 (padded widths 192 and 256 on the
+    card) with one K/V head (the wide_head GPT's attention, cut down):
+    the plain versions of flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90,
+    which keep every operand fp32 as the kernels' 3xTF32 does, against the
+    JAX package's flash attention (Pallas interpret mode) at FP32_FWD
+    (forward) and FP32_GRAD (lse, gradients)."""
+    q, k, v, do = _inputs(1, 64, 2, 1, d, seed=10)
+    o_j, lse_j, g_j = _jax_side(q, k, v, do, causal, jnp.float32, 32)
+    o_t, lse_t, g_t = _torch_side(q, k, v, do, causal, torch.float32)
+    assert o_t.dtype == torch.float32 and o_t.shape[-1] == d
+    np.testing.assert_allclose(o_t.numpy(), o_j, rtol=FP32_FWD,
+                               atol=FP32_FWD)
+    np.testing.assert_allclose(lse_t.numpy(), lse_j, rtol=FP32_GRAD,
+                               atol=FP32_GRAD)
+    for name, got, want in zip(("dq", "dk", "dv"), g_t, g_j):
+        assert got.dtype == torch.float32 and got.shape[-1] == d
+        np.testing.assert_allclose(got.numpy(), want, rtol=FP32_GRAD,
+                                   atol=FP32_GRAD, err_msg=name)
+
+
+@pytest.mark.parametrize("d", [136, 200, 256])
+def test_fp32_wide_heads_take_the_sm90_route_with_fp32_operands(d):
+    """On a CPU tensor each wrapper runs the plain version of the
+    tensor-core kernel at every fp32 wide head_dim, every operand fp32 (no
+    bf16 rounding, no split of dO: 3xTF32 stands for fp32)."""
+    q, k, v, do = (torch.tensor(x) for x in _inputs(1, 64, 2, 1, d, seed=11))
+    scale = d ** -0.5
+    for base in ("flash_fwd", "flash_dq", "flash_dkv"):
+        assert _kernels._variant(base, torch.float32, d) == "sm90"
+        assert _kernels._kernel(base, q, None) == base + "_sm90"
+    assert not _kernels._bf16_operands("flash_dq_sm90", q, torch.float32)
+    o, lse = _kernels.flash_fwd(q, k, v, scale, True, torch.float32)
+    for got, want in zip((o, lse), _kernels.flash_fwd_plain(
+            q, k, v, scale, True, torch.float32)):
+        assert torch.equal(got, want)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, scale, True)
+    assert torch.equal(_kernels.flash_dq(*args),
+                       _kernels.flash_dq_plain(*args))
+    for got, want in zip(_kernels.flash_dkv(*args),
+                         _kernels.flash_dkv_plain(*args)):
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype,d,out_dtype", [
-    (torch.float32, 136, None),            # 3xTF32 stops at 128
-    (torch.float32, 256, None),
-    (torch.float32, 200, None),
+    (torch.float32, 264, None),            # past 256
+    (torch.float16, 64, None),             # fp16
+    (torch.float16, 128, torch.float32),   # fp16 with an fp32 o
     (torch.bfloat16, 264, torch.float32),  # the ring's fp32 o past 256
     (torch.bfloat16, 264, None),           # past 256
     (torch.float16, 100, None),            # fp16
@@ -315,7 +379,7 @@ def test_shapes_no_kernel_takes_raise_on_a_cuda_tensor(monkeypatch, dtype,
     with pytest.raises(ValueError, match=r"flash_fwd_sm90 takes bfloat16 q "
                                          r"with head_dim 1\.\.256 \(o/dO "
                                          r"bfloat16 or float32\) and float32 "
-                                         r"q with head_dim 1\.\.128"):
+                                         r"q with head_dim 1\.\.256"):
         _kernels.flash_fwd(q, q, q, 1.0, True, o_dtype)
     with pytest.raises(ValueError, match="flash_dq_sm90 takes"):
         _kernels.flash_dq(q, q, q, do, lse, lse, 1.0, True)
@@ -334,6 +398,10 @@ def test_shapes_no_kernel_takes_raise_on_a_cuda_tensor(monkeypatch, dtype,
     (torch.float32, 36, None),
     (torch.bfloat16, 250, torch.float32),  # the ring and off the grid
     (torch.float32, 4, None),              # below 8
+    (torch.float32, 136, None),            # fp32 at the wide heads
+    (torch.float32, 200, None),
+    (torch.float32, 256, None),
+    (torch.float32, 250, None),            # and off the grid
 ])
 def test_new_routes_reach_the_kernels_on_a_cuda_tensor(monkeypatch, dtype, d,
                                                        out_dtype):
@@ -428,6 +496,7 @@ def test_wide_ring_route_carries_fp32_dout_as_two_terms():
     (100, torch.bfloat16, None),
     (250, torch.bfloat16, None),
     (250, torch.bfloat16, torch.float32),   # the ring's, off the grid
+    (250, torch.float32, None),             # fp32 at the wide heads
 ])
 def test_off_grid_head_dims_match_jax(d, dtype, out_dtype):
     """Head_dims that are no multiple of 8, which the port's flash attention
@@ -457,6 +526,7 @@ def test_off_grid_head_dims_match_jax(d, dtype, out_dtype):
     (36, torch.float32, None),
     (100, torch.bfloat16, None),
     (250, torch.bfloat16, torch.float32),
+    (250, torch.float32, None),
 ])
 def test_padded_path_matches_the_unpadded_plain_version(monkeypatch, d,
                                                         dtype, out_dtype):
@@ -515,9 +585,11 @@ AUTO = [
     (torch.bfloat16, 264, None, False),
     (torch.bfloat16, 100, None, True),     # off the 8-grid: padded
     (torch.float16, 64, None, False),
-    (torch.float32, 256, None, False),
+    (torch.float32, 256, None, True),      # fp32 at the wide heads
     (torch.bfloat16, 256, torch.float32, True),  # the ring's at 256
-    (torch.float32, 200, None, False),
+    (torch.float32, 200, None, True),
+    (torch.float32, 264, None, False),
+    (torch.float16, 256, None, False),
     (torch.bfloat16, 264, torch.float32, False),
     (torch.float16, 100, None, False),
     (torch.float32, 4, None, True),
@@ -555,7 +627,8 @@ def _spy(monkeypatch, module, name):
     (torch.bfloat16, 64, True),
     (torch.bfloat16, 256, True),
     (torch.bfloat16, 264, False),
-    (torch.float32, 256, False),
+    (torch.float32, 256, True),
+    (torch.float32, 264, False),
 ])
 def test_the_model_follows_auto(monkeypatch, dtype, d, flash):
     """models/transformer.py's attention with use_flash="auto" at sequence
@@ -589,7 +662,8 @@ class _OneMember:
     (torch.bfloat16, 264, False, False),
     (torch.float16, 64, False, False),
     (torch.bfloat16, 100, True, True),     # off the 8-grid: padded
-    (torch.float32, 200, False, False),
+    (torch.float32, 200, True, True),      # fp32 at the wide heads
+    (torch.float32, 264, False, False),
 ])
 def test_the_sequence_paths_follow_auto(monkeypatch, dtype, d, ring_flash,
                                         ulysses_flash):
