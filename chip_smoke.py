@@ -10,7 +10,7 @@ Phases, each of which exits non-zero on a failure:
    from csrc/ with nvcc, one process per source, in parallel.
 3. kernels: hold every kernel against its plain PyTorch version, and the
    autograd Function built on them (cotangents on o and on lse) against
-   autograd of flash_attention_reference, at forty-two shapes: the main
+   autograd of flash_attention_reference, at fifty-one shapes: the main
    path's (B 8, H 12, S 1024, D 64, bf16, causal), the accumulation
    phase's micro-batch (the same with B 4), non-causal, GQA (H 12,
    H_kv 4), ragged (S 1000, D 32, fp32), bf16 ragged (S 1000, D 64), bf16
@@ -52,9 +52,19 @@ Phases, each of which exits non-zero on a failure:
    D 136 (H 4, padded to 192), and held to its plain versions at fp32 D
    250 off the grid (B 2, S 1000, H 8, H_kv 1), at a D 256 block not causal
    at S 512 (H 8, H_kv 1), and at the longest sums dq and dk/dv see (B 1,
-   S 4096, H 4, H_kv 1, D 256). The build line carries every instance's
-   ptxas line, and the wide instances' lines are printed again on their
-   own.
+   S 4096, H 4, H_kv 1, D 256). fp16 q (the bf16 designs with .f16
+   operands; dq and dk/dv take dO times a power of two from its largest
+   magnitude, whose reduction is timed apart) at FP16_CASES: the main shape
+   in fp16, GQA at D 128 not causal, D 32, D 100 off the grid, d_model 768
+   at D 192 (H 4), the wide_head attention, and the ring's blocks with an
+   fp32 o/dO (S 512 causal and not at D 64, causal at D 256 with one K/V
+   head), each held to its fp16-operand plain version (TOL_PLAIN) and to
+   the fp32-operand one (TOL_FP16_FP32_OPERANDS, the ring's blocks also by
+   the two-term checks), the ring's blocks also at dO times 2^-20 and
+   2^12 (fp16_magnitude_checks); the main shape, D 192, the wide_head
+   attention and the causal ring blocks timed beside SDPA in fp16. The
+   build line carries every instance's ptxas line, and the wide instances'
+   lines are printed again on their own.
 4. main path: hvt.init() (a one-process NCCL world), then
    horovod_tpu_torch.train.train on the bench.py GPT (vocab 32768, 12
    layers, d_model 768, 12 heads, d_ff 3072, seq 1024, bf16, flash
@@ -232,7 +242,7 @@ Phases, each of which exits non-zero on a failure:
    layer a step and no SIMT kernel, and the einsum-attention model from the
    same seed within ENTRY_RTOL of each loss (fp32: dryrun.py's entry
    tolerance; bf16: LOSS_RTOL).
-25. wide_head (run last but for ring_wide_head): a GPT with Gemma-2B's attention widths
+25. wide_head (after the tools phase): a GPT with Gemma-2B's attention widths
    (vocab 32768, 4 layers, d_model 2048, 8 heads of head_dim 256, one K/V
    head, d_ff 8192, seq 1024, bf16 compute with fp32 parameters,
    use_flash="auto") through train.train, WIDE_HEAD_STEPS steps on a
@@ -260,11 +270,19 @@ Phases, each of which exits non-zero on a failure:
    step and no other kernel, the einsum attention never; the einsum model
    from the same seed within ENTRY_RTOL's fp32 tolerance (1e-4) at steps 1
    and WIDE_HEAD_STEPS; step ms and peak memory of both.
-28. summary: one JSON line listing the kernels (launches on the main path,
+28. gpt_fp16 (last): the main path's GPT (bench.py --model gpt --flash at
+   full width) with fp16 compute and fp32 parameters, no loss scaler (as
+   the JAX package's GPT runs fp16), use_flash=True, through train.train
+   for 7 steps on the main path's seeded batch: the fp16 instances of
+   flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90 12 times a step (every
+   launch with fp16 q and o), no SIMT kernel, the einsum attention never;
+   the einsum fp16 model from the same seed within LOSS_RTOL at steps 1 and
+   7; step ms and peak memory of both.
+29. summary: one JSON line listing the kernels (launches on the main path,
    or the wire phase's route for the codec kernels; the observe,
    accumulation, sequence, checkpoint, fsdp, launch, elastic, fleet,
-   serving, run, estimator, examples, entry, wide_head, wide_head_fp32 and
-   ring_wide_head phases; the
+   serving, run, estimator, examples, entry, wide_head, wide_head_fp32,
+   ring_wide_head and gpt_fp16 phases; the
    timings at the kernel's own route's shape, and at every timed shape in
    by_shape), the nvidia-smi line, and last the {"ok": true, ...} line.
 """
@@ -284,8 +302,8 @@ import time
 # take for a kernel's work is max(bytes / HBM rate, FLOPs / peak rate).
 HBM_BYTES_PER_S = 3.35e12
 # fp32 inputs: the tensor cores' TF32 rate (the sm90 kernels' 3xTF32 split
-# does three times the work: bound_3xtf32_ms)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
+# does three times the work: bound_3xtf32_ms); fp16 runs at bf16's rate
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 495e12}
 
 CSRC = "horovod_tpu_torch/csrc/"
 SOURCE = {"flash_fwd_sm90": CSRC + "flash_fwd_sm90.cu",
@@ -361,7 +379,7 @@ RING_WIDE_HEAD_CASES = [(8, WIDE_HEAD_SHAPE[1] // SP, *WIDE_HEAD_SHAPE[2:5],
                         for causal in (True, False)] + [
     (8, 1024 // SP, 4, 4, 192, "bfloat16", True, "float32")]
 # the ring blocks held to the two-term checks (dq_ring_checks,
-# dkv_ring_checks)
+# dkv_ring_checks); the fp16 ones are defined below
 RING_CHECKED = RING_CASES + RING_WIDE_HEAD_CASES
 # head_dims off the kernels' grid of 8, which the wrappers pad to it with
 # zero columns: bf16 D 100 (H 8, timed, the pad copies apart), fp32 D 36,
@@ -384,11 +402,31 @@ WIDE_FP32_SHAPES = [(8, 1024, h, h, d, "float32", True, "float32")
 WIDE_FP32_CHECKED = [(2, 1000, 8, 1, 250, "float32", True, "float32"),
                      (8, 512, 8, 1, 256, "float32", False, "float32"),
                      (1, 4096, 4, 1, 256, "float32", True, "float32")]
+# fp16 q (the bf16 designs with .f16 operands and dO's scale): the main
+# shape in fp16, timed; GQA at D 128 not causal; D 32 (padded to 64); D 100
+# off the grid (padded to 104, then 128); d_model 768 at D 192 (H 4) and
+# the wide_head attention in fp16, both timed; and the ring's blocks with
+# fp16 q and an fp32 o/dO (split into two fp16 terms after the scale): S
+# 512 causal and not at D 64, and causal at D 256 with one K/V head, the
+# causal ones timed and all three held at dO times FP16_DOUT_MAGNITUDES
+FP16_MAIN_SHAPE = (*MAIN_SHAPE[:5], "float16", True, "float16")
+FP16_RING_CASES = [(*RING_CASES[0][:5], "float16", causal, "float32")
+                   for causal in (True, False)] + [
+    (*RING_WIDE_HEAD_CASES[0][:5], "float16", True, "float32")]
+FP16_TIMED = [FP16_MAIN_SHAPE,
+              (8, 1024, 4, 4, 192, "float16", True, "float16"),
+              (*WIDE_HEAD_SHAPE[:5], "float16", True, "float16"),
+              FP16_RING_CASES[0], FP16_RING_CASES[2]]
+FP16_CASES = FP16_TIMED[:1] + [
+    (2, 2048, 8, 2, 128, "float16", False, "float16"),
+    (4, 1024, 8, 8, 32, "float16", True, "float16"),
+    (8, 1024, 8, 8, 100, "float16", True, "float16")] + FP16_TIMED[1:3] + \
+    FP16_RING_CASES
 # and the ring's causal blocks: bf16 q with an fp32 dO, which flash_dq_sm90
 # and flash_dkv_sm90 split into two bf16 terms in shared memory
 TIMED = [MAIN_SHAPE, RING_CASES[0], RING_WIDE_CASE, *ROUTE_SHAPES,
          *WIDE_SHAPES, *RING_WIDE_HEAD_CASES, OFF_GRID_SHAPES[0],
-         *WIDE_FP32_SHAPES]
+         *WIDE_FP32_SHAPES, *FP16_TIMED]
 CASES = [MAIN_SHAPE,
          MICRO_SHAPE,
          (8, 1024, 12, 12, 64, "bfloat16", False, "bfloat16"),
@@ -401,7 +439,7 @@ CASES = [MAIN_SHAPE,
          (1, 4096, 4, 2, 64, "float32", True, "float32"),
          *RING_CASES, RING_WIDE_CASE, ULYSSES_CASE, *ROUTE_SHAPES,
          *WIDE_SHAPES, *RING_WIDE_HEAD_CASES, *OFF_GRID_SHAPES,
-         *WIDE_FP32_SHAPES, *WIDE_FP32_CHECKED]
+         *WIDE_FP32_SHAPES, *WIDE_FP32_CHECKED, *FP16_CASES]
 # the shape whose timing stands in the kernels line for each SIMT kernel:
 # bf16 D 48 at d_model 768, where, since no route sends any kernel to the
 # SIMT design, they are timed as variant="simt" beside the padded sm90 ones
@@ -412,8 +450,9 @@ BASES = ("flash_fwd", "flash_dq", "flash_dkv")
 # the sequence phase: ring blocks of the main shape at these sp layouts
 SEQUENCE_LAYOUTS = (2, 4)
 # kernel vs its plain version: the same arithmetic, summed in another
-# order; bf16 outputs may differ by about one bf16 ulp (2^-8 relative).
-TOL_PLAIN = {"float32": 1e-4, "bfloat16": 2e-2}
+# order; bf16 outputs may differ by about one bf16 ulp (2^-8 relative),
+# fp16 ones by one fp16 ulp (2^-11): 5e-3 is about five.
+TOL_PLAIN = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 5e-3}
 # flash_dkv_sm90 rounds p and ds to bf16 before p^T dO and ds^T q (bf16
 # inputs; fp32 ones keep them fp32, as 3xTF32), where
 # flash_dkv and the TPU kernel keep them fp32 (an fp32 dO it carries as two
@@ -429,6 +468,12 @@ TOL_DKV_FP32_OPERANDS = 2e-2
 # block (fp32 dO) 0.0061, 0.0136 while that dO was rounded to one bf16 term
 # (PERF.md). 1.4e-2 keeps a factor of two.
 TOL_DQ_FP32_OPERANDS = 1.4e-2
+# The same for fp16 q, dq and dkv alike: ds (and p) rounded to fp16 keep 11
+# bits where bf16 keeps 8, so the least tolerance against the fp32-operand
+# plain version should be about an eighth of bf16's (at most about 1.3e-3),
+# plus the fp16 outputs' own rounding (2^-11 relative); 5e-3 keeps a
+# factor of about three over both.
+TOL_FP16_FP32_OPERANDS = 5e-3
 # The ring's blocks (bf16 q, fp32 dO) are held tighter: a kernel that drops
 # dO's lo term reads 0.0136 there, within TOL_DQ_FP32_OPERANDS, so their
 # least tolerance must stay under this limit, between that reading and the
@@ -450,12 +495,27 @@ TOL_DKV_RING = 9e-3
 # block (H 8 summed into one K/V head: 0.0132 on the card, PERF.md), the
 # block is held instead under the midpoint of those two readings at that
 # block, and by RING_NEARER as everywhere.
-# what the sm90 kernels round to bf16 (bf16 inputs), where the TPU kernels
-# keep fp32; both carry an fp32 dO as two bf16 terms
+# The fp16 ring blocks are held the same way, against TOL_FP16_FP32_OPERANDS
+# and the fp16 main shape's least tolerance. Each is also run with dO times
+# each of FP16_DOUT_MAGNITUDES (fp16_magnitude_checks): the kernels scale dO
+# by a power of two from its largest magnitude, so the error of dq, dk and
+# dv against the fp32-operand plain version, relative to each output's
+# largest magnitude, must stay within FP16_MAGNITUDE_FACTOR times its error
+# at magnitude 1, plus one step of fp16's subnormal grid (2^-24) relative to
+# that magnitude: the fp16 output's own resolution, which the plain
+# version's fp16 output has too (at 2^-20 a gradient of these inputs is a
+# few such steps). Nothing may be inf or NaN where the plain version's
+# output is finite.
+FP16_DOUT_MAGNITUDES = (2.0 ** -20, 2.0 ** 12)
+FP16_MAGNITUDE_FACTOR = 2
+RING_CHECKED = RING_CHECKED + FP16_RING_CASES
+# what the sm90 kernels round to q's dtype (bf16 or fp16 inputs), where the
+# TPU kernels keep fp32; both carry an fp32 dO as two terms of q's dtype
 ROUNDED = {"flash_dq_sm90": "ds", "flash_dkv_sm90": "p and ds"}
 # the autograd Function vs autograd of the dense reference: in bf16 the
-# reference's autograd also rounds dp through the p cast, so allow more.
-TOL_AUTOGRAD = {"float32": 1e-4, "bfloat16": 5e-2}
+# reference's autograd also rounds dp through the p cast, so allow more;
+# fp16 rounds there with 3 bits more.
+TOL_AUTOGRAD = {"float32": 1e-4, "bfloat16": 5e-2, "float16": 1e-2}
 # the entry phase: steps, and each dtype's tolerance between the flash and
 # einsum losses (fp32: dryrun.py's entry loss rtol; bf16: LOSS_RTOL's 1e-2)
 ENTRY_STEPS, ENTRY_BATCH = 5, 8
@@ -622,11 +682,12 @@ def work(name, b, s, h, h_kv, d, dtype, causal, out_dtype):
     """(FLOPs, bytes) of one kernel's work at this shape: each input read
     once, each output written once (o and dO in ``out_dtype``); FLOPs of
     the visible (q, k) pairs."""
-    item = 2 if dtype == "bfloat16" else 4
+    size = {"bfloat16": 2, "float16": 2, "float32": 4}
+    item = size[dtype]
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     q_bytes, kv_bytes, vec = b * s * h * d * item, b * s * h_kv * d * item, \
         b * h * s * 4
-    o_bytes = q_bytes // item * (2 if out_dtype == "bfloat16" else 4)
+    o_bytes = q_bytes // item * size[out_dtype]
     name = name.replace("_sm90", "")   # both designs do the same work
     flops = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}[name] * d * pairs
     nbytes = {"flash_fwd": q_bytes + o_bytes + 2 * kv_bytes + vec,
@@ -694,8 +755,17 @@ def check(tag, got, want, tol):
 
 
 # flash_dq_sm90's and flash_dkv_sm90's least tolerance against the
-# fp32-operand plain version at MAIN_SHAPE, once its kernels phase has run
+# fp32-operand plain version at MAIN_SHAPE (bf16) and FP16_MAIN_SHAPE, once
+# their kernels phase has run: {(kernel, dtype name): least}
 MAIN_LEAST = {}
+# a ring block's fixed limit by q's dtype (bf16: TOL_DQ_RING, TOL_DKV_RING)
+MAIN_SHAPES = {"bfloat16": MAIN_SHAPE, "float16": FP16_MAIN_SHAPE}
+
+
+def _fixed_ring_limit(name, dtype_name):
+    if dtype_name == "float16":
+        return TOL_FP16_FP32_OPERANDS
+    return TOL_DQ_RING if name == "flash_dq_sm90" else TOL_DKV_RING
 
 
 def _ring_limit(fixed, main, floor, one):
@@ -709,37 +779,38 @@ def _ring_limit(fixed, main, floor, one):
 
 
 def dq_ring_checks(case, K, args, got, two_term, least, fp32_operands):
-    """At MAIN_SHAPE record flash_dq_sm90's least tolerance against the
-    fp32-operand plain version; at a ring block (bf16 q, fp32 dO) hold it to
-    TOL_DQ_RING and to the main shape's (_ring_limit), and hold the
-    kernel's dq nearer the plain version that takes dO as two bf16 terms
+    """At MAIN_SHAPE (FP16_MAIN_SHAPE) record flash_dq_sm90's least
+    tolerance against the fp32-operand plain version; at a ring block (bf16
+    or fp16 q, fp32 dO) hold it to TOL_DQ_RING (TOL_FP16_FP32_OPERANDS) and
+    to the main shape's of its dtype (_ring_limit), and hold the kernel's
+    dq nearer the plain version that takes dO as two terms of q's dtype
     than the one that rounds it to one: a kernel that dropped dO's lo term
     passes TOL_PLAIN and TOL_DQ_FP32_OPERANDS alike."""
-    import torch
-
-    if case == MAIN_SHAPE:
-        MAIN_LEAST["flash_dq_sm90"] = least
+    name, dtype_name = "flash_dq_sm90", case[5]
+    if case == MAIN_SHAPES.get(dtype_name):
+        MAIN_LEAST[name, dtype_name] = least
     if case not in RING_CHECKED:
         return
     q, k, v, do, *rest = args
-    one_term = K.flash_dq_plain(q, k, v, do.to(torch.bfloat16), *rest,
+    one_term = K.flash_dq_plain(q, k, v, do.to(q.dtype), *rest,
                                 round_ds=True)
     near = float((got.float() - two_term.float()).norm())
     far = float((got.float() - one_term.float()).norm())
-    main = MAIN_LEAST.get("flash_dq_sm90")
+    main = MAIN_LEAST.get((name, dtype_name))
     floor = _least(two_term, fp32_operands)
     one = _least(one_term, fp32_operands)
-    limit = _ring_limit(TOL_DQ_RING, main, floor, one)
-    emit({"phase": "kernel", "kernel": "flash_dq_sm90", "ring": case,
+    fixed = _fixed_ring_limit(name, dtype_name)
+    limit = _ring_limit(fixed, main, floor, one)
+    emit({"phase": "kernel", "kernel": name, "ring": case,
           "least_tol_vs_fp32_operands": least, "limit": limit,
-          "fixed_limit": TOL_DQ_RING, "main_shape_least_tol": main,
+          "fixed_limit": fixed, "main_shape_least_tol": main,
           "two_term_plain_least_tol": floor,
           "one_term_plain_least_tol": one, "norm_to_two_terms": near,
           "norm_to_one_term": far})
     if least > limit:
         fail(f"flash_dq_sm90 at the ring block {case}: least tolerance "
              f"{least:.4g} against the fp32-operand plain version, over "
-             f"{limit:.4g} (TOL_DQ_RING {TOL_DQ_RING}, the main shape's "
+             f"{limit:.4g} (fixed {fixed}, the main shape's "
              f"{main}, the two-term plain version's {floor:.4g})")
     if not near < RING_NEARER * far:
         fail(f"flash_dq_sm90 at the ring block {case}: dq is {near:.4g} "
@@ -748,32 +819,31 @@ def dq_ring_checks(case, K, args, got, two_term, least, fp32_operands):
 
 
 def dkv_ring_checks(case, K, args, got, two_term, least, fp32_operands):
-    """dq_ring_checks for flash_dkv_sm90: at MAIN_SHAPE record its least
-    tolerance against the fp32-operand plain version; at a ring block hold
-    it to TOL_DKV_RING and to the main shape's (_ring_limit), and hold dk
-    and dv each nearer the plain version that takes dO as two bf16 terms
-    than the one that rounds it to one, by RING_NEARER in the Frobenius
-    norm."""
-    import torch
-
-    name = "flash_dkv_sm90"
-    if case == MAIN_SHAPE:
-        MAIN_LEAST[name] = least
+    """dq_ring_checks for flash_dkv_sm90: at MAIN_SHAPE (FP16_MAIN_SHAPE)
+    record its least tolerance against the fp32-operand plain version; at a
+    ring block hold it to TOL_DKV_RING (TOL_FP16_FP32_OPERANDS) and to the
+    main shape's of its dtype (_ring_limit), and hold dk and dv each nearer
+    the plain version that takes dO as two terms of q's dtype than the one
+    that rounds it to one, by RING_NEARER in the Frobenius norm."""
+    name, dtype_name = "flash_dkv_sm90", case[5]
+    if case == MAIN_SHAPES.get(dtype_name):
+        MAIN_LEAST[name, dtype_name] = least
     if case not in RING_CHECKED:
         return
     q, k, v, do, *rest = args
     one_term = dict(zip(("dk", "dv"), K.flash_dkv_plain(
-        q, k, v, do.to(torch.bfloat16), *rest, round_operands=True)))
+        q, k, v, do.to(q.dtype), *rest, round_operands=True)))
     norms = {n: (float((got[n].float() - two_term[n].float()).norm()),
                  float((got[n].float() - one_term[n].float()).norm()))
              for n in ("dk", "dv")}
-    main = MAIN_LEAST.get(name)
+    main = MAIN_LEAST.get((name, dtype_name))
     floor = max(_least(two_term[n], fp32_operands[n]) for n in ("dk", "dv"))
     one = max(_least(one_term[n], fp32_operands[n]) for n in ("dk", "dv"))
-    limit = _ring_limit(TOL_DKV_RING, main, floor, one)
+    fixed = _fixed_ring_limit(name, dtype_name)
+    limit = _ring_limit(fixed, main, floor, one)
     emit({"phase": "kernel", "kernel": name, "ring": case,
           "least_tol_vs_fp32_operands": least, "limit": limit,
-          "fixed_limit": TOL_DKV_RING, "main_shape_least_tol": main,
+          "fixed_limit": fixed, "main_shape_least_tol": main,
           "two_term_plain_least_tol": floor,
           "one_term_plain_least_tol": one,
           "norm_to_two_terms": {n: nf[0] for n, nf in norms.items()},
@@ -781,13 +851,57 @@ def dkv_ring_checks(case, K, args, got, two_term, least, fp32_operands):
     if least > limit:
         fail(f"{name} at the ring block {case}: least tolerance "
              f"{least:.4g} against the fp32-operand plain version, over "
-             f"{limit:.4g} (TOL_DKV_RING {TOL_DKV_RING}, the main shape's "
+             f"{limit:.4g} (fixed {fixed}, the main shape's "
              f"{main}, the two-term plain version's {floor:.4g})")
     for n, (near, far) in norms.items():
         if not near < RING_NEARER * far:
             fail(f"{name} at the ring block {case}: {n} is {near:.4g} from "
                  f"the two-term plain version and {far:.4g} from the "
                  f"one-term one (dO's lo term dropped?)")
+
+
+def fp16_magnitude_checks(case, K, inputs, ro, rlse, scale):
+    """At an fp16 ring block (fp16 q, fp32 dO) run flash_dq_sm90 and
+    flash_dkv_sm90 with dO times 1 and each of FP16_DOUT_MAGNITUDES and hold
+    each output's error against the fp32-operand plain version, relative to
+    its largest magnitude, to FP16_MAGNITUDE_FACTOR times its error at
+    magnitude 1 plus fp16's subnormal step at that magnitude (the comment at
+    FP16_DOUT_MAGNITUDES); nothing inf or NaN where the plain version's
+    output is finite."""
+    import torch
+
+    q, k, v, do = inputs
+    causal = case[6]
+    errs = {}
+    for m in (1.0, *FP16_DOUT_MAGNITUDES):
+        dom = do * m
+        delta = (dom * ro.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, dom, rlse, delta, scale, causal)
+        got = dict(zip(("dq", "dk", "dv"),
+                       (K.flash_dq(*args), *K.flash_dkv(*args))))
+        want = dict(zip(("dq", "dk", "dv"),
+                        (K.flash_dq_plain(*args), *K.flash_dkv_plain(*args))))
+        for n in got:
+            g, w = got[n].float(), want[n].float()
+            fin = torch.isfinite(w)
+            if not bool(torch.isfinite(g[fin]).all()):
+                fail(f"fp16 ring block {case}: {n} at dO x {m:g} has inf or "
+                     f"NaN where the fp32-operand plain version is finite")
+            top = float(w[fin].abs().max())
+            errs[m, n] = {"rel_err": float((g - w)[fin].abs().max()) / top,
+                          "largest": top, "floor": 2.0 ** -24 / top,
+                          "plain_nonfinite": int((~fin).sum())}
+    limits = {(m, n): FP16_MAGNITUDE_FACTOR * errs[1.0, n]["rel_err"]
+              + e["floor"] for (m, n), e in errs.items()}
+    emit({"phase": "kernel", "fp16_ring_magnitudes": case,
+          "vs": "plain version with fp32 operands",
+          "errors": {f"{n}@{m:g}": {**e, "limit": limits[m, n]}
+                     for (m, n), e in errs.items()}})
+    for key, e in errs.items():
+        if e["rel_err"] > limits[key]:
+            fail(f"fp16 ring block {case}: {key[1]} at dO x {key[0]:g} is "
+                 f"{e['rel_err']:.4g} of its largest magnitude from the "
+                 f"fp32-operand plain version, over {limits[key]:.4g}")
 
 
 def kernel_phase(case, K, ref_fn, timings):
@@ -807,13 +921,14 @@ def kernel_phase(case, K, ref_fn, timings):
     dlse = torch.randn(b, s, h, generator=gen, device="cuda")
     scale = d ** -0.5
     tol = TOL_PLAIN[dtype_name]
-    bf16 = dtype == torch.bfloat16
+    two_byte = dtype in (torch.bfloat16, torch.float16)
     shape = {"B": b, "S": s, "H": h, "H_kv": h_kv, "D": d,
              "dtype": dtype_name, "causal": causal, "o": out_name}
     route = route_launches(K, q)
     # None: each kernel's own route; every route reaches an sm90 kernel. The
-    # SIMT design takes head_dim up to 128
-    variants = (None, "simt") if d <= K.SIMT_MAX_HEAD_DIM else (None,)
+    # SIMT design takes fp32 and bf16 with head_dim up to 128
+    variants = ((None, "simt") if d <= K.SIMT_MAX_HEAD_DIM
+                and dtype != torch.float16 else (None,))
 
     # both designs get the same inputs: the backward starts from the plain
     # forward's o and lse
@@ -825,10 +940,10 @@ def kernel_phase(case, K, ref_fn, timings):
     errs, rounds = {}, {}
     for variant in variants:
         fwd, dqn, dkv = (K._kernel(base, q, variant) for base in BASES)
-        # the kernels that round operands to bf16 where the TPU kernels
-        # keep fp32: sm90 dq and dkv on bf16 inputs
-        rounds[dqn] = dqn.endswith("_sm90") and bf16
-        rounds[dkv] = dkv.endswith("_sm90") and bf16
+        # the kernels that round operands to q's dtype where the TPU
+        # kernels keep fp32: sm90 dq and dkv on bf16 and fp16 inputs
+        rounds[dqn] = dqn.endswith("_sm90") and two_byte
+        rounds[dkv] = dkv.endswith("_sm90") and two_byte
         before = dict(K.LAUNCHES)
         o, lse = K.flash_fwd(q, k, v, scale, causal, out_dtype,
                              variant=variant)
@@ -858,7 +973,8 @@ def kernel_phase(case, K, ref_fn, timings):
                           for n in outs]
             if not rounds[name]:
                 continue
-            tol32 = (TOL_DQ_FP32_OPERANDS if name == dqn
+            tol32 = (TOL_FP16_FP32_OPERANDS if dtype == torch.float16
+                     else TOL_DQ_FP32_OPERANDS if name == dqn
                      else TOL_DKV_FP32_OPERANDS)
             vs32 = [check(f"{name} {n} vs fp32 operands", got[n],
                           fp32_operands[n], tol32) for n in outs]
@@ -875,11 +991,13 @@ def kernel_phase(case, K, ref_fn, timings):
                 dkv_ring_checks(case, K, args, got, want, least,
                                 fp32_operands)
         del o, lse, got, want
+    if case in FP16_RING_CASES:
+        fp16_magnitude_checks(case, K, (q, k, v, do), ro, rlse, scale)
     for name, found in errs.items():
         emit({"phase": "kernel", "kernel": name, "shape": shape,
               "on_route": name in route,
-              "vs": "plain version" + (f" with bf16 {ROUNDED[name]} operands"
-                                       if rounds.get(name) else ""),
+              "vs": "plain version" + (f" with {dtype_name} {ROUNDED[name]} "
+                                       "operands" if rounds.get(name) else ""),
               "max_abs_err": max(e[0] for e in found),
               "max_rel_err": max(e[1] for e in found),
               "least_tol": max(e[2] for e in found), "tol": tol})
@@ -937,6 +1055,11 @@ def kernel_phase(case, K, ref_fn, timings):
     dp = K.padded_head_dim(d)
     kq, kk, kv, kdo = (K.pad_head_dim(t, dp) for t in (q, k, v, do))
     kargs = (kq, kk, kv, kdo, *args[4:])
+    # fp16: dO's largest magnitude, taken once for dq and dkv as the
+    # autograd Function takes it, and timed apart
+    amax = K.dout_amax(do) if dtype == torch.float16 else None
+    amax_ms = (cuda_ms(lambda: K.dout_amax(do), 20)[0]
+               if amax is not None else None)
     pad_ms = {}
     if dp != d:
         def copies(ins, outs):
@@ -959,12 +1082,14 @@ def kernel_phase(case, K, ref_fn, timings):
         # call that computes them
         dqn, dkv = (K._kernel(base, q, variant) for base in BASES[1:])
         timed[dqn] = (
-            lambda vr=variant: K.flash_dq(*kargs, variant=vr),
+            lambda vr=variant: K.flash_dq(*kargs, variant=vr,
+                                          dout_amax=amax),
             lambda r=rounds[dqn]: K.flash_dq_plain(*args, split_dout=r,
                                                    round_ds=r),
             sdpa_bwd)
         timed[dkv] = (
-            lambda vr=variant: K.flash_dkv(*kargs, variant=vr),
+            lambda vr=variant: K.flash_dkv(*kargs, variant=vr,
+                                           dout_amax=amax),
             lambda r=rounds[dkv]: K.flash_dkv_plain(*args, split_dout=r,
                                                     round_operands=r),
             sdpa_bwd)
@@ -983,7 +1108,10 @@ def kernel_phase(case, K, ref_fn, timings):
         if pad_ms:   # the kernel at the padded head_dim; its copies apart
             record["padded_head_dim"] = dp
             record["pad_copies_ms"] = pad_ms[name.replace("_sm90", "")]
-        if not bf16:   # the split's three TF32 products
+        if amax is not None and not name.startswith("flash_fwd"):
+            # dO's largest magnitude, one reduction shared by dq and dkv
+            record["dout_amax_ms"] = amax_ms
+        if dtype == torch.float32:   # the split's three TF32 products
             record["bound_3xtf32_ms"] = bound(name, b, s, h, h_kv, d,
                                               dtype_name, causal, out_name,
                                               passes=3)[0]
@@ -1123,37 +1251,40 @@ def entry_phase(K):
     return launches
 
 
-def wide_head_phase(K, dtype_name="bfloat16"):
-    """A GPT with Gemma-2B's attention widths (module docstring, phases 25
-    and 27) in ``dtype_name`` through train.train with use_flash="auto":
-    the head_dim-256 instances of the three sm90 kernels once a layer a
-    step, no einsum attention, and the einsum model's losses from the same
-    seed within LOSS_RTOL (bf16) or ENTRY_RTOL's fp32 tolerance at steps 1
-    and WIDE_HEAD_STEPS. Returns the launches."""
+def flash_model_phase(K, phase, cfg, batch, steps, rtol, instances):
+    """``cfg``'s GPT (flash attention) through train.train, ``steps`` steps
+    on a seeded batch of ``batch`` x cfg.max_seq_len, and its einsum model
+    from the same seed: each kernel of q's route once a layer a step and no
+    other (every launch with q and o in cfg.dtype), the einsum attention
+    never in the flash run, and the einsum model's losses within ``rtol``
+    at steps 1 and ``steps``; step ms and peak memory of both. Returns the
+    launches."""
     import dataclasses
 
     import torch
 
     from horovod_tpu_torch.models import transformer
-    from horovod_tpu_torch.models.transformer import GPTConfig
     from horovod_tpu_torch.train import train
 
-    bf16 = dtype_name == "bfloat16"
-    phase = {"bfloat16": "wide_head", "float32": "wide_head_fp32"}[dtype_name]
-    rtol = LOSS_RTOL if bf16 else ENTRY_RTOL[dtype_name]
-    cfg = GPTConfig(**WIDE_HEAD_CONFIG, dtype=getattr(torch, dtype_name),
-                    use_flash="auto")
     d = cfg.d_model // cfg.n_heads
-    batch, seq, steps = WIDE_HEAD_BATCH, cfg.max_seq_len, WIDE_HEAD_STEPS
-    # the einsum path's one call of its own, counted for both runs
-    einsum_calls = []
-    repeat_kv = transformer._repeat_kv
+    seq = cfg.max_seq_len
+    dtype_name = str(cfg.dtype).split(".")[1]
+    # the einsum path's one call of its own, counted for both runs; and the
+    # dtypes of q and o (dO) at each launch
+    einsum_calls, instance_launches = [], {}
+    repeat_kv, run = transformer._repeat_kv, K._run
 
     def counted(*args):
         einsum_calls.append(1)
         return repeat_kv(*args)
 
-    transformer._repeat_kv = counted
+    def typed_run(name, tensors, q, k, scale, causal, second_dtype):
+        key = "{}@{}/{}".format(name, *(str(t).split(".")[1]
+                                        for t in (q.dtype, second_dtype)))
+        instance_launches[key] = instance_launches.get(key, 0) + 1
+        return run(name, tensors, q, k, scale, causal, second_dtype)
+
+    transformer._repeat_kv, K._run = counted, typed_run
     try:
         torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
@@ -1172,20 +1303,23 @@ def wide_head_phase(K, dtype_name="bfloat16"):
         del einsum["model"], einsum["optimizer"]
         torch.cuda.empty_cache()
     finally:
-        transformer._repeat_kv = repeat_kv
-    want = {n: cfg.n_layers * steps if n in route_launches(
-        K, torch.empty(1, 1, cfg.n_heads, d, dtype=cfg.dtype, device="meta"))
-        else 0 for n in launches}
+        transformer._repeat_kv, K._run = repeat_kv, run
+    route = route_launches(K, torch.empty(1, 1, cfg.n_heads, d,
+                                          dtype=cfg.dtype, device="meta"))
+    want = {n: cfg.n_layers * steps if n in route else 0 for n in launches}
+    want_instances = {f"{n}@{dtype_name}/{dtype_name}": cfg.n_layers * steps
+                      for n in route}
     losses = res["loss"]
     rels = [abs(a - e) / abs(e) for a, e in zip(losses, einsum["loss"])]
-    emit({"phase": phase, "config": {**WIDE_HEAD_CONFIG,
-                                     "dtype": dtype_name,
-                                     "use_flash": "auto"},
+    emit({"phase": phase, "config": {
+              **{f.name: getattr(cfg, f.name)
+                 for f in dataclasses.fields(cfg)
+                 if f.name not in ("dtype", "ring_mesh")},
+              "dtype": dtype_name},
           "batch": batch, "seq": seq, "head_dim": d,
-          "instances": "flash_{fwd,dq,dkv}_sm90 at padded width 256, D 256"
-                       + ("" if bf16 else ", 3xTF32"),
-          "losses": losses, "einsum_losses": einsum["loss"],
-          "rel_diff": rels, "rtol": rtol, "launches": launches,
+          "instances": instances, "losses": losses,
+          "einsum_losses": einsum["loss"], "rel_diff": rels, "rtol": rtol,
+          "launches": launches, "launches_by_dtype": instance_launches,
           "einsum_attention_calls": flash_einsum,
           "step_ms_median":
           statistics.median(res["step_s"][STEPS_WARMUP:]) * 1e3,
@@ -1193,10 +1327,13 @@ def wide_head_phase(K, dtype_name="bfloat16"):
           statistics.median(einsum["step_s"][STEPS_WARMUP:]) * 1e3,
           "max_memory_allocated_bytes": peak,
           "einsum_max_memory_allocated_bytes": einsum_peak})
-    if launches != want:
-        fail(f"{phase}: launched {launches}, expected {want}")
+    if launches != want or instance_launches != want_instances:
+        fail(f"{phase}: launched {launches} ({instance_launches}), expected "
+             f"{want} ({want_instances})")
+    if not all(n.endswith("_sm90") for n in route):
+        fail(f"{phase}: the route {route} reaches a SIMT kernel")
     if flash_einsum:
-        fail(f"{phase}: use_flash='auto' ran the einsum attention "
+        fail(f"{phase}: the flash model ran the einsum attention "
              f"{flash_einsum} times")
     if einsum_launches or len(einsum_calls) != cfg.n_layers * steps:
         fail(f"{phase}: the einsum model launched {einsum_launches} or "
@@ -1210,6 +1347,48 @@ def wide_head_phase(K, dtype_name="bfloat16"):
                  f"vs flash loss {losses[i]}: rel diff {rels[i]:.3g} > "
                  f"{rtol}")
     return launches
+
+
+def wide_head_phase(K, dtype_name="bfloat16"):
+    """A GPT with Gemma-2B's attention widths (module docstring, phases 25
+    and 27) in ``dtype_name`` through train.train with use_flash="auto":
+    the head_dim-256 instances of the three sm90 kernels once a layer a
+    step, no einsum attention, and the einsum model's losses from the same
+    seed within LOSS_RTOL (bf16) or ENTRY_RTOL's fp32 tolerance at steps 1
+    and WIDE_HEAD_STEPS. Returns the launches."""
+    import torch
+
+    from horovod_tpu_torch.models.transformer import GPTConfig
+
+    bf16 = dtype_name == "bfloat16"
+    cfg = GPTConfig(**WIDE_HEAD_CONFIG, dtype=getattr(torch, dtype_name),
+                    use_flash="auto")
+    return flash_model_phase(
+        K, {"bfloat16": "wide_head", "float32": "wide_head_fp32"}[dtype_name],
+        cfg, WIDE_HEAD_BATCH, WIDE_HEAD_STEPS,
+        LOSS_RTOL if bf16 else ENTRY_RTOL[dtype_name],
+        "flash_{fwd,dq,dkv}_sm90 at padded width 256, D 256"
+        + ("" if bf16 else ", 3xTF32"))
+
+
+def gpt_fp16_phase(K):
+    """The main path's GPT (bench.py --model gpt --flash: vocab 32768, 12
+    layers, d_model 768, 12 heads of 64, d_ff 3072, seq 1024, batch 8) in
+    fp16 compute with fp32 parameters and no loss scaler, as the JAX
+    package's GPT runs fp16, through train.train (module docstring, phase
+    28). Returns the launches."""
+    import torch
+
+    from horovod_tpu_torch.train import gpt_config
+
+    cfg = gpt_config("bench", use_flash=True, dtype=torch.float16)
+    if (MAIN_SHAPE[0], cfg.max_seq_len, cfg.n_heads, cfg.d_model // cfg.n_heads,
+            cfg.n_layers) != (8, 1024, 12, 64, MAIN_LAYERS):
+        fail(f"gpt_fp16: the bench GPT is not the main path's: {cfg}")
+    return flash_model_phase(
+        K, "gpt_fp16", cfg, MAIN_SHAPE[0], STEPS_WARMUP + STEPS_TIMED,
+        LOSS_RTOL, "flash_{fwd,dq,dkv}_sm90 in fp16 at D 64 (.f16 wgmma, "
+        "dO scaled by a power of two)")
 
 
 def ring_model(cfg, steps, batch, seq):
@@ -3233,6 +3412,10 @@ def main():
     hvt.shutdown()
     emit({"phase": "ring_wide_head_seconds",
           "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    gpt_fp16_launches = gpt_fp16_phase(K)
+    hvt.shutdown()
+    emit({"phase": "gpt_fp16_seconds", "seconds": time.perf_counter() - t0})
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -3264,6 +3447,7 @@ def main():
          "launches_wide_head_fp32": wide_fp32_launches[name],
          "launches_ring_wide_head": ring_wide_launches[name],
          "launches_ring_wide_head_blocks": ring_wide_block_launches[name],
+         "launches_gpt_fp16": gpt_fp16_launches[name],
          **line_timing(K, name, timings)} for name in K.LAUNCHES]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

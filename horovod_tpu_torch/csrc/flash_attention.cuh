@@ -8,9 +8,9 @@
 //   q, k, v, o, dO   [B, S, H, D] contiguous (k and v carry H_kv heads)
 //   lse, delta       [B, H, S] fp32 contiguous
 //   H % H_kv == 0, D % 8 == 0 (the wrappers pad other head_dims with zero
-//   columns), any S; 0 < D <= 128 for the SIMT kernels, 0 < D <= 256 on the
-//   tensor cores (bf16 q with o and dO in bf16 or fp32, fp32 q with fp32 o
-//   and dO).
+//   columns), any S; 0 < D <= 128 for the SIMT kernels (fp32 or bf16), 0 < D
+//   <= 256 on the tensor cores (bf16 or fp16 q with o and dO in q's dtype or
+//   fp32, fp32 q with fp32 o and dO).
 //
 // Every SIMT kernel works on 64 x 64 tiles with 256 threads laid out 16 x 16:
 // thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of a
@@ -33,7 +33,7 @@ constexpr int kMaxD = 128;       // the SIMT kernels' widest head
 constexpr int kMaxDSm90 = 256;   // the tensor-core kernels'
 constexpr float kMasked = -1e30f;  // the reference's fill for causally masked scores
 
-enum DType { kF32 = 0, kBF16 = 1 };
+enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -2,8 +2,9 @@
 // tensor cores (wgmma, TMA, mbarriers; sm_90a only).
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_dkv_kernel (pl.pallas_call in
-// _flash_bwd) for q/k/v in bf16 or fp32 with any head_dim the port takes
-// (8..256 in steps of 8: above 128 bf16 q in flash_dkv_sm90_wide_kernel,
+// _flash_bwd) for q/k/v in bf16, fp16 or fp32 with any head_dim the port
+// takes (8..256 in steps of 8: above 128 bf16 or fp16 q in
+// flash_dkv_sm90_wide_kernel,
 // fp32 q in flash_dkv_sm90_tf32_wide_kernel; the wrappers pad other
 // head_dims with zero columns); flash_dkv.cu stays
 // built and checked as the SIMT
@@ -26,6 +27,14 @@
 // (ops/_kernels.py) rounds at the same points. With fp32 q every product,
 // p^T dO and ds^T q included, runs as 3xTF32 (sm90.cuh) on fp32 operands,
 // within about 2^-21 of fp32 products: the plain version rounds nothing.
+// fp16 q takes the bf16 designs with .f16 operands (11 significant bits
+// where bf16 has 8), p and dS rounded to fp16, and dO scaled by 2^e
+// (sm90.cuh, "fp16's range"): delta scaled on load, dP^T scaled in fp32
+// where dO comes in fp16 and an fp32 dO scaled before its split into two
+// fp16 terms, so dS^T is rounded to fp16 near 1 whatever dO's magnitude; dk
+// (and dv where it was formed from the scaled terms) is multiplied by 2^-e
+// as it is written. The plain version (split_dout, round_operands on fp16
+// q) models the scale.
 //
 // Head dims. A kernel is instantiated per padded width DP (64, 128, 192 or
 // 256 in bf16; 32, 64, 96, 128, 192 or 256 in fp32): TMA zero-fills the
@@ -53,7 +62,7 @@
 // memory: their rows of S floats need not meet TMA's 16-byte stride rule.
 // An fp32 dO streams with Q, one tile a stage: TMA lands it past the
 // stage's Q, dO hi and dO lo tiles, and the block splits it into them
-// (split_bf16_terms) before the tile's products. Its stage is 5 * 64 * DP *
+// (split_terms) before the tile's products. Its stage is 5 * 64 * DP *
 // 2 B; at DP 128 two stages and K, V take 226 KB of the 227 KB a block may
 // have.
 //
@@ -109,7 +118,7 @@
 // tile beside its stage's Q, dO hi and dO lo; here that stage would be 160
 // KB at DP 256, and K, V and the A tiles take 80 KB more. So the fp32 tile
 // lands where dO's two terms will lie and the block splits it in place
-// (split_bf16_terms_in_place): bf16 panel p of dO hi takes the bytes of
+// (split_terms_in_place): bf16 panel p of dO hi takes the bytes of
 // fp32 panels 2 p and lo those of 2 p + 1, and the descriptors step over
 // the other term's panels (a panel stride of 128 rows). A stage is then 3 *
 // 64 * DP * 2 B: two stages, 208 KB in all, at DP 192; one, 176 KB, at DP
@@ -159,8 +168,8 @@ namespace {
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Tile sizes and the shared-memory layout of one instance at padded width DP.
-// kDoTerms: the bf16 terms dO comes in (1: dO in q's dtype; 2: bf16 q with
-// an fp32 dO, as hi and lo).
+// kDoTerms: the 2-byte terms dO comes in (1: dO in q's dtype; 2: bf16 or
+// fp16 q with an fp32 dO, as hi and lo).
 template <int DP, typename T, int kDoTerms>
 struct DkvCfg {
   static constexpr bool kTf32 = std::is_same<T, float>::value;
@@ -188,7 +197,7 @@ struct DkvCfg {
 };
 
 // kD: the head_dim where it is fixed at compile time, else 0 and d_rt
-// gives it.
+// gives it. dout_amax: dO's largest magnitude, read by fp16 instances only.
 template <int DP, int kD, typename T, int kDoTerms>
 __global__ void __launch_bounds__(DkvCfg<DP, T, kDoTerms>::kThreads, 1)
     flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
@@ -196,8 +205,9 @@ __global__ void __launch_bounds__(DkvCfg<DP, T, kDoTerms>::kThreads, 1)
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, int S, int H, int Hkv, int d_rt,
-                          float scale, float scale_log2, int causal) {
+                          const float* __restrict__ dout_amax, T* __restrict__ dk,
+                          T* __restrict__ dv, int S, int H, int Hkv, int d_rt, float scale,
+                          float scale_log2, int causal) {
   using namespace sm90;
   using L = DkvCfg<DP, T, kDoTerms>;
   constexpr int kBKV = L::kBKV, kBQ = L::kBQ, kStages = L::kStages;
@@ -256,6 +266,10 @@ __global__ void __launch_bounds__(DkvCfg<DP, T, kDoTerms>::kThreads, 1)
   const int key_lo = k0 + 64 * wg + 16 * warp + lane / 4;  // keys key_lo and key_lo + 8
   float* lse_s = vec + wg * 2 * kBQ;                         // this warpgroup's lse * log2(e)
   float* delta_s = lse_s + kBQ;
+  // fp16: dO's scale 2^e (dP^T's too where dO comes in fp16) and 2^-e
+  float do_scale = 1.f, unscale = 1.f;
+  if constexpr (is_f16<T>()) dout_scale(dout_amax, do_scale, unscale);
+  const float dp_scale = kDoTerms == 1 ? do_scale : 1.f;  // two terms: scaled in the split
   float dk_acc[DP / 2], dv_acc[DP / 2];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
@@ -277,7 +291,7 @@ __global__ void __launch_bounds__(DkvCfg<DP, T, kDoTerms>::kThreads, 1)
       if (tid % 128 < kBQ)
         lse_s[r] = qp < S ? lse[off] * kLog2e : 0.f;
       else
-        delta_s[r] = qp < S ? delta[off] : 0.f;
+        delta_s[r] = qp < S ? delta[off] * do_scale : 0.f;  // fp16: scaled
     }
     warpgroup_sync(wg);
     mbar_wait(&full[s], (t / kStages) & 1);
@@ -317,24 +331,25 @@ __global__ void __launch_bounds__(DkvCfg<DP, T, kDoTerms>::kThreads, 1)
         // the fp32 dO into its two terms; every thread splits, and both
         // warpgroups read the whole tile
         uint8_t* st = qdo_s + s * L::kStage;
-        split_bf16_terms<DP, kBQ>(st + 3 * L::kQ, st + L::kQ, st + 2 * L::kQ, tid, L::kThreads);
+        split_terms<DP, kBQ, T>(st + 3 * L::kQ, st + L::kQ, st + 2 * L::kQ, tid, L::kThreads,
+                                do_scale);
         fence_proxy_async();
         __syncthreads();
       }
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_ss<0>(sc, desc_kmajor(k_addr, kBKV, 64 * wg, kk), desc_kmajor(q_addr, kBQ, 0, kk),
-                    kk > 0);
+        wgmma_ss<0, T>(sc, desc_kmajor(k_addr, kBKV, 64 * wg, kk),
+                       desc_kmajor(q_addr, kBQ, 0, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_ss<0>(dp, desc_kmajor(v_addr, kBKV, 64 * wg, kk), desc_kmajor(do_addr, kBQ, 0, kk),
-                    kk > 0);
+        wgmma_ss<0, T>(dp, desc_kmajor(v_addr, kBKV, 64 * wg, kk),
+                       desc_kmajor(do_addr, kBQ, 0, kk), kk > 0);
       if constexpr (kDoTerms == 2) {
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk)
-          wgmma_ss<0>(dp, desc_kmajor(v_addr, kBKV, 64 * wg, kk),
-                      desc_kmajor(do_addr + L::kQ, kBQ, 0, kk), 1);
+          wgmma_ss<0, T>(dp, desc_kmajor(v_addr, kBKV, 64 * wg, kk),
+                         desc_kmajor(do_addr + L::kQ, kBQ, 0, kk), 1);
       }
     }
     wgmma_commit();
@@ -352,8 +367,11 @@ __global__ void __launch_bounds__(DkvCfg<DP, T, kDoTerms>::kThreads, 1)
         const int key = key_lo + 8 * ((i / 2) % 2), qp = q0 + c;
         if (qp >= S || key >= S || (causal && key > qp)) p = 0.f;
       }
-      sc[i] = p;                           // P^T
-      dp[i] = p * (dp[i] - delta_s[c]);    // dS^T
+      sc[i] = p;  // P^T
+      if constexpr (is_f16<T>())
+        dp[i] = p * fmaf(dp[i], dp_scale, -delta_s[c]);  // dS^T, scaled
+      else
+        dp[i] = p * (dp[i] - delta_s[c]);  // dS^T
     }
 
     if constexpr (L::kTf32) {
@@ -402,16 +420,16 @@ __global__ void __launch_bounds__(DkvCfg<DP, T, kDoTerms>::kThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < kBQ / 16; ++kk) {
         uint32_t a[4];
-        a_fragment(a, sc, kk);
-        wgmma_rs<1>(dv_acc, a, desc_mnmajor(do_addr, kBQ, kk), 1);
+        a_fragment<T>(a, sc, kk);
+        wgmma_rs<1, T>(dv_acc, a, desc_mnmajor(do_addr, kBQ, kk), 1);
         if constexpr (kDoTerms == 2)
-          wgmma_rs<1>(dv_acc, a, desc_mnmajor(do_addr + L::kQ, kBQ, kk), 1);
+          wgmma_rs<1, T>(dv_acc, a, desc_mnmajor(do_addr + L::kQ, kBQ, kk), 1);
       }
 #pragma unroll
       for (int kk = 0; kk < kBQ / 16; ++kk) {
         uint32_t a[4];
-        a_fragment(a, dp, kk);
-        wgmma_rs<1>(dk_acc, a, desc_mnmajor(q_addr, kBQ, kk), 1);
+        a_fragment<T>(a, dp, kk);
+        wgmma_rs<1, T>(dk_acc, a, desc_mnmajor(q_addr, kBQ, kk), 1);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -427,6 +445,8 @@ __global__ void __launch_bounds__(DkvCfg<DP, T, kDoTerms>::kThreads, 1)
   }
 
   const long long kstride = (long long)Hkv * D;
+  // fp16: dS^T was scaled by 2^e, and with dO's two terms P^T dO too
+  const float dk_mult = scale * unscale, dv_mult = kDoTerms == 2 ? unscale : 1.f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = key_lo + 8 * r;
@@ -436,15 +456,18 @@ __global__ void __launch_bounds__(DkvCfg<DP, T, kDoTerms>::kThreads, 1)
     for (int c = 0; c < DP / 8; ++c) {
       if (8 * c >= D) continue;  // the padded columns are not written
       const int col = 8 * c + 2 * (lane % 4), i = 4 * c + 2 * r;
-      store2(dk + off + col, dk_acc[i] * scale, dk_acc[i + 1] * scale);
-      store2(dv + off + col, dv_acc[i], dv_acc[i + 1]);
+      store2(dk + off + col, dk_acc[i] * dk_mult, dk_acc[i + 1] * dk_mult);
+      if constexpr (is_f16<T>())
+        store2(dv + off + col, dv_acc[i] * dv_mult, dv_acc[i + 1] * dv_mult);
+      else
+        store2(dv + off + col, dv_acc[i], dv_acc[i + 1]);
     }
   }
 }
 
 // Tile sizes and the shared-memory layout of the wide-head kernel (see Wide
-// heads): bf16 q at padded width DP 192 or 256, dO in bf16 (kDoTerms 1) or
-// fp32 (2: its two bf16 terms).
+// heads): bf16 or fp16 q at padded width DP 192 or 256, dO in q's dtype
+// (kDoTerms 1) or fp32 (2: its two 2-byte terms).
 template <int DP, int kDoTerms>
 struct DkvWideCfg {
   static_assert(DP == 192 || DP == 256, "DP: three or four bf16 panels");
@@ -468,17 +491,18 @@ struct DkvWideCfg {
 };
 
 // kD: the head_dim where it is fixed at compile time, else 0 and d_rt
-// gives it.
-template <int DP, int kD, int kDoTerms>
+// gives it. T: bf16 or fp16; dout_amax: dO's largest magnitude, read by
+// fp16 instances only.
+template <int DP, int kD, typename T, int kDoTerms>
 __global__ void __launch_bounds__(256, 1)
     flash_dkv_sm90_wide_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
                                const __grid_constant__ CUtensorMap tv,
                                const __grid_constant__ CUtensorMap tdo,
                                const float* __restrict__ lse, const float* __restrict__ delta,
-                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                               int S, int H, int Hkv, int d_rt, float scale, float scale_log2,
-                               int causal) {
+                               const float* __restrict__ dout_amax, T* __restrict__ dk,
+                               T* __restrict__ dv, int S, int H, int Hkv, int d_rt, float scale,
+                               float scale_log2, int causal) {
   using namespace sm90;
   using L = DkvWideCfg<DP, kDoTerms>;
   constexpr int kBKV = L::kBKV, kBQ = L::kBQ, kStages = L::kStages, kDoRows = L::kDoRows;
@@ -518,16 +542,16 @@ __global__ void __launch_bounds__(256, 1)
     const int h = hk * group + t / per_head, q0 = (qt_start + t % per_head) * kBQ;
     uint8_t* dst = qdo_s + s * L::kStage;
     mbar_expect_tx(&full[s], L::kStage);
-    tma_load_rows<DP>(dst, &tq, &full[s], kBQ, q0, h, b);
+    tma_load_rows<DP, T>(dst, &tq, &full[s], kBQ, q0, h, b);
     if constexpr (kDoTerms == 1)
-      tma_load_rows<DP>(dst + L::kQ, &tdo, &full[s], kBQ, q0, h, b);
+      tma_load_rows<DP, T>(dst + L::kQ, &tdo, &full[s], kBQ, q0, h, b);
     else
       tma_load_rows<DP, float>(dst + L::kQ, &tdo, &full[s], kBQ, q0, h, b);
   };
   if (tid == 0) {
     mbar_expect_tx(bar_kv, 2 * L::kKV);
-    tma_load_rows<DP>(k_s, &tk, bar_kv, kBKV, k0, hk, b);
-    tma_load_rows<DP>(v_s, &tv, bar_kv, kBKV, k0, hk, b);
+    tma_load_rows<DP, T>(k_s, &tk, bar_kv, kBKV, k0, hk, b);
+    tma_load_rows<DP, T>(v_s, &tv, bar_kv, kBKV, k0, hk, b);
     for (int t = 0; t < kStages && t < n_iter; ++t) load_q(t, t);
   }
 
@@ -536,6 +560,10 @@ __global__ void __launch_bounds__(256, 1)
   const int key_lo = k0 + 16 * warp + lane / 4;  // keys key_lo and key_lo + 8
   // this warpgroup's product: dV += P^T dO (0) or dK += dS^T Q (1)
   const uint32_t a_addr = wg == 0 ? pt_addr : dst_addr;
+  // fp16: dO's scale 2^e (dP^T's too where dO comes in fp16) and 2^-e
+  float do_scale = 1.f, unscale = 1.f;
+  if constexpr (is_f16<T>()) dout_scale(dout_amax, do_scale, unscale);
+  const float dp_scale = kDoTerms == 1 ? do_scale : 1.f;  // two terms: scaled in the split
   float acc[DP / 2];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
@@ -554,13 +582,14 @@ __global__ void __launch_bounds__(256, 1)
       const int qp = qw + 8 * (j / 2) + 2 * (lane % 4) + j % 2;
       const long long off = ((long long)b * H + h) * S + qp;
       lse2[j] = qp < S ? lse[off] * kLog2e : 0.f;
-      dlt[j] = qp < S ? delta[off] : 0.f;
+      dlt[j] = qp < S ? delta[off] * do_scale : 0.f;  // fp16: scaled
     }
     mbar_wait(&full[s], (t / kStages) & 1);
     if constexpr (kDoTerms == 2) {
       // the fp32 dO into its two terms, in place; both warpgroups read all
       // of them
-      split_bf16_terms_in_place<DP, kBQ>(qdo_s + s * L::kStage + L::kQ, tid, L::kThreads);
+      split_terms_in_place<DP, kBQ, T>(qdo_s + s * L::kStage + L::kQ, tid, L::kThreads,
+                                       do_scale);
       fence_proxy_async();
       __syncthreads();
     }
@@ -569,17 +598,17 @@ __global__ void __launch_bounds__(256, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss<0>(sc, desc_kmajor(k_addr, kBKV, 0, kk), desc_kmajor(q_addr, kBQ, 32 * wg, kk),
-                  kk > 0);
+      wgmma_ss<0, T>(sc, desc_kmajor(k_addr, kBKV, 0, kk),
+                     desc_kmajor(q_addr, kBQ, 32 * wg, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss<0>(dp, desc_kmajor(v_addr, kBKV, 0, kk),
-                  desc_kmajor(do_addr, kDoRows, 32 * wg, kk), kk > 0);
+      wgmma_ss<0, T>(dp, desc_kmajor(v_addr, kBKV, 0, kk),
+                     desc_kmajor(do_addr, kDoRows, 32 * wg, kk), kk > 0);
     if constexpr (kDoTerms == 2) {
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_ss<0>(dp, desc_kmajor(v_addr, kBKV, 0, kk),
-                    desc_kmajor(do_addr + kBQ * kRowBytes, kDoRows, 32 * wg, kk), 1);
+        wgmma_ss<0, T>(dp, desc_kmajor(v_addr, kBKV, 0, kk),
+                       desc_kmajor(do_addr + kBQ * kRowBytes, kDoRows, 32 * wg, kk), 1);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -595,13 +624,16 @@ __global__ void __launch_bounds__(256, 1)
         const int key = key_lo + 8 * ((i / 2) % 2), qp = qw + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
         if (qp >= S || key >= S || (causal && key > qp)) p = 0.f;
       }
-      sc[i] = p;                    // P^T
-      dp[i] = p * (dp[i] - dlt[j]);  // dS^T
+      sc[i] = p;  // P^T
+      if constexpr (is_f16<T>())
+        dp[i] = p * fmaf(dp[i], dp_scale, -dlt[j]);  // dS^T, scaled
+      else
+        dp[i] = p * (dp[i] - dlt[j]);  // dS^T
     }
 
     // both warpgroups' products of the previous tile have read the A tiles
     __syncthreads();
-    // this warpgroup's 32 columns of P^T and dS^T, bf16, as the K-major A
+    // this warpgroup's 32 columns of P^T and dS^T, in T, as the K-major A
     // operand: row = key (64 rows of one 128-byte panel), column = query
     // 32 wg + c, swizzled by 16-byte chunk
 #pragma unroll
@@ -609,8 +641,8 @@ __global__ void __launch_bounds__(256, 1)
       const int row = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
       const int col = 32 * wg + 8 * (i / 4) + 2 * (lane % 4);
       const int off = row * kRowBytes + (((col / 8) ^ (row % 8)) * 16) + (col % 8) * 2;
-      *reinterpret_cast<uint32_t*>(pt_s + off) = pack_bf16(sc[i], sc[i + 1]);
-      *reinterpret_cast<uint32_t*>(pt_s + L::kA + off) = pack_bf16(dp[i], dp[i + 1]);
+      *reinterpret_cast<uint32_t*>(pt_s + off) = pack2<T>(sc[i], sc[i + 1]);
+      *reinterpret_cast<uint32_t*>(pt_s + L::kA + off) = pack2<T>(dp[i], dp[i + 1]);
     }
     fence_proxy_async();
     __syncthreads();
@@ -622,13 +654,14 @@ __global__ void __launch_bounds__(256, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBQ / 16; ++kk)
-      wgmma_ss<1>(acc, desc_kmajor(a_addr, kBKV, 0, kk), desc_mnmajor(b_addr, b_rows, kk), 1);
+      wgmma_ss<1, T>(acc, desc_kmajor(a_addr, kBKV, 0, kk), desc_mnmajor(b_addr, b_rows, kk),
+                     1);
     if constexpr (kDoTerms == 2) {
       if (wg == 0) {
 #pragma unroll
         for (int kk = 0; kk < kBQ / 16; ++kk)
-          wgmma_ss<1>(acc, desc_kmajor(pt_addr, kBKV, 0, kk),
-                      desc_mnmajor(do_addr + kBQ * kRowBytes, kDoRows, kk), 1);
+          wgmma_ss<1, T>(acc, desc_kmajor(pt_addr, kBKV, 0, kk),
+                         desc_mnmajor(do_addr + kBQ * kRowBytes, kDoRows, kk), 1);
       }
     }
     wgmma_commit();
@@ -642,9 +675,10 @@ __global__ void __launch_bounds__(256, 1)
     }
   }
 
-  // warpgroup 0 writes dV, warpgroup 1 dK (with the softmax scale)
-  __nv_bfloat16* out = wg == 0 ? dv : dk;
-  const float mult = wg == 0 ? 1.f : scale;
+  // warpgroup 0 writes dV, warpgroup 1 dK (with the softmax scale; fp16: and
+  // 2^-e for dS^T's scale, and for dV with dO's two scaled terms)
+  T* out = wg == 0 ? dv : dk;
+  const float mult = wg == 0 ? (kDoTerms == 2 ? unscale : 1.f) : scale * unscale;
   const long long kstride = (long long)Hkv * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -660,21 +694,24 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-template <int DP, int kD, int kDoTerms>
+template <int DP, int kD, typename T, int kDoTerms>
 int launch_dkv_sm90_wide(const void* q, const void* k, const void* v, const void* dout,
-                         const void* lse, const void* delta, void* dk, void* dv, int B, int S,
-                         int H, int Hkv, int D, float scale, int causal, cudaStream_t stream) {
+                         const void* lse, const void* delta, const void* dout_amax, void* dk,
+                         void* dv, int B, int S, int H, int Hkv, int D, float scale, int causal,
+                         cudaStream_t stream) {
   using L = DkvWideCfg<DP, kDoTerms>;
+  using TDo = std::conditional_t<kDoTerms == 2, float, T>;
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_bshd_map(&tq, q, B, S, H, D, L::kBQ);
-  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, L::kBQ, kDoTerms == 2 ? 4 : 2);
-  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, L::kBKV);
-  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, L::kBKV);
+  int err = make_bshd_map<T>(&tq, q, B, S, H, D, L::kBQ);
+  if (err == 0) err = make_bshd_map<TDo>(&tdo, dout, B, S, H, D, L::kBQ);
+  if (err == 0) err = make_bshd_map<T>(&tk, k, B, S, Hkv, D, L::kBKV);
+  if (err == 0) err = make_bshd_map<T>(&tv, v, B, S, Hkv, D, L::kBKV);
   if (err != 0) return err;
   const dim3 grid((S + L::kBKV - 1) / L::kBKV, Hkv, B);
-  return launch_n(flash_dkv_sm90_wide_kernel<DP, kD, kDoTerms>, grid, L::kThreads, L::kBytes, stream, tq,
-                  tk, tv, tdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk,
-                  (__nv_bfloat16*)dv, S, H, Hkv, D, scale, scale * kLog2e, causal);
+  return launch_n(flash_dkv_sm90_wide_kernel<DP, kD, T, kDoTerms>, grid, L::kThreads, L::kBytes,
+                  stream, tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
+                  (const float*)dout_amax, (T*)dk, (T*)dv, S, H, Hkv, D, scale, scale * kLog2e,
+                  causal);
 }
 
 // Tile sizes and the shared-memory layout of the fp32 kernel at padded
@@ -876,10 +913,10 @@ int launch_dkv_sm90_tf32_wide(const void* q, const void* k, const void* v, const
                               cudaStream_t stream) {
   using C = DkvTf32WideCfg<DP>;
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_bshd_map(&tq, q, B, S, H, D, C::kBQ, 4);
-  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, C::kBQ, 4);
-  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, C::kBKV, 4);
-  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, C::kBKV, 4);
+  int err = make_bshd_map<float>(&tq, q, B, S, H, D, C::kBQ);
+  if (err == 0) err = make_bshd_map<float>(&tdo, dout, B, S, H, D, C::kBQ);
+  if (err == 0) err = make_bshd_map<float>(&tk, k, B, S, Hkv, D, C::kBKV);
+  if (err == 0) err = make_bshd_map<float>(&tv, v, B, S, Hkv, D, C::kBKV);
   if (err != 0) return err;
   const dim3 grid((S + C::kBKV - 1) / C::kBKV, Hkv, B);
   return launch_n(flash_dkv_sm90_tf32_wide_kernel<DP, kD>, grid, C::kThreads, C::kBytes, stream,
@@ -889,64 +926,71 @@ int launch_dkv_sm90_tf32_wide(const void* q, const void* k, const void* v, const
 
 template <int DP, int kD, typename T, int kDoTerms>
 int launch_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
-                    const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
-                    int Hkv, int D, float scale, int causal, cudaStream_t stream) {
+                    const void* lse, const void* delta, const void* dout_amax, void* dk, void* dv,
+                    int B, int S, int H, int Hkv, int D, float scale, int causal,
+                    cudaStream_t stream) {
   using L = DkvCfg<DP, T, kDoTerms>;
-  constexpr int e = (int)sizeof(T);
+  using TDo = std::conditional_t<kDoTerms == 2, float, T>;
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_bshd_map(&tq, q, B, S, H, D, L::kBQ, e);
-  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, L::kBQ, kDoTerms == 2 ? 4 : e);
-  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, L::kBKV, e);
-  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, L::kBKV, e);
+  int err = make_bshd_map<T>(&tq, q, B, S, H, D, L::kBQ);
+  if (err == 0) err = make_bshd_map<TDo>(&tdo, dout, B, S, H, D, L::kBQ);
+  if (err == 0) err = make_bshd_map<T>(&tk, k, B, S, Hkv, D, L::kBKV);
+  if (err == 0) err = make_bshd_map<T>(&tv, v, B, S, Hkv, D, L::kBKV);
   if (err != 0) return err;
   const dim3 grid((S + L::kBKV - 1) / L::kBKV, Hkv, B);
   return launch_n(flash_dkv_sm90_kernel<DP, kD, T, kDoTerms>, grid, L::kThreads, L::kBytes,
-                  stream, tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (T*)dk,
-                  (T*)dv, S, H, Hkv, D, scale, scale * kLog2e, causal);
+                  stream, tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
+                  (const float*)dout_amax, (T*)dk, (T*)dv, S, H, Hkv, D, scale, scale * kLog2e,
+                  causal);
 }
 
-// dO in q's dtype at D 32, 64, 96 and 128 (and bf16 at 192 and 256, the
-// wide kernel): D fixed at compile time; every other case at its padded
-// width with D at run time. D above 128 takes bf16 q only (the wide
-// kernel, with a bf16 or an fp32 dO).
+// dO in q's dtype at D 32, 64, 96 and 128 (and bf16 or fp16 at 192 and 256,
+// the wide kernel): D fixed at compile time; every other case at its padded
+// width with D at run time. D above 128 takes bf16 or fp16 q in the wide
+// kernel (with dO in q's dtype or fp32) and fp32 q in the 3xTF32 wide one.
 template <typename T, int kDoTerms>
 int launch_dkv_sm90_d(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
-                      int Hkv, int D, float scale, int causal, cudaStream_t st) {
+                      const void* lse, const void* delta, const void* amax, void* dk, void* dv,
+                      int B, int S, int H, int Hkv, int D, float scale, int causal,
+                      cudaStream_t st) {
   using sm90::padded_width;
+  constexpr bool kTwoByte = !std::is_same<T, float>::value;  // bf16 or fp16
   if constexpr (kDoTerms == 1) {
     switch (D) {
       case 32:
-        return launch_dkv_sm90<padded_width<T>(32), 32, T, 1>(q, k, v, dout, lse, delta, dk, dv,
-                                                              B, S, H, Hkv, D, scale, causal, st);
+        return launch_dkv_sm90<padded_width<T>(32), 32, T, 1>(
+            q, k, v, dout, lse, delta, amax, dk, dv, B, S, H, Hkv, D, scale, causal, st);
       case 64:
-        return launch_dkv_sm90<64, 64, T, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D,
-                                             scale, causal, st);
+        return launch_dkv_sm90<64, 64, T, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B, S, H,
+                                             Hkv, D, scale, causal, st);
       case 96:
-        return launch_dkv_sm90<padded_width<T>(96), 96, T, 1>(q, k, v, dout, lse, delta, dk, dv,
-                                                              B, S, H, Hkv, D, scale, causal, st);
+        return launch_dkv_sm90<padded_width<T>(96), 96, T, 1>(
+            q, k, v, dout, lse, delta, amax, dk, dv, B, S, H, Hkv, D, scale, causal, st);
       case 128:
-        return launch_dkv_sm90<128, 128, T, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
-                                               D, scale, causal, st);
+        return launch_dkv_sm90<128, 128, T, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B, S, H,
+                                               Hkv, D, scale, causal, st);
     }
-    if constexpr (!std::is_same<T, float>::value) {
+    if constexpr (kTwoByte) {
       if (D == 192)
-        return launch_dkv_sm90_wide<192, 192, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
-                                                 D, scale, causal, st);
+        return launch_dkv_sm90_wide<192, 192, T, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B,
+                                                    S, H, Hkv, D, scale, causal, st);
       if (D == 256)
-        return launch_dkv_sm90_wide<256, 256, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
-                                                 D, scale, causal, st);
+        return launch_dkv_sm90_wide<256, 256, T, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B,
+                                                    S, H, Hkv, D, scale, causal, st);
     }
   }
-  if constexpr (!std::is_same<T, float>::value) {
+  if constexpr (kTwoByte) {
     if (D > 192)
-      return launch_dkv_sm90_wide<256, 0, kDoTerms>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
-                                                    Hkv, D, scale, causal, st);
+      return launch_dkv_sm90_wide<256, 0, T, kDoTerms>(q, k, v, dout, lse, delta, amax, dk, dv,
+                                                       B, S, H, Hkv, D, scale, causal, st);
     if (D > 128)
-      return launch_dkv_sm90_wide<192, 0, kDoTerms>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
-                                                    Hkv, D, scale, causal, st);
-  }
-  if constexpr (std::is_same<T, float>::value) {
+      return launch_dkv_sm90_wide<192, 0, T, kDoTerms>(q, k, v, dout, lse, delta, amax, dk, dv,
+                                                       B, S, H, Hkv, D, scale, causal, st);
+    return D <= 64 ? launch_dkv_sm90<64, 0, T, kDoTerms>(q, k, v, dout, lse, delta, amax, dk, dv,
+                                                         B, S, H, Hkv, D, scale, causal, st)
+                   : launch_dkv_sm90<128, 0, T, kDoTerms>(q, k, v, dout, lse, delta, amax, dk,
+                                                          dv, B, S, H, Hkv, D, scale, causal, st);
+  } else {
     if (D == 192)
       return launch_dkv_sm90_tf32_wide<192, 192>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
                                                  D, scale, causal, st);
@@ -961,51 +1005,57 @@ int launch_dkv_sm90_d(const void* q, const void* k, const void* v, const void* d
                                                D, scale, causal, st);
     switch (padded_width<float>(D)) {
       case 32:
-        return launch_dkv_sm90<32, 0, float, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
-                                                D, scale, causal, st);
+        return launch_dkv_sm90<32, 0, float, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B, S, H,
+                                                Hkv, D, scale, causal, st);
       case 64:
-        return launch_dkv_sm90<64, 0, float, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
-                                                D, scale, causal, st);
+        return launch_dkv_sm90<64, 0, float, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B, S, H,
+                                                Hkv, D, scale, causal, st);
       case 96:
-        return launch_dkv_sm90<96, 0, float, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
-                                                D, scale, causal, st);
+        return launch_dkv_sm90<96, 0, float, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B, S, H,
+                                                Hkv, D, scale, causal, st);
       case 128:
-        return launch_dkv_sm90<128, 0, float, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
-                                                 Hkv, D, scale, causal, st);
+        return launch_dkv_sm90<128, 0, float, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B, S,
+                                                 H, Hkv, D, scale, causal, st);
     }
     return (int)cudaErrorInvalidValue;
-  } else {
-    return D <= 64 ? launch_dkv_sm90<64, 0, T, kDoTerms>(q, k, v, dout, lse, delta, dk, dv, B, S,
-                                                         H, Hkv, D, scale, causal, st)
-                   : launch_dkv_sm90<128, 0, T, kDoTerms>(q, k, v, dout, lse, delta, dk, dv, B,
-                                                          S, H, Hkv, D, scale, causal, st);
   }
 }
 
 }  // namespace
 }  // namespace hvt
 
-// Returns 0 or the CUDA error of the launch. The port's head_dims (8..128 in
-// steps of 8; 8..256 with bf16 q) and dtypes: q, k, v and dO fp32
-// (dtype and dout_dtype 0), dk, dv fp32; q, k, v bf16 (dtype 1) with dO
-// bf16 (dout_dtype 1) or fp32 (0), dk, dv bf16. dk, dv are [B, S, H_kv,
-// D]. The signature is hvt_flash_dkv's.
+// Returns 0 or the CUDA error of the launch. The port's head_dims (8..256 in
+// steps of 8) and dtypes: q, k, v and dO fp32 (dtype and dout_dtype 0), dk,
+// dv fp32; q, k, v bf16 (dtype 1) or fp16 (2) with dO in q's dtype or fp32
+// (0), dk, dv in q's dtype. dk, dv are [B, S, H_kv, D]. dout_amax: a device
+// fp32 scalar, dO's largest magnitude, which fp16 q needs (sm90.cuh,
+// dout_scale) and the others do not read. The signature is hvt_flash_dkv's
+// with dout_amax after delta.
 extern "C" int hvt_flash_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
-                                  const void* lse, const void* delta, void* dk, void* dv, int B,
-                                  int S, int H, int Hkv, int D, float scale, int causal,
-                                  int dtype, int dout_dtype, void* stream) {
+                                  const void* lse, const void* delta, const void* dout_amax,
+                                  void* dk, void* dv, int B, int S, int H, int Hkv, int D,
+                                  float scale, int causal, int dtype, int dout_dtype,
+                                  void* stream) {
   using namespace hvt;
   if (!valid_shape(B, S, H, Hkv, D, kMaxDSm90)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  const void* amax = dout_amax;
   if (dtype == kBF16 && dout_dtype == kBF16)
-    return launch_dkv_sm90_d<__nv_bfloat16, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
-                                               D, scale, causal, st);
+    return launch_dkv_sm90_d<__nv_bfloat16, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B, S, H,
+                                               Hkv, D, scale, causal, st);
   if (dtype == kBF16 && dout_dtype == kF32)
-    return launch_dkv_sm90_d<__nv_bfloat16, 2>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv,
-                                               D, scale, causal, st);
+    return launch_dkv_sm90_d<__nv_bfloat16, 2>(q, k, v, dout, lse, delta, amax, dk, dv, B, S, H,
+                                               Hkv, D, scale, causal, st);
+  if (dtype == kF16 && amax == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == kF16 && dout_dtype == kF16)
+    return launch_dkv_sm90_d<__half, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B, S, H, Hkv, D,
+                                        scale, causal, st);
+  if (dtype == kF16 && dout_dtype == kF32)
+    return launch_dkv_sm90_d<__half, 2>(q, k, v, dout, lse, delta, amax, dk, dv, B, S, H, Hkv, D,
+                                        scale, causal, st);
   if (dtype == kF32 && dout_dtype == kF32)
-    return launch_dkv_sm90_d<float, 1>(q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, D, scale,
-                                       causal, st);
+    return launch_dkv_sm90_d<float, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B, S, H, Hkv, D,
+                                       scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }

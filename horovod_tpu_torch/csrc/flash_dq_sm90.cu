@@ -2,8 +2,8 @@
 // (wgmma, TMA, mbarriers; sm_90a only).
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_dq_kernel (pl.pallas_call in
-// _flash_bwd) for q/k/v in bf16 or fp32 with any head_dim the port takes
-// (8..256 in steps of 8; the wrappers pad other head_dims with zero
+// _flash_bwd) for q/k/v in bf16, fp16 or fp32 with any head_dim the port
+// takes (8..256 in steps of 8; the wrappers pad other head_dims with zero
 // columns); flash_dq.cu
 // stays built and checked as the SIMT
 // design, on no route. Same function:
@@ -21,7 +21,13 @@
 // exact in fp32. The plain version with split_dout and round_ds
 // (ops/_kernels.py) rounds at the same points. With fp32 q every product
 // runs as 3xTF32 (sm90.cuh) on fp32 operands, within about 2^-21 of fp32
-// products: the plain version rounds nothing.
+// products: the plain version rounds nothing. fp16 q takes the bf16 design
+// with .f16 operands (11 significant bits where bf16 has 8), and dO scaled
+// by 2^e (sm90.cuh, "fp16's range"): dP and delta scaled in fp32, an fp32
+// dO scaled before its split into two fp16 terms, so dS is rounded to fp16
+// near 1 whatever dO's magnitude; dq is multiplied by 2^-e as it is
+// written. The plain version (split_dout, round_ds on fp16 q) models the
+// scale.
 //
 // Head dims. A kernel is instantiated per padded width DP (64, 128, 192 or
 // 256 in bf16; 32, 64, 96, 128, 192 or 256 in fp32): TMA zero-fills the
@@ -147,8 +153,8 @@ namespace {
 constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// kDoTerms: the bf16 terms dO comes in (1: a bf16 dO; 2: an fp32 dO as
-// hi and lo).
+// kDoTerms: the 2-byte terms dO comes in (1: dO in q's dtype, bf16 or
+// fp16; 2: an fp32 dO as hi and lo).
 template <int DP, int kDoTerms>
 struct DqSmem {
   static_assert(DP % 64 == 0 && DP <= 256, "DP: whole panels");
@@ -169,16 +175,17 @@ struct DqSmem {
 };
 
 // kD: the head_dim where it is fixed at compile time (kD == DP), else 0 and
-// d_rt gives it. kDoTerms 2: tdo maps an fp32 dO.
-template <int DP, int kD, int kDoTerms>
+// d_rt gives it. T: bf16 or fp16. kDoTerms 2: tdo maps an fp32 dO.
+// dout_amax: dO's largest magnitude, read by the fp16 instances only.
+template <int DP, int kD, typename T, int kDoTerms>
 __global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 : 1)
     flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tdo,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int S, int H, int Hkv, int d_rt,
-                         float scale, float scale_log2, int causal) {
+                         const float* __restrict__ dout_amax, T* __restrict__ dq, int S, int H,
+                         int Hkv, int d_rt, float scale, float scale_log2, int causal) {
   using namespace sm90;
   using L = DqSmem<DP, kDoTerms>;
   constexpr int kBM = L::kBM, kBN = L::kBN, kThreads = L::kThreads;
@@ -217,18 +224,18 @@ __global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 :
   auto load_kv = [&](int j, int s) {
     uint8_t* dst = kv_s + 2 * s * L::kKV;
     mbar_expect_tx(&full[s], 2 * L::kKV);
-    tma_load_rows<DP>(dst, &tk, &full[s], kBN, j * kBN, hk, b);
-    tma_load_rows<DP>(dst + L::kKV, &tv, &full[s], kBN, j * kBN, hk, b);
+    tma_load_rows<DP, T>(dst, &tk, &full[s], kBN, j * kBN, hk, b);
+    tma_load_rows<DP, T>(dst + L::kKV, &tv, &full[s], kBN, j * kBN, hk, b);
   };
   if (tid == 0) {
     if constexpr (kDoTerms == 1) {
       mbar_expect_tx(bar_q, 2 * L::kQ);
-      tma_load_rows<DP>(q_s, &tq, bar_q, kBM, q0, h, b);
-      tma_load_rows<DP>(do_s, &tdo, bar_q, kBM, q0, h, b);
+      tma_load_rows<DP, T>(q_s, &tq, bar_q, kBM, q0, h, b);
+      tma_load_rows<DP, T>(do_s, &tdo, bar_q, kBM, q0, h, b);
       for (int j = 0; j < kStages && j < n_kt; ++j) load_kv(j, j);
     } else {  // the fp32 dO into the K/V ring; K/V once it is split
       mbar_expect_tx(bar_q, 3 * L::kQ);
-      tma_load_rows<DP>(q_s, &tq, bar_q, kBM, q0, h, b);
+      tma_load_rows<DP, T>(q_s, &tq, bar_q, kBM, q0, h, b);
       tma_load_rows<DP, float>(kv_s, &tdo, bar_q, kBM, q0, h, b);
     }
   }
@@ -243,6 +250,10 @@ __global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 :
     }
   };
 
+  // fp16: dO's scale 2^e (dP's too where dO comes in fp16) and 2^-e
+  float do_scale = 1.f, unscale = 1.f;
+  if constexpr (is_f16<T>()) dout_scale(dout_amax, do_scale, unscale);
+  const float dp_scale = kDoTerms == 1 ? do_scale : 1.f;  // two terms: scaled in the split
   const int row_lo = wg_row0 + 16 * warp + lane / 4;  // rows row_lo and row_lo + 8
   float lse2[2], dlt[2];
 #pragma unroll
@@ -251,6 +262,7 @@ __global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 :
     const long long off = ((long long)b * H + h) * S + row;
     lse2[r] = row < S ? lse[off] * kLog2e : 0.f;
     dlt[r] = row < S ? delta[off] : 0.f;
+    if constexpr (is_f16<T>()) dlt[r] *= do_scale;
   }
   const uint32_t q_addr = smem_u32(q_s), do_addr = smem_u32(do_s), kv_addr = smem_u32(kv_s);
   float acc[DP / 2];
@@ -259,7 +271,7 @@ __global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 :
 
   mbar_wait(bar_q, 0);
   if constexpr (kDoTerms == 2) {
-    split_bf16_terms<DP, kBM>(kv_s, do_s, do_s + L::kQ, tid, kThreads);
+    split_terms<DP, kBM, T>(kv_s, do_s, do_s + L::kQ, tid, kThreads, do_scale);
     // the split's writes before wgmma reads them, and its reads before
     // TMA refills the ring (both async proxy)
     fence_proxy_async();
@@ -277,17 +289,17 @@ __global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 :
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss<0>(sc, desc_kmajor(q_addr, kBM, 64 * wg, kk), desc_kmajor(k_addr, kBN, 0, kk),
-                  kk > 0);
+      wgmma_ss<0, T>(sc, desc_kmajor(q_addr, kBM, 64 * wg, kk), desc_kmajor(k_addr, kBN, 0, kk),
+                     kk > 0);
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss<0>(dp, desc_kmajor(do_addr, kBM, 64 * wg, kk), desc_kmajor(v_addr, kBN, 0, kk),
-                  kk > 0);
+      wgmma_ss<0, T>(dp, desc_kmajor(do_addr, kBM, 64 * wg, kk), desc_kmajor(v_addr, kBN, 0, kk),
+                     kk > 0);
     if constexpr (kDoTerms == 2) {
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_ss<0>(dp, desc_kmajor(do_addr + L::kQ, kBM, 64 * wg, kk),
-                    desc_kmajor(v_addr, kBN, 0, kk), 1);
+        wgmma_ss<0, T>(dp, desc_kmajor(do_addr + L::kQ, kBM, 64 * wg, kk),
+                       desc_kmajor(v_addr, kBN, 0, kk), 1);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -303,18 +315,21 @@ __global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 :
         const int key = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
         if (key >= S || (causal && key > row_lo + 8 * r)) p = 0.f;  // the -1e30 fill: weight 0
       }
-      dp[i] = p * (dp[i] - dlt[r]);  // dS
+      if constexpr (is_f16<T>())
+        dp[i] = p * fmaf(dp[i], dp_scale, -dlt[r]);  // dS, scaled
+      else
+        dp[i] = p * (dp[i] - dlt[r]);  // dS
     }
 
     // all of dS packed before the fence: a register written between the
     // fence and its product makes ptxas serialise the products (C7520)
     uint32_t a[kBN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) a_fragment(a[kk], dp, kk);
+    for (int kk = 0; kk < kBN / 16; ++kk) a_fragment<T>(a[kk], dp, kk);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk)
-      wgmma_rs<1>(acc, a[kk], desc_mnmajor(k_addr, kBN, kk), 1);
+      wgmma_rs<1, T>(acc, a[kk], desc_mnmajor(k_addr, kBN, kk), 1);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -326,17 +341,17 @@ __global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 :
   }
 
   const long long qstride = (long long)H * D;
+  const float mult = scale * unscale;  // fp16: dS was scaled by 2^e
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_lo + 8 * r;
     if (row >= S) continue;
-    __nv_bfloat16* drow = dq + ((long long)b * S + row) * qstride + (long long)h * D;
+    T* drow = dq + ((long long)b * S + row) * qstride + (long long)h * D;
 #pragma unroll
     for (int c = 0; c < DP / 8; ++c) {
       if (8 * c >= D) continue;  // the padded columns are not written
       const int i = 4 * c + 2 * r;
-      *reinterpret_cast<__nv_bfloat162*>(drow + 8 * c + 2 * (lane % 4)) =
-          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+      store2(drow + 8 * c + 2 * (lane % 4), acc[i] * mult, acc[i + 1] * mult);
     }
   }
 }
@@ -523,60 +538,62 @@ __global__ void __launch_bounds__(DqTf32Cfg<DP>::kThreads, 1)
   }
 }
 
-template <int DP, int kD, int kDoTerms>
+template <int DP, int kD, typename T, int kDoTerms>
 int launch_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* delta, void* dq, int B, int S, int H, int Hkv,
-                   int D, float scale, int causal, cudaStream_t stream) {
+                   const void* lse, const void* delta, const void* dout_amax, void* dq, int B,
+                   int S, int H, int Hkv, int D, float scale, int causal, cudaStream_t stream) {
   using L = DqSmem<DP, kDoTerms>;
+  using TDo = std::conditional_t<kDoTerms == 2, float, T>;
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_bshd_map(&tq, q, B, S, H, D, L::kBM);
-  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, L::kBM, kDoTerms == 2 ? 4 : 2);
-  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, L::kBN);
-  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, L::kBN);
+  int err = make_bshd_map<T>(&tq, q, B, S, H, D, L::kBM);
+  if (err == 0) err = make_bshd_map<TDo>(&tdo, dout, B, S, H, D, L::kBM);
+  if (err == 0) err = make_bshd_map<T>(&tk, k, B, S, Hkv, D, L::kBN);
+  if (err == 0) err = make_bshd_map<T>(&tv, v, B, S, Hkv, D, L::kBN);
   if (err != 0) return err;
   const dim3 grid((S + L::kBM - 1) / L::kBM, H, B);
-  return launch_n(flash_dq_sm90_kernel<DP, kD, kDoTerms>, grid, L::kThreads, L::kBytes, stream,
-                  tq, tk, tv, tdo, (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq, S,
-                  H, Hkv, D, scale, scale * kLog2e, causal);
+  return launch_n(flash_dq_sm90_kernel<DP, kD, T, kDoTerms>, grid, L::kThreads, L::kBytes,
+                  stream, tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
+                  (const float*)dout_amax, (T*)dq, S, H, Hkv, D, scale, scale * kLog2e, causal);
 }
 
-// bf16: D 64, 128, 192 and 256 with a bf16 dO at D fixed, every other case
-// (an fp32 dO at every D) at its padded width with D at run time.
-template <int kDoTerms>
+// bf16 and fp16: D 64, 128, 192 and 256 with dO in q's dtype at D fixed,
+// every other case (an fp32 dO at every D) at its padded width with D at
+// run time.
+template <typename T, int kDoTerms>
 int launch_dq_sm90_d(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* delta, void* dq, int B, int S, int H, int Hkv,
-                     int D, float scale, int causal, cudaStream_t st) {
+                     const void* lse, const void* delta, const void* amax, void* dq, int B, int S,
+                     int H, int Hkv, int D, float scale, int causal, cudaStream_t st) {
   if constexpr (kDoTerms == 1) {
     if (D == 64)
-      return launch_dq_sm90<64, 64, 1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
-                                       causal, st);
+      return launch_dq_sm90<64, 64, T, 1>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
+                                          scale, causal, st);
     if (D == 128)
-      return launch_dq_sm90<128, 128, 1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
-                                         causal, st);
+      return launch_dq_sm90<128, 128, T, 1>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
+                                            scale, causal, st);
     if (D == 192)
-      return launch_dq_sm90<192, 192, 1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
-                                         causal, st);
+      return launch_dq_sm90<192, 192, T, 1>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
+                                            scale, causal, st);
     if (D == 256)
-      return launch_dq_sm90<256, 256, 1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
-                                         causal, st);
+      return launch_dq_sm90<256, 256, T, 1>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
+                                            scale, causal, st);
     if (D > 192)
-      return launch_dq_sm90<256, 0, 1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
-                                       causal, st);
+      return launch_dq_sm90<256, 0, T, 1>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
+                                          scale, causal, st);
     if (D > 128)
-      return launch_dq_sm90<192, 0, 1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
-                                       causal, st);
+      return launch_dq_sm90<192, 0, T, 1>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
+                                          scale, causal, st);
   } else {
     if (D > 192)
-      return launch_dq_sm90<256, 0, 2>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
-                                       causal, st);
+      return launch_dq_sm90<256, 0, T, 2>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
+                                          scale, causal, st);
     if (D > 128)
-      return launch_dq_sm90<192, 0, 2>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
-                                       causal, st);
+      return launch_dq_sm90<192, 0, T, 2>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
+                                          scale, causal, st);
   }
-  return D <= 64 ? launch_dq_sm90<64, 0, kDoTerms>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv,
-                                                   D, scale, causal, st)
-                 : launch_dq_sm90<128, 0, kDoTerms>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv,
-                                                    D, scale, causal, st);
+  return D <= 64 ? launch_dq_sm90<64, 0, T, kDoTerms>(q, k, v, dout, lse, delta, amax, dq, B, S,
+                                                      H, Hkv, D, scale, causal, st)
+                 : launch_dq_sm90<128, 0, T, kDoTerms>(q, k, v, dout, lse, delta, amax, dq, B, S,
+                                                       H, Hkv, D, scale, causal, st);
 }
 
 template <int DP>
@@ -585,10 +602,10 @@ int launch_dq_sm90_tf32(const void* q, const void* k, const void* v, const void*
                         int Hkv, int D, float scale, int causal, cudaStream_t stream) {
   using C = DqTf32Cfg<DP>;
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_bshd_map(&tq, q, B, S, H, D, C::kBM, 4);
-  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, C::kBM, 4);
-  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, C::kBN, 4);
-  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, C::kBN, 4);
+  int err = make_bshd_map<float>(&tq, q, B, S, H, D, C::kBM);
+  if (err == 0) err = make_bshd_map<float>(&tdo, dout, B, S, H, D, C::kBM);
+  if (err == 0) err = make_bshd_map<float>(&tk, k, B, S, Hkv, D, C::kBN);
+  if (err == 0) err = make_bshd_map<float>(&tv, v, B, S, Hkv, D, C::kBN);
   if (err != 0) return err;
   const dim3 grid((S + C::kBM - 1) / C::kBM, H, B);
   return launch_n(flash_dq_sm90_tf32_kernel<DP>, grid, C::kThreads, C::kBytes, stream, tq, tk,
@@ -778,10 +795,10 @@ int launch_dq_sm90_tf32_wide(const void* q, const void* k, const void* v, const 
                              int Hkv, int D, float scale, int causal, cudaStream_t stream) {
   using C = DqTf32WideCfg<DP>;
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_bshd_map(&tq, q, B, S, H, D, C::kBM, 4);
-  if (err == 0) err = make_bshd_map(&tdo, dout, B, S, H, D, C::kBM, 4);
-  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, C::kBN, 4);
-  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, C::kBN, 4);
+  int err = make_bshd_map<float>(&tq, q, B, S, H, D, C::kBM);
+  if (err == 0) err = make_bshd_map<float>(&tdo, dout, B, S, H, D, C::kBM);
+  if (err == 0) err = make_bshd_map<float>(&tk, k, B, S, Hkv, D, C::kBN);
+  if (err == 0) err = make_bshd_map<float>(&tv, v, B, S, Hkv, D, C::kBN);
   if (err != 0) return err;
   const dim3 grid((S + C::kBM - 1) / C::kBM, H, B);
   return launch_n(flash_dq_sm90_tf32_wide_kernel<DP, kD>, grid, C::kThreads, C::kBytes, stream,
@@ -792,24 +809,34 @@ int launch_dq_sm90_tf32_wide(const void* q, const void* k, const void* v, const 
 }  // namespace
 }  // namespace hvt
 
-// Returns 0 or the CUDA error of the launch. The port's head_dims (8..128 in
-// steps of 8; 8..256 with bf16 q) and dtypes: q, k, v and dO fp32
-// (dtype and dout_dtype 0), dq fp32; q, k, v bf16 (dtype 1) with dO bf16
-// (dout_dtype 1) or fp32 (0), dq bf16. The signature is hvt_flash_dq's.
+// Returns 0 or the CUDA error of the launch. The port's head_dims (8..256 in
+// steps of 8) and dtypes: q, k, v and dO fp32 (dtype and dout_dtype 0), dq
+// fp32; q, k, v bf16 (dtype 1) or fp16 (2) with dO in q's dtype or fp32
+// (0), dq in q's dtype. dout_amax: a device fp32 scalar, dO's largest
+// magnitude, which fp16 q needs (sm90.cuh, dout_scale) and the others do
+// not read. The signature is hvt_flash_dq's with dout_amax after delta.
 extern "C" int hvt_flash_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, void* dq, int B, int S,
-                                 int H, int Hkv, int D, float scale, int causal, int dtype,
-                                 int dout_dtype, void* stream) {
+                                 const void* lse, const void* delta, const void* dout_amax,
+                                 void* dq, int B, int S, int H, int Hkv, int D, float scale,
+                                 int causal, int dtype, int dout_dtype, void* stream) {
   using namespace hvt;
   if (!valid_shape(B, S, H, Hkv, D, kMaxDSm90)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == kBF16)
-    return dout_dtype == kBF16
-               ? launch_dq_sm90_d<1>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
-                                     causal, st)
-               : launch_dq_sm90_d<2>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D, scale,
-                                     causal, st);
+  const void* amax = dout_amax;
+  if (dtype == kBF16 && dout_dtype == kBF16)
+    return launch_dq_sm90_d<__nv_bfloat16, 1>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv,
+                                              D, scale, causal, st);
+  if (dtype == kBF16 && dout_dtype == kF32)
+    return launch_dq_sm90_d<__nv_bfloat16, 2>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv,
+                                              D, scale, causal, st);
+  if (dtype == kF16 && amax == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == kF16 && dout_dtype == kF16)
+    return launch_dq_sm90_d<__half, 1>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
+                                       scale, causal, st);
+  if (dtype == kF16 && dout_dtype == kF32)
+    return launch_dq_sm90_d<__half, 2>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
+                                       scale, causal, st);
   if (dtype != kF32 || dout_dtype != kF32) return (int)cudaErrorInvalidValue;
   if (D == 192)
     return launch_dq_sm90_tf32_wide<192, 192>(q, k, v, dout, lse, delta, dq, B, S, H, Hkv, D,

@@ -2,18 +2,21 @@
 // tensor cores (wgmma, TMA, mbarriers; sm_90a only).
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_fwd_kernel (launched by
-// _flash_fwd_impl through pl.pallas_call) for q/k/v in bf16 or fp32 with
-// any head_dim the port takes (8..256 in steps of 8: bf16 q with a bf16 or
-// fp32 o, fp32 q with an fp32 o; the wrappers pad other head_dims with zero
-// columns);
+// _flash_fwd_impl through pl.pallas_call) for q/k/v in bf16, fp16 or fp32
+// with any head_dim the port takes (8..256 in steps of 8: bf16 or fp16 q
+// with an o in q's dtype or fp32, fp32 q with an fp32 o; the wrappers pad
+// other head_dims with zero columns);
 // flash_fwd.cu stays
 // built and checked as the SIMT design, on no route. Same arithmetic:
 // scores scale * q k^T summed in fp32, causal fill
 // -1e30 where k_pos > q_pos, keys past S weigh 0, an online softmax with a
 // running max m and sum l, p rounded to v's dtype before p v (where
 // _fwd_kernel rounds it, :127-129), o = acc / max(l, 1e-30), lse = m + log l.
-// bf16 products are exact in fp32; fp32 products run as 3xTF32 (sm90.cuh),
-// within about 2^-21 of fp32 products.
+// bf16 and fp16 products are exact in fp32; fp32 products run as 3xTF32
+// (sm90.cuh), within about 2^-21 of fp32 products. fp16 q runs the bf16
+// design below as it stands, with .f16 wgmma operands and p rounded to fp16
+// (a p below 2^-24 flushes to 0, where bf16 keeps it: the Pallas kernel's
+// rounding of p to fp16 does the same).
 //
 // Head dims. A kernel is instantiated per padded width DP, the head_dim
 // rounded up to whole 128-byte panels (64, 128, 192 or 256 in bf16; 32, 64,
@@ -115,7 +118,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Tile sizes and the shared-memory layout of one instantiation: q/k/v of T
-// (bf16 or fp32) with head_dim padded to DP.
+// (bf16, fp16 or fp32) with head_dim padded to DP.
 template <int DP, typename T>
 struct FwdCfg {
   static constexpr bool kTf32 = std::is_same<T, float>::value;
@@ -240,8 +243,8 @@ __global__ void __launch_bounds__(FwdCfg<DP, T>::kThreads, FwdCfg<DP, T>::kMinBl
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_ss<0>(sc, desc_kmajor(q_addr, kBM, 64 * wg, kk), desc_kmajor(k_addr, kBN, 0, kk),
-                    kk > 0);
+        wgmma_ss<0, T>(sc, desc_kmajor(q_addr, kBM, 64 * wg, kk),
+                       desc_kmajor(k_addr, kBN, 0, kk), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -298,8 +301,8 @@ __global__ void __launch_bounds__(FwdCfg<DP, T>::kThreads, FwdCfg<DP, T>::kMinBl
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk) {
         uint32_t a[4];
-        a_fragment(a, sc, kk);
-        wgmma_rs<1>(acc, a, desc_mnmajor(v_addr, kBN, kk), 1);
+        a_fragment<T>(a, sc, kk);
+        wgmma_rs<1, T>(acc, a, desc_mnmajor(v_addr, kBN, kk), 1);
       }
     }
     wgmma_commit();
@@ -335,11 +338,10 @@ template <int DP, int kD, typename T, typename TO>
 int launch_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                     int S, int H, int Hkv, int D, float scale, int causal, cudaStream_t stream) {
   using C = FwdCfg<DP, T>;
-  constexpr int e = (int)sizeof(T);
   CUtensorMap tq, tk, tv;
-  int err = make_bshd_map(&tq, q, B, S, H, D, C::kBM, e);
-  if (err == 0) err = make_bshd_map(&tk, k, B, S, Hkv, D, C::kBN, e);
-  if (err == 0) err = make_bshd_map(&tv, v, B, S, Hkv, D, C::kBN, e);
+  int err = make_bshd_map<T>(&tq, q, B, S, H, D, C::kBM);
+  if (err == 0) err = make_bshd_map<T>(&tk, k, B, S, Hkv, D, C::kBN);
+  if (err == 0) err = make_bshd_map<T>(&tv, v, B, S, Hkv, D, C::kBN);
   if (err != 0) return err;
   const dim3 grid((S + C::kBM - 1) / C::kBM, H, B);
   return launch_n(flash_fwd_sm90_kernel<DP, kD, T, TO>, grid, C::kThreads, C::kBytes, stream, tq,
@@ -350,8 +352,8 @@ int launch_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* 
 // compile time (the head_dims these instances took before every head_dim
 // had a route, so their code stands), and the wide heads at D 192 and 256;
 // every other D at its padded width with D at run time. Wide heads (DP 192
-// for D 136..192, 256 above) take bf16 q with a bf16 o or the sequence
-// ring's fp32 one, and fp32 q with an fp32 o.
+// for D 136..192, 256 above) take bf16 or fp16 q with an o in q's dtype or
+// the sequence ring's fp32 one, and fp32 q with an fp32 o.
 template <typename T, typename TO>
 int launch_fwd_sm90_d(int D, const void* q, const void* k, const void* v, void* o, void* lse,
                       int B, int S, int H, int Hkv, float scale, int causal, cudaStream_t st) {
@@ -377,16 +379,16 @@ int launch_fwd_sm90_d(int D, const void* q, const void* k, const void* v, void* 
     return launch_fwd_sm90<256, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
   if (D > 128)
     return launch_fwd_sm90<192, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
-  constexpr bool kBf16 = !std::is_same<T, float>::value;
+  constexpr bool kTwoByte = !std::is_same<T, float>::value;  // bf16 or fp16
   switch (padded_width<T>(D)) {
     case 32:
-      if constexpr (!kBf16)
+      if constexpr (!kTwoByte)
         return launch_fwd_sm90<32, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
       break;
     case 64:
       return launch_fwd_sm90<64, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
     case 96:
-      if constexpr (!kBf16)
+      if constexpr (!kTwoByte)
         return launch_fwd_sm90<96, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
       break;
     case 128:
@@ -396,8 +398,10 @@ int launch_fwd_sm90_d(int D, const void* q, const void* k, const void* v, void* 
 }
 
 // One warpgroup checks the wgmma building blocks on a single 64 x 64 x 64
-// product: c1 = a b^T (both operands K-major from shared memory), then
-// c2 = bf16(c1) b (c1's fragment as the register A operand, b MN-major).
+// product of T (bf16 or fp16): c1 = a b^T (both operands K-major from shared
+// memory), then c2 = T(c1) b (c1's fragment as the register A operand, b
+// MN-major).
+template <typename T>
 __global__ void __launch_bounds__(128, 1)
     wgmma_probe_kernel(const __grid_constant__ CUtensorMap ta,
                        const __grid_constant__ CUtensorMap tb, float* c1, float* c2) {
@@ -423,7 +427,7 @@ __global__ void __launch_bounds__(128, 1)
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss<0>(d, desc_kmajor(a_addr, 64, 0, kk), desc_kmajor(b_addr, 64, 0, kk), kk > 0);
+    wgmma_ss<0, T>(d, desc_kmajor(a_addr, 64, 0, kk), desc_kmajor(b_addr, 64, 0, kk), kk > 0);
   wgmma_commit();
   wgmma_wait_all();
   fence_regs(d);
@@ -431,8 +435,8 @@ __global__ void __launch_bounds__(128, 1)
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     uint32_t a[4];
-    a_fragment(a, d, kk);
-    wgmma_rs<1>(e, a, desc_mnmajor(b_addr, 64, kk), kk > 0);
+    a_fragment<T>(a, d, kk);
+    wgmma_rs<1, T>(e, a, desc_mnmajor(b_addr, 64, kk), kk > 0);
   }
   wgmma_commit();
   wgmma_wait_all();
@@ -679,8 +683,8 @@ template <int N, int R>
 int launch_probe_tf32_wide(const void* a, const void* b, void* c1, void* c2, void* c3,
                            cudaStream_t stream) {
   CUtensorMap ta, tb;
-  int err = make_bshd_map(&ta, a, 1, 64, 1, N, 64, 4);
-  if (err == 0) err = make_bshd_map(&tb, b, 1, R, 1, N, R, 4);
+  int err = make_bshd_map<float>(&ta, a, 1, 64, 1, N, 64);
+  if (err == 0) err = make_bshd_map<float>(&tb, b, 1, R, 1, N, R);
   if (err != 0) return err;
   return launch_n(wgmma_probe_tf32_wide_kernel<N, R>, dim3(1), 128,
                   64 * N * 4 + 2 * R * N * 4 + 2 * N * sm90::kRowBytes +
@@ -691,8 +695,8 @@ int launch_probe_tf32_wide(const void* a, const void* b, void* c1, void* c2, voi
 }  // namespace
 }  // namespace hvt
 
-// Returns 0 or the CUDA error of the launch. q, k, v bf16 (dtype 1) or fp32
-// (0) with any D the port takes (8..128 in steps of 8; bf16 q up to 256);
+// Returns 0 or the CUDA error of the launch. q, k, v bf16 (dtype 1), fp16
+// (2) or fp32 (0) with any D the port takes (8..256 in steps of 8);
 // out_dtype: the dtype of o, q's or fp32 (0).
 extern "C" int hvt_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int B, int S, int H, int Hkv, int D, float scale,
@@ -707,27 +711,44 @@ extern "C" int hvt_flash_fwd_sm90(const void* q, const void* k, const void* v, v
   if (dtype == kBF16 && out_dtype == kF32)
     return launch_fwd_sm90_d<__nv_bfloat16, float>(D, q, k, v, o, lse, B, S, H, Hkv, scale,
                                                    causal, st);
+  if (dtype == kF16 && out_dtype == kF16)
+    return launch_fwd_sm90_d<__half, __half>(D, q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
+  if (dtype == kF16 && out_dtype == kF32)
+    return launch_fwd_sm90_d<__half, float>(D, q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
   if (dtype == kF32 && out_dtype == kF32)
     return launch_fwd_sm90_d<float, float>(D, q, k, v, o, lse, B, S, H, Hkv, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// a, b: bf16 (dtype 1) or fp32 (0) [64, 64] row-major; c1, c2: fp32 [64, 64]
-// (see wgmma_probe_kernel and wgmma_probe_tf32_kernel).
+// a, b: bf16 (dtype 1), fp16 (2) or fp32 (0) [64, 64] row-major; c1, c2:
+// fp32 [64, 64] (see wgmma_probe_kernel and wgmma_probe_tf32_kernel).
 extern "C" int hvt_wgmma_probe(const void* a, const void* b, void* c1, void* c2, int dtype,
                                void* stream) {
   using namespace hvt;
-  const int e = dtype == kF32 ? 4 : 2;
   CUtensorMap ta, tb;
-  int err = make_bshd_map(&ta, a, 1, 64, 1, 64, 64, e);
-  if (err == 0) err = make_bshd_map(&tb, b, 1, 64, 1, 64, 64, e);
-  if (err != 0) return err;
-  if (dtype == kF32)
+  cudaStream_t st = (cudaStream_t)stream;
+  int err;
+  if (dtype == kF32) {
+    err = make_bshd_map<float>(&ta, a, 1, 64, 1, 64, 64);
+    if (err == 0) err = make_bshd_map<float>(&tb, b, 1, 64, 1, 64, 64);
+    if (err != 0) return err;
     return launch_n(wgmma_probe_tf32_kernel, dim3(1), 128, 6 * 64 * 64 * 4 + 8 + sm90::kAtomBytes,
-                    (cudaStream_t)stream, ta, tb, (float*)c1, (float*)c2);
-  wgmma_probe_kernel<<<1, 128, 2 * 64 * 64 * 2 + 8 + sm90::kAtomBytes, (cudaStream_t)stream>>>(
-      ta, tb, (float*)c1, (float*)c2);
-  return (int)cudaGetLastError();
+                    st, ta, tb, (float*)c1, (float*)c2);
+  }
+  const size_t smem = 2 * 64 * 64 * 2 + 8 + sm90::kAtomBytes;
+  if (dtype == kF16) {
+    err = make_bshd_map<__half>(&ta, a, 1, 64, 1, 64, 64);
+    if (err == 0) err = make_bshd_map<__half>(&tb, b, 1, 64, 1, 64, 64);
+    if (err != 0) return err;
+    return launch_n(wgmma_probe_kernel<__half>, dim3(1), 128, smem, st, ta, tb, (float*)c1,
+                    (float*)c2);
+  }
+  if (dtype != kBF16) return (int)cudaErrorInvalidValue;
+  err = make_bshd_map(&ta, a, 1, 64, 1, 64, 64);
+  if (err == 0) err = make_bshd_map(&tb, b, 1, 64, 1, 64, 64);
+  if (err != 0) return err;
+  return launch_n(wgmma_probe_kernel<__nv_bfloat16>, dim3(1), 128, smem, st, ta, tb, (float*)c1,
+                  (float*)c2);
 }
 
 // a, b: bf16 [64, 64], w: bf16 [64, n] (n 192 or 256), all row-major; c1:

@@ -1,14 +1,16 @@
 // Hopper building blocks of the tensor-core flash kernels (flash_fwd_sm90.cu,
 // flash_dq_sm90.cu, flash_dkv_sm90.cu): raw PTX for mbarriers, TMA loads,
-// wgmma descriptors and wgmma products in bf16 and tf32, the 3xTF32 split
-// (of tiles in shared memory, and at the fp32 wide heads of A fragments in
-// registers), the split of an fp32 tile into two bf16 terms (an fp32 dO
-// with bf16 q: beside the tile, or in place at the wide heads' dk/dv), plus
-// the host code that encodes a TMA tensor map. sm_90a only: wgmma does not
-// exist on plain sm_90.
+// wgmma descriptors and wgmma products in bf16, fp16 and tf32, the 3xTF32
+// split (of tiles in shared memory, and at the fp32 wide heads of A
+// fragments in registers), the split of an fp32 tile into two bf16 or fp16
+// terms (an fp32 dO with 2-byte q: beside the tile, or in place at the wide
+// heads' dk/dv), fp16's scale of dO, plus the host code that encodes a TMA
+// tensor map. sm_90a only: wgmma does not exist on plain sm_90. fp16 takes
+// every path that bf16 takes, with the same tiles (T = __half where bf16 has
+// __nv_bfloat16).
 //
 // Shared-memory tiles. Every tile is a stack of "panels" of 128 bytes a row:
-// 64 bf16 or 32 fp32 columns, one panel per 128 bytes of the head dimension
+// 64 bf16 or fp16 or 32 fp32 columns, one panel per 128 bytes of the head dimension
 // (a head_dim that is not a whole number of panels, bf16 32 or 80 say, is
 // padded to whole panels: TMA fills the columns past D with zeros, which add
 // nothing to any product). TMA writes a
@@ -21,7 +23,7 @@
 //     k-th step (16 bf16 or 8 tf32 columns, 32 bytes either way) starts
 //     32 B further into the row.
 //   MN-major operand (the contiguous dimension is the output's, e.g. v in
-//     p v; bf16 only): SBO = 1024 B between groups of 8 reduced rows, LBO =
+//     p v; 2-byte only): SBO = 1024 B between groups of 8 reduced rows, LBO =
 //     the bytes between two 64-column panels; the k-th 16-row step starts
 //     2048 B on.
 //
@@ -29,9 +31,9 @@
 // "wgmma register fragments"): thread t of the warpgroup (warp w = t / 32,
 // lane l) holds d[i], i < N / 2, at
 //   row = 16 w + l / 4 + 8 ((i / 2) % 2),   col = 8 (i / 4) + 2 (l % 4) + i % 2.
-// The bf16 A fragment of m64k16 taken from registers has the same map for
+// The bf16 or fp16 A fragment of m64k16 taken from registers has the same map for
 // its 16 columns, so columns 16 kk..16 kk + 15 of an accumulator, rounded to
-// bf16 and packed in pairs (d[8 kk + 2 j], d[8 kk + 2 j + 1]), j < 4, are the
+// bf16 (fp16) and packed in pairs (d[8 kk + 2 j], d[8 kk + 2 j + 1]), j < 4, are the
 // A operand of the next product as they stand: no shuffle.
 //
 // fp32 through 3xTF32. tf32 wgmma reads both shared-memory operands K-major
@@ -52,6 +54,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -121,6 +124,14 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// The 2-byte operand types: bf16 (__nv_bfloat16, wgmma's .bf16) and fp16
+// (__half, .f16), with the same panels, rate and fragment layouts; they
+// differ in range and in the conversions below.
+template <typename T>
+__host__ __device__ constexpr bool is_f16() {
+  return std::is_same<T, __half>::value;
 }
 
 // Columns of one panel, and a head_dim padded to whole panels.
@@ -194,17 +205,64 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
-// Columns 16 kk..16 kk + 15 of an accumulator as the bf16 A operand.
-template <int N>
+// x rounded to the nearest T (bf16 or fp16), as fp32.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (is_f16<T>())
+    return __half2float(__float2half_rn(x));
+  else
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// (lo, hi) rounded to nearest T and packed, lo in the low half.
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_f16<T>()) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// Columns 16 kk..16 kk + 15 of an accumulator as the A operand of T.
+template <typename T = __nv_bfloat16, int N>
 __device__ __forceinline__ void a_fragment(uint32_t (&a)[4], const float (&d)[N], int kk) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) a[j] = pack_bf16(d[8 * kk + 2 * j], d[8 * kk + 2 * j + 1]);
+  for (int j = 0; j < 4; ++j) a[j] = pack2<T>(d[8 * kk + 2 * j], d[8 * kk + 2 * j + 1]);
+}
+
+// ---- fp16's range: the scale of dO ---------------------------------------------
+//
+// fp16 keeps 11 significant bits, 3 more than bf16, but only from 2^-14
+// (6.1e-5; subnormals to 6e-8) to 65504. A mean loss's dO sits near 1e-5
+// in a GPT, so the operands derived from it (dS, rounded to fp16 for the
+// dS K and dS^T Q products, and the ring's fp32 dO split into two fp16
+// terms) would lose their low bits or flush to zero. So the fp16 kernels
+// take dO times one exact power of two 2^e a call, e from dO's largest
+// magnitude (the wrapper's amax, a device scalar: no host sync):
+// max |dO| 2^e lies in [0.5, 1). delta is scaled on load, so dP and dS
+// come out scaled; dq, dk (and dv where it was formed from a scaled dO)
+// are multiplied by 2^-e in the epilogue. Powers of two scale fp32 values
+// exactly, so the result is the unscaled arithmetic's but where fp16
+// rounds (ops/_kernels.py dout_scale, the plain versions, model it).
+
+// (2^e, 2^-e) for dO's largest magnitude `amax`: e = -(frexp's exponent),
+// within +-120; 1 for a zero or non-finite amax.
+__device__ __forceinline__ void dout_scale(const float* amax, float& scale, float& unscale) {
+  const float a = *amax;
+  int e = 0;
+  if (a > 0.f && a <= 3.402823466e38f) {  // not zero, inf or NaN
+    frexpf(a, &e);
+    e = min(max(e, -120), 120);
+  }
+  scale = __int_as_float((127 - e) << 23);
+  unscale = __int_as_float((127 + e) << 23);
 }
 
 // ---- 3xTF32 ------------------------------------------------------------------
@@ -285,16 +343,34 @@ __device__ __forceinline__ void split_tile(uint8_t* raw, uint8_t* lo, uint8_t* t
   }
 }
 
+// Eight fp32 values x (times `mult` for fp16: the dO scale) as two terms
+// of T packed in pairs: hi = T(x), lo = T(x - hi), both rounded to nearest,
+// so that hi + lo carries 16 (bf16) or 22 (fp16) bits of x's mantissa.
+template <typename T>
+__device__ __forceinline__ void split_pairs(const float (&x)[8], float mult, uint32_t (&h)[4],
+                                            uint32_t (&l)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float x0 = x[2 * j], x1 = x[2 * j + 1];
+    if constexpr (is_f16<T>()) {
+      x0 *= mult;
+      x1 *= mult;
+    }
+    const float a = round_to<T>(x0), b = round_to<T>(x1);
+    h[j] = pack2<T>(a, b);  // exact: a and b are values of T
+    l[j] = pack2<T>(x0 - a, x1 - b);
+  }
+}
+
 // Splits an fp32 tile as TMA lands it (kRows rows of D columns in 32-column
-// panels at `f32`) into two bf16 tiles as TMA would land them (64-column
-// panels): hi = bf16(x), lo = bf16(x - hi), both rounded to nearest, so that
-// hi + lo carries 16 bits of x's mantissa. D: a whole number of bf16 panels.
-// Each step takes 8 columns of one row; consecutive threads take
-// consecutive rows, so the swizzled 16-byte accesses of 8 threads fall in
-// distinct banks.
-template <int D, int kRows>
-__device__ __forceinline__ void split_bf16_terms(const uint8_t* f32, uint8_t* hi, uint8_t* lo,
-                                                 int tid, int nthreads) {
+// panels at `f32`) into two tiles of T (bf16 or fp16) as TMA would land
+// them (64-column panels): split_pairs, with fp16's dO scale `mult`. D: a
+// whole number of 2-byte panels. Each step takes 8 columns of one row;
+// consecutive threads take consecutive rows, so the swizzled 16-byte
+// accesses of 8 threads fall in distinct banks.
+template <int D, int kRows, typename T = __nv_bfloat16>
+__device__ __forceinline__ void split_terms(const uint8_t* f32, uint8_t* hi, uint8_t* lo, int tid,
+                                            int nthreads, float mult = 1.f) {
   for (int i = tid; i < kRows * D / 8; i += nthreads) {
     const int r = i % kRows, c8 = i / kRows;  // row r, columns 8 c8 .. 8 c8 + 7
     const uint8_t* src = f32 + (c8 / 4) * kRows * kRowBytes + r * kRowBytes;
@@ -303,32 +379,28 @@ __device__ __forceinline__ void split_bf16_terms(const uint8_t* f32, uint8_t* hi
     const float4 x1 = *reinterpret_cast<const float4*>(src + (((ch + 1) ^ (r % 8)) * 16));
     const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
     uint32_t h[4], l[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float a = __bfloat162float(__float2bfloat16_rn(x[2 * j]));
-      const float b = __bfloat162float(__float2bfloat16_rn(x[2 * j + 1]));
-      h[j] = pack_bf16(a, b);  // exact: a and b are bf16 values
-      l[j] = pack_bf16(x[2 * j] - a, x[2 * j + 1] - b);
-    }
+    split_pairs<T>(x, mult, h, l);
     const int off = (c8 / 8) * kRows * kRowBytes + r * kRowBytes + (((c8 % 8) ^ (r % 8)) * 16);
     *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
     *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
   }
 }
 
-// split_bf16_terms in place, where no room is left beside the fp32 tile:
-// bf16 panel p of hi takes the bytes of fp32 panels 2 p and lo those of
-// 2 p + 1, so hi and lo are bf16 tiles whose 64-column panels lie 2 kRows *
-// 128 B apart, lo kRows * 128 B after hi (descriptors with a panel stride of
+// split_terms in place, where no room is left beside the fp32 tile: 2-byte
+// panel p of hi takes the bytes of fp32 panels 2 p and lo those of 2 p + 1,
+// so hi and lo are tiles of T whose 64-column panels lie 2 kRows * 128 B
+// apart, lo kRows * 128 B after hi (descriptors with a panel stride of
 // 2 kRows rows read them). Eight consecutive lanes take the eight 8-column
-// steps of one row of one bf16 panel: together they read the 256 bytes that
-// their hi and lo chunks overwrite, so a warp barrier between the reads and
-// the writes suffices. nthreads: a multiple of 32 that divides kRows * D / 8.
-template <int D, int kRows>
-__device__ __forceinline__ void split_bf16_terms_in_place(uint8_t* tile, int tid, int nthreads) {
-  static_assert(D % 64 == 0, "D: whole bf16 panels");
+// steps of one row of one 2-byte panel: together they read the 256 bytes
+// that their hi and lo chunks overwrite, so a warp barrier between the
+// reads and the writes suffices. nthreads: a multiple of 32 that divides
+// kRows * D / 8.
+template <int D, int kRows, typename T = __nv_bfloat16>
+__device__ __forceinline__ void split_terms_in_place(uint8_t* tile, int tid, int nthreads,
+                                                     float mult = 1.f) {
+  static_assert(D % 64 == 0, "D: whole 2-byte panels");
   for (int i = tid; i < kRows * D / 8; i += nthreads) {
-    // bf16 panel p, row r, columns 64 p + 8 c8 .. 64 p + 8 c8 + 7
+    // 2-byte panel p, row r, columns 64 p + 8 c8 .. 64 p + 8 c8 + 7
     const int c8 = i % 8, r = (i / 8) % kRows, p = i / (8 * kRows);
     uint8_t* pair = tile + 2 * p * kRows * kRowBytes;  // fp32 panels 2 p and 2 p + 1
     const uint8_t* src = pair + (c8 / 4) * kRows * kRowBytes + r * kRowBytes;
@@ -337,13 +409,7 @@ __device__ __forceinline__ void split_bf16_terms_in_place(uint8_t* tile, int tid
     const float4 x1 = *reinterpret_cast<const float4*>(src + (((ch + 1) ^ (r % 8)) * 16));
     const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
     uint32_t h[4], l[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float a = __bfloat162float(__float2bfloat16_rn(x[2 * j]));
-      const float b = __bfloat162float(__float2bfloat16_rn(x[2 * j + 1]));
-      h[j] = pack_bf16(a, b);  // exact: a and b are bf16 values
-      l[j] = pack_bf16(x[2 * j] - a, x[2 * j + 1] - b);
-    }
+    split_pairs<T>(x, mult, h, l);
     __syncwarp();  // the row's eight lanes have read it
     const int off = r * kRowBytes + ((c8 ^ (r % 8)) * 16);
     *reinterpret_cast<uint4*>(pair + off) = make_uint4(h[0], h[1], h[2], h[3]);
@@ -356,229 +422,239 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
 }
 
+// The wrappers' operand lists: an accumulator of n fp32 registers as the asm
+// operands %0..%(n - 1) (HVT_Rn) and their constraints (HVT_Dn).
+#define HVT_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define HVT_D16 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define HVT_R32 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define HVT_D32 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define HVT_R64 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define HVT_D64 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define HVT_R96 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define HVT_D96 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+  "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+  "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+  "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+  "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+#define HVT_R128 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+#define HVT_D128 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+  "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+  "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+  "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+  "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+  "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+  "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+  "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+  "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
 // Generated operand lists: m64nNk16 at N 32, 64, 128, 192 and 256 (ss) and
-// 64, 128, 192 and 256 (rs), bf16 in, fp32 out. kTransB = 0: B is K-major;
-// 1: B is MN-major. scale_d = 0 overwrites d.
+// 64, 128, 192 and 256 (rs), T (bf16 or fp16) in, fp32 out. kTransB = 0: B
+// is K-major; 1: B is MN-major. scale_d = 0 overwrites d.
 // d[0:16] (+)= A[64 x 16] B[16 x 32]; A and B from shared memory.
-template <int kTransB>
+template <int kTransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, %19;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+#define HVT_MMA(AB)                                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " {" HVT_R16 "}, " \
+               "%16, %17, p, 1, 1, 0, %19;\n}\n"                                \
+               : HVT_D16                                                              \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB))
+  if constexpr (is_f16<T>())
+    HVT_MMA("f16");
+  else
+    HVT_MMA("bf16");
+#undef HVT_MMA
 }
 
 // d[0:32] (+)= A[64 x 16] B[16 x 64]; A and B from shared memory.
-template <int kTransB>
+template <int kTransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+#define HVT_MMA(AB)                                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {" HVT_R32 "}, " \
+               "%32, %33, p, 1, 1, 0, %35;\n}\n"                                \
+               : HVT_D32                                                              \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB))
+  if constexpr (is_f16<T>())
+    HVT_MMA("f16");
+  else
+    HVT_MMA("bf16");
+#undef HVT_MMA
 }
 
-// d[0:32] (+)= A[64 x 16] B[16 x 64]; A from registers (bf16 pairs), B from shared memory.
-template <int kTransB>
+// d[0:32] (+)= A[64 x 16] B[16 x 64]; A from registers (pairs of T), B from
+// shared memory.
+template <int kTransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+#define HVT_MMA(AB)                                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {" HVT_R32 "}, " \
+               "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"             \
+               : HVT_D32                                                              \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),  \
+                 "n"(kTransB))
+  if constexpr (is_f16<T>())
+    HVT_MMA("f16");
+  else
+    HVT_MMA("bf16");
+#undef HVT_MMA
 }
 
 // d[0:64] (+)= A[64 x 16] B[16 x 128]; A and B from shared memory.
-template <int kTransB>
+template <int kTransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+#define HVT_MMA(AB)                                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" HVT_R64 "}, " \
+               "%64, %65, p, 1, 1, 0, %67;\n}\n"                                \
+               : HVT_D64                                                              \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB))
+  if constexpr (is_f16<T>())
+    HVT_MMA("f16");
+  else
+    HVT_MMA("bf16");
+#undef HVT_MMA
 }
 
-// d[0:64] (+)= A[64 x 16] B[16 x 128]; A from registers (bf16 pairs), B from shared memory.
-template <int kTransB>
+// d[0:64] (+)= A[64 x 16] B[16 x 128]; A from registers (pairs of T), B from
+// shared memory.
+template <int kTransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+#define HVT_MMA(AB)                                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" HVT_R64 "}, " \
+               "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"             \
+               : HVT_D64                                                              \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),  \
+                 "n"(kTransB))
+  if constexpr (is_f16<T>())
+    HVT_MMA("f16");
+  else
+    HVT_MMA("bf16");
+#undef HVT_MMA
 }
 
 // d[0:96] (+)= A[64 x 16] B[16 x 192]; A and B from shared memory.
-template <int kTransB>
+template <int kTransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[96], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-      "%96, %97, p, 1, 1, 0, %99;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+#define HVT_MMA(AB)                                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n192k16.f32." AB "." AB " {" HVT_R96 "}, " \
+               "%96, %97, p, 1, 1, 0, %99;\n}\n"                                \
+               : HVT_D96                                                              \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB))
+  if constexpr (is_f16<T>())
+    HVT_MMA("f16");
+  else
+    HVT_MMA("bf16");
+#undef HVT_MMA
 }
 
-// d[0:96] (+)= A[64 x 16] B[16 x 192]; A from registers (bf16 pairs), B from shared memory.
-template <int kTransB>
+// d[0:96] (+)= A[64 x 16] B[16 x 192]; A from registers (pairs of T), B from
+// shared memory.
+template <int kTransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-      "{%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+#define HVT_MMA(AB)                                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n192k16.f32." AB "." AB " {" HVT_R96 "}, " \
+               "{%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"             \
+               : HVT_D96                                                              \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),  \
+                 "n"(kTransB))
+  if constexpr (is_f16<T>())
+    HVT_MMA("f16");
+  else
+    HVT_MMA("bf16");
+#undef HVT_MMA
 }
 
 // d[0:128] (+)= A[64 x 16] B[16 x 256]; A and B from shared memory.
-template <int kTransB>
+template <int kTransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+#define HVT_MMA(AB)                                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32." AB "." AB " {" HVT_R128 "}, " \
+               "%128, %129, p, 1, 1, 0, %131;\n}\n"                                \
+               : HVT_D128                                                              \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB))
+  if constexpr (is_f16<T>())
+    HVT_MMA("f16");
+  else
+    HVT_MMA("bf16");
+#undef HVT_MMA
 }
 
-// d[0:128] (+)= A[64 x 16] B[16 x 256]; A from registers (bf16 pairs), B from shared memory.
-template <int kTransB>
+// d[0:128] (+)= A[64 x 16] B[16 x 256]; A from registers (pairs of T), B from
+// shared memory.
+template <int kTransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+#define HVT_MMA(AB)                                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32." AB "." AB " {" HVT_R128 "}, " \
+               "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"             \
+               : HVT_D128                                                              \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),  \
+                 "n"(kTransB))
+  if constexpr (is_f16<T>())
+    HVT_MMA("f16");
+  else
+    HVT_MMA("bf16");
+#undef HVT_MMA
 }
 
 // Generated operand lists: m64nNk8, tf32 in, fp32 out; both operands
@@ -964,27 +1040,27 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A map of a contiguous [B, S, H, D] tensor of bf16 (elem_bytes 2) or fp32
-// (4) whose box is one 128-byte panel of `rows` rows of one (b, h), with the
-// 128-byte swizzle; a box past D (a padded head_dim) reads zeros. Returns 0 or
-// a CUDA error code.
+// A map of a contiguous [B, S, H, D] tensor of T (bf16, fp16 or fp32) whose
+// box is one 128-byte panel of `rows` rows of one (b, h), with the 128-byte
+// swizzle; a box past D (a padded head_dim) reads zeros. Returns 0 or a
+// CUDA error code.
+template <typename T = __nv_bfloat16>
 static int make_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
-                         int rows, int elem_bytes = 2) {
+                         int rows) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t e = (cuuint64_t)elem_bytes;
+  const cuuint64_t e = sizeof(T);
+  const CUtensorMapDataType type = std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : sm90::is_f16<T>()          ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * e, (cuuint64_t)H * D * e,
                                  (cuuint64_t)S * H * D * e};
-  const cuuint32_t box[4] = {(cuuint32_t)(sm90::kRowBytes / elem_bytes), 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(sm90::kRowBytes / e), 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = encode(map,
-                      elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      4, const_cast<void*>(ptr), dims,
-                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 

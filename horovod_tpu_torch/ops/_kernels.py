@@ -18,20 +18,25 @@ kernel              source (``csrc/``)        replaces
 
 The ``*_sm90`` kernels run their products on the tensor cores (``wgmma``,
 tiles brought by TMA) and take what ``SM90_ROUTES`` lists, keyed by q's
-dtype and o's (dO's) dtype: bf16 q at every head_dim 1..256, with a bf16
-o or the sequence ring's fp32 one (``flash_dq_sm90`` and ``flash_dkv_sm90``
-take an fp32 dO as two bf16 terms), and fp32 q with an fp32 o at every
-head_dim 1..256 too (products as 3xTF32: each operand split into two TF32
-terms, three products summed in fp32). The kernels take head_dims in steps
-of 8: the wrappers give them
+dtype and o's (dO's) dtype: bf16 and fp16 q at every head_dim 1..256, with
+an o in q's dtype or the sequence ring's fp32 one (``flash_dq_sm90`` and
+``flash_dkv_sm90`` take an fp32 dO as two terms of q's dtype), and fp32 q
+with an fp32 o at every head_dim 1..256 too (products as 3xTF32: each
+operand split into two TF32 terms, three products summed in fp32). fp16's
+range is narrow (normals from 2^-14, at most 65504), so on fp16 q the dq
+and dkv kernels take dO times a power of two 2^e from dO's largest
+magnitude (``dout_scale``; the wrappers pass that magnitude as a device
+scalar) and multiply their results by 2^-e. The kernels take head_dims in
+steps of 8: the wrappers give them
 any other head_dim zero-padded to the next multiple of 8 (``pad_head_dim``;
 zero columns add nothing to q k^T and give zero columns of o, dq, dk and
 dv, which are cut off), and a head_dim that is not a whole number of
 128-byte panels runs padded further by TMA's zero fill. The others (SIMT)
 do fp32 FMAs on the CUDA cores and take fp32 or bf16 with any head_dim up
 to 128; no route reaches them, and all three stay built and checked on the
-card as ``variant="simt"``. A shape that no tensor-core kernel takes (fp16,
-head_dims above 256) raises ``ValueError`` on a CUDA tensor,
+card as ``variant="simt"``. A shape that no tensor-core kernel takes (head
+dims above 256, or a 2-byte o of another dtype than q's) raises
+``ValueError`` on a CUDA tensor,
 naming the routes; ``use_flash="auto"`` takes the kernels only where
 ``sm90_takes`` says all three do. A kernel that fails to build or launch
 raises.
@@ -83,7 +88,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {name: 0 for name in FLASH_KERNELS + CODEC_KERNELS}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _libs: dict = {}
 _build_log: dict = {}
 _lock = threading.Lock()
@@ -155,9 +160,11 @@ def _lib(name: str):
             ptr = ctypes.c_void_p
             i32, f32 = ctypes.c_int, ctypes.c_float
             ints = [i32] * 5 + [f32, i32, i32, i32, ptr]  # B S H Hkv D scale causal dtypes stream
-            fwd, dq, dkv = ([ptr] * n + ints for n in (5, 7, 8))
-            argtypes = {"flash_fwd_sm90": fwd, "flash_dq_sm90": dq,
-                        "flash_dkv_sm90": dkv, "flash_fwd": fwd,
+            fwd, dq, dkv, dq90, dkv90 = ([ptr] * n + ints
+                                         for n in (5, 7, 8, 8, 9))
+            # the sm90 dq and dkv take dO's largest magnitude after delta
+            argtypes = {"flash_fwd_sm90": fwd, "flash_dq_sm90": dq90,
+                        "flash_dkv_sm90": dkv90, "flash_fwd": fwd,
                         "flash_dq": dq, "flash_dkv": dkv}
             i64 = ctypes.c_longlong
             wire = {"hvt_wire_encode": [ptr, ptr, i64, i32, ptr],
@@ -196,7 +203,8 @@ def _run(name: str, tensors, q, k, scale, causal, second_dtype):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, f"hvt_{name}")(
-            *[t.data_ptr() for t in tensors], b, s, h, k.shape[2], d,
+            *[None if t is None else t.data_ptr() for t in tensors],
+            b, s, h, k.shape[2], d,
             float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
             _DTYPE_CODE[second_dtype], stream)
     if rc != 0:
@@ -222,7 +230,8 @@ def launch_attributes(name: str):
 def _check(q, k, v, out_dtype, dout=None, lse=None, delta=None,
            kernel="flash_fwd_sm90"):
     """Validate what ``kernel`` takes before any pointer reaches it:
-    [B, S, H, D] q and [B, S, H_kv, D] k, v of one dtype (fp32 or bf16),
+    [B, S, H, D] q and [B, S, H_kv, D] k, v of one dtype (fp32, bf16 or
+    fp16),
     H % H_kv == 0; o/dO in q's dtype or fp32; a head_dim that ``kernel``
     takes with these dtypes (a tensor-core kernel: ``SM90_ROUTES``; a SIMT
     kernel: up to 128), in steps of 8 (the wrappers pad the others); dO
@@ -240,11 +249,13 @@ def _check(q, k, v, out_dtype, dout=None, lse=None, delta=None,
         raise ValueError(f"n_heads ({h}) must be divisible by n_kv_heads "
                          f"({k.shape[2]})")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"the flash kernels take fp32 or bf16 q/k/v of one "
-                        f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"the flash kernels take fp32, bf16 or fp16 q/k/v of "
+                        f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if out_dtype not in (q.dtype, torch.float32):
         raise TypeError(f"o/dO must be in q's dtype or fp32; got {out_dtype}")
     if not kernel.endswith("_sm90"):
+        if q.dtype == _FP16:
+            raise ValueError(f"{kernel} (SIMT) takes fp32 or bf16; got fp16")
         if not (0 < d <= SIMT_MAX_HEAD_DIM and d % 8 == 0):
             raise ValueError(f"{kernel} (SIMT) takes head_dim 8..128 in "
                              f"steps of 8; got {d}")
@@ -310,35 +321,82 @@ def _probs_and_ds(q, k, v, dout, lse, delta, scale, causal):
     return qh, kh, p, p * (dp - delta[..., None])
 
 
-def _bf16(x):
-    return x.to(torch.bfloat16).float()
+def _round(x, dtype):
+    """``x`` rounded to nearest ``dtype`` (bf16 or fp16), as fp32."""
+    return x.to(dtype).float()
 
 
-def _bf16_terms(x):
-    """x as the fp32 sum of two bf16 terms, hi = bf16(x) and lo = bf16(x -
-    hi), as the sm90 kernels split an fp32 dO (exact in fp32)."""
-    hi = _bf16(x.float())
-    return hi + _bf16(x.float() - hi)
+def _terms(x, dtype):
+    """fp32 x as the fp32 sum of two terms of ``dtype``, hi = r(x) and lo =
+    r(x - hi), as the sm90 kernels split an fp32 dO (exact in fp32)."""
+    hi = _round(x, dtype)
+    return hi + _round(x - hi, dtype)
+
+
+def dout_scale(dout):
+    """The power of two 2^e by which the sm90 dq and dkv kernels on fp16 q
+    multiply dO (and delta) before they round anything derived from it to
+    fp16: e = -(the exponent of frexp(max |dO|)), so max |dO| 2^e lies in
+    [0.5, 1); e within ±120, and 2^0 for an all-zero or non-finite dO. A
+    0-d fp32 tensor on dO's device (no host sync); exact, and so is its
+    inverse, by which the kernels multiply dq, dk and dv
+    (``csrc/sm90.cuh``, dout_scale)."""
+    return _scale_of(dout_amax(dout))
+
+
+def dout_amax(dout):
+    """dO's largest magnitude as a 0-d fp32 tensor: what the fp16 kernels
+    are given."""
+    return torch.linalg.vector_norm(dout, float("inf"), dtype=torch.float32)
+
+
+def _scale_of(amax):
+    _, e = torch.frexp(amax)
+    e = torch.where(torch.isfinite(amax) & (amax > 0), e.clamp(-120, 120),
+                    torch.zeros_like(e))
+    return ((127 - e) << 23).view(torch.float32)
+
+
+def _operand_dtype(q):
+    """The 2-byte type the sm90 kernels round their operands to for q:
+    fp16 for fp16 q, else bf16 (also what the plain versions' rounding
+    flags mean on fp32 inputs)."""
+    return torch.float16 if q.dtype == torch.float16 else torch.bfloat16
+
+
+def _scaled_dout(q, dout, delta, rounds):
+    """(dO, delta, 2^e): fp32 dO and delta times the fp16 kernels' scale
+    2^e (``dout_scale``) where they round to fp16, else as they are and
+    2^e = 1."""
+    if rounds and _operand_dtype(q) == torch.float16:
+        s = dout_scale(dout)
+        return dout.float() * s, delta * s, s
+    return dout, delta, 1.0
 
 
 def flash_dq_plain(q, k, v, dout, lse, delta, scale, causal,
                    split_dout=False, round_ds=False):
     """Plain version of ``flash_dq``: dq [B, S, H, D] in q's dtype.
 
-    ``split_dout=True`` takes dO as the sum of two bf16 terms, hi =
-    bf16(dO) and lo = bf16(dO - hi), and ``round_ds=True`` rounds the ds
-    operand of ds k to bf16: both together are the plain version of
-    ``flash_dq_sm90`` with bf16 q, which takes its operands on the tensor
-    cores in bf16 (a bf16 dO is its own hi term, exact; an fp32 dO, the
-    sequence ring's, it splits into the two). Without them every operand
-    stays fp32, as ``_dq_kernel``, ``flash_dq`` and ``flash_dq_sm90`` with
-    fp32 q (3xTF32) take them."""
-    if split_dout:
-        dout = _bf16_terms(dout)
+    ``split_dout=True`` takes dO as the sum of two terms, hi = r(dO) and lo
+    = r(dO - hi), and ``round_ds=True`` rounds the ds operand of ds k, r
+    rounding to fp16 for fp16 q and to bf16 otherwise: both together are
+    the plain version of ``flash_dq_sm90`` with bf16 or fp16 q, which takes
+    its operands on the tensor cores in q's dtype (a dO in q's dtype is its
+    own hi term, exact; an fp32 dO, the sequence ring's, it splits into the
+    two). On fp16 q they also take dO and delta times ``dout_scale(dO)``
+    and dq times its inverse, as the kernel does. Without them every
+    operand stays fp32, as ``_dq_kernel``, ``flash_dq`` and
+    ``flash_dq_sm90`` with fp32 q (3xTF32) take them."""
+    rnd = _operand_dtype(q)
+    split = split_dout and dout.dtype == torch.float32
+    dout, delta, s = _scaled_dout(q, dout, delta, split_dout or round_ds)
+    if split:
+        dout = _terms(dout, rnd)
     _, kh, _, ds = _probs_and_ds(q, k, v, dout, lse, delta, scale, causal)
     if round_ds:
-        ds = _bf16(ds)
-    dq = torch.matmul(ds, kh) * scale
+        ds = _round(ds, rnd)
+    dq = torch.matmul(ds, kh) * scale / s
     return dq.to(q.dtype).transpose(1, 2).contiguous()
 
 
@@ -347,23 +405,29 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
     """Plain version of ``flash_dkv``: dk, dv [B, S, H_kv, D] in k's dtype,
     each K/V head's gradient summed over its query group.
 
-    ``split_dout=True`` takes dO as the sum of two bf16 terms, hi =
-    bf16(dO) and lo = bf16(dO - hi), and ``round_operands=True`` rounds p
-    and ds to bf16 before p^T dO and ds^T q: both together are the plain
-    version of ``flash_dkv_sm90`` with bf16 q, which takes its operands on
-    the tensor cores in bf16 (a bf16 dO is its own hi term, exact; an fp32
-    dO, the sequence ring's, it splits into the two). Without them every
-    operand stays fp32, as ``_dkv_kernel``, ``flash_dkv`` and
-    ``flash_dkv_sm90`` with fp32 q (3xTF32) take them."""
+    ``split_dout=True`` takes dO as the sum of two terms, hi = r(dO) and lo
+    = r(dO - hi), and ``round_operands=True`` rounds p and ds before p^T dO
+    and ds^T q, r rounding to fp16 for fp16 q and to bf16 otherwise: both
+    together are the plain version of ``flash_dkv_sm90`` with bf16 or fp16
+    q, which takes its operands on the tensor cores in q's dtype (a dO in
+    q's dtype is its own hi term, exact; an fp32 dO, the sequence ring's, it
+    splits into the two). On fp16 q they also take dO and delta times
+    ``dout_scale(dO)`` and dk, dv times its inverse, as the kernel does.
+    Without them every operand stays fp32, as ``_dkv_kernel``,
+    ``flash_dkv`` and ``flash_dkv_sm90`` with fp32 q (3xTF32) take them."""
     b, s, h, d = q.shape
     h_kv = k.shape[2]
-    if split_dout:
-        dout = _bf16_terms(dout)
+    rnd = _operand_dtype(q)
+    split = split_dout and dout.dtype == torch.float32
+    dout, delta, sc = _scaled_dout(q, dout, delta,
+                                   split_dout or round_operands)
+    if split:
+        dout = _terms(dout, rnd)
     qh, _, p, ds = _probs_and_ds(q, k, v, dout, lse, delta, scale, causal)
     if round_operands:
-        p, ds = _bf16(p), _bf16(ds)
-    dv = torch.matmul(p.transpose(-1, -2), _bhsd(dout))
-    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+        p, ds = _round(p, rnd), _round(ds, rnd)
+    dv = torch.matmul(p.transpose(-1, -2), _bhsd(dout)) / sc
+    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale / sc
 
     def per_kv_head(x, dtype):
         x = x.reshape(b, h_kv, h // h_kv, s, d).sum(dim=2)
@@ -378,14 +442,16 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
 
 # what each tensor-core kernel takes: {(q's dtype, o's or dO's dtype): the
 # head_dims the kernels see, in steps of 8; every head_dim up to the last
-# reaches them zero-padded (padded_head_dim)}. Off these routes: fp16, and
-# head_dims above 256 (ROADMAP).
-HEAD_DIMS = tuple(range(8, 129, 8))         # 1-4 fp32 or 1-2 bf16 panels
+# reaches them zero-padded (padded_head_dim)}. Off these routes: head_dims
+# above 256 (ROADMAP).
+HEAD_DIMS = tuple(range(8, 129, 8))         # 1-4 fp32 or 1-2 2-byte panels
 WIDE_HEAD_DIMS = tuple(range(136, 257, 8))  # padded widths 192 and 256
 SIMT_MAX_HEAD_DIM = 128
-_BF16, _FP32 = torch.bfloat16, torch.float32
+_BF16, _FP16, _FP32 = torch.bfloat16, torch.float16, torch.float32
 SM90_ROUTES = {base: {(_BF16, _BF16): HEAD_DIMS + WIDE_HEAD_DIMS,
                       (_BF16, _FP32): HEAD_DIMS + WIDE_HEAD_DIMS,
+                      (_FP16, _FP16): HEAD_DIMS + WIDE_HEAD_DIMS,
+                      (_FP16, _FP32): HEAD_DIMS + WIDE_HEAD_DIMS,
                       (_FP32, _FP32): HEAD_DIMS + WIDE_HEAD_DIMS}
                for base in ("flash_fwd", "flash_dq", "flash_dkv")}
 
@@ -422,10 +488,12 @@ def sm90_takes(dtype, head_dim, out_dtype=None) -> bool:
 
 def _refusal(name, dtype, out_dtype, d) -> str:
     short = lambda t: str(t).split(".")[-1]
-    return (f"{name} takes bfloat16 q with head_dim 1..{WIDE_HEAD_DIMS[-1]} "
-            f"(o/dO bfloat16 or float32) and float32 q with head_dim "
-            f"1..{WIDE_HEAD_DIMS[-1]} (o/dO float32); got {short(dtype)} q "
-            f"with {short(out_dtype)} o/dO, head_dim {d}")
+    top = WIDE_HEAD_DIMS[-1]
+    return (f"{name} takes bfloat16 q with head_dim 1..{top} (o/dO bfloat16 "
+            f"or float32), float16 q with head_dim 1..{top} (o/dO float16 "
+            f"or float32) and float32 q with head_dim 1..{top} (o/dO "
+            f"float32); got {short(dtype)} q with {short(out_dtype)} o/dO, "
+            f"head_dim {d}")
 
 
 def _kernel(base, q, variant, out_dtype=None):
@@ -445,13 +513,24 @@ def _kernel(base, q, variant, out_dtype=None):
     return base if variant == "simt" else base + "_sm90"
 
 
-def _bf16_operands(name, q, out_dtype):
+def _rounds_operands(name, q, out_dtype):
     """Whether the plain version of ``name`` rounds its operands as the
-    tensor-core kernel does with bf16 q (dO as two bf16 terms, ds and p in
-    bf16): only on a route that kernel takes."""
-    return (name.endswith("_sm90") and q.dtype == torch.bfloat16
+    tensor-core kernel does with bf16 or fp16 q (an fp32 dO as two terms of
+    q's dtype, ds and p in q's dtype; on fp16 with dO's scale): only on a
+    route that kernel takes."""
+    return (name.endswith("_sm90") and q.dtype in (_BF16, _FP16)
             and _variant(name[:-len("_sm90")], q.dtype, q.shape[-1],
                          out_dtype) == "sm90")
+
+
+def _amax_arg(name, q, dout, given):
+    """The dO magnitude an sm90 dq or dkv kernel on fp16 q reads (the
+    caller's, or dO's own), as a contiguous fp32 device scalar; None for
+    every other kernel."""
+    if not name.endswith("_sm90") or q.dtype != _FP16:
+        return None
+    amax = dout_amax(dout) if given is None else given
+    return amax.reshape(()).to(device=q.device, dtype=torch.float32)
 
 
 def flash_fwd(q, k, v, scale, causal, out_dtype, variant=None):
@@ -472,49 +551,59 @@ def flash_fwd(q, k, v, scale, causal, out_dtype, variant=None):
     return o, lse
 
 
-def flash_dq(q, k, v, dout, lse, delta, scale, causal, variant=None):
+def flash_dq(q, k, v, dout, lse, delta, scale, causal, variant=None,
+             dout_amax=None):
     """Query gradient: dq [B, S, H, D] in q's dtype. On the sm90 route with
-    bf16 q, ds is rounded to bf16 before ds k and the kernel splits an fp32
-    dO into two bf16 terms (see ``flash_dq_plain``); with fp32 q every
-    operand stays fp32 (3xTF32)."""
+    bf16 or fp16 q, ds is rounded to q's dtype before ds k and the kernel
+    splits an fp32 dO into two terms of q's dtype; on fp16 it scales dO by
+    ``dout_scale`` first (see ``flash_dq_plain``). ``dout_amax``: dO's
+    largest magnitude where the caller has it (``flash_dkv`` reads the
+    same), else it is taken here. With fp32 q every operand stays fp32
+    (3xTF32)."""
     name = _kernel("flash_dq", q, variant, dout.dtype)
-    bf16_operands = _bf16_operands(name, q, dout.dtype)
+    rounds = _rounds_operands(name, q, dout.dtype)
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, dout, lse, delta, scale, causal,
-                              split_dout=bf16_operands,
-                              round_ds=bf16_operands)
+                              split_dout=rounds, round_ds=rounds)
     d, dp = q.shape[-1], padded_head_dim(q.shape[-1])
     if d != dp:
         padded = (pad_head_dim(t, dp) for t in (q, k, v, dout))
-        return flash_dq(*padded, lse, delta, scale, causal,
-                        variant)[..., :d].contiguous()
+        return flash_dq(*padded, lse, delta, scale, causal, variant,
+                        dout_amax)[..., :d].contiguous()
     _check(q, k, v, dout.dtype, dout, lse, delta, kernel=name)
     dq = torch.empty_like(q)
-    _run(name, (q, k, v, dout, lse, delta, dq), q, k, scale, causal,
-         dout.dtype)
+    tensors = (q, k, v, dout, lse, delta)
+    if name.endswith("_sm90"):
+        tensors += (_amax_arg(name, q, dout, dout_amax),)
+    _run(name, tensors + (dq,), q, k, scale, causal, dout.dtype)
     return dq
 
 
-def flash_dkv(q, k, v, dout, lse, delta, scale, causal, variant=None):
+def flash_dkv(q, k, v, dout, lse, delta, scale, causal, variant=None,
+              dout_amax=None):
     """Key and value gradients: dk, dv [B, S, H_kv, D] in k's dtype. On the
-    sm90 route with bf16 q, p and ds are rounded to bf16 before their
-    products and the kernel splits an fp32 dO into two bf16 terms (see
-    ``flash_dkv_plain``); with fp32 q every operand stays fp32 (3xTF32)."""
+    sm90 route with bf16 or fp16 q, p and ds are rounded to q's dtype before
+    their products and the kernel splits an fp32 dO into two terms of q's
+    dtype; on fp16 it scales dO by ``dout_scale`` first (see
+    ``flash_dkv_plain``). ``dout_amax`` as for ``flash_dq``. With fp32 q
+    every operand stays fp32 (3xTF32)."""
     name = _kernel("flash_dkv", q, variant, dout.dtype)
-    bf16_operands = _bf16_operands(name, q, dout.dtype)
+    rounds = _rounds_operands(name, q, dout.dtype)
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
-                               split_dout=bf16_operands,
-                               round_operands=bf16_operands)
+                               split_dout=rounds, round_operands=rounds)
     d, dp = q.shape[-1], padded_head_dim(q.shape[-1])
     if d != dp:
         padded = (pad_head_dim(t, dp) for t in (q, k, v, dout))
-        dk, dv = flash_dkv(*padded, lse, delta, scale, causal, variant)
+        dk, dv = flash_dkv(*padded, lse, delta, scale, causal, variant,
+                           dout_amax)
         return dk[..., :d].contiguous(), dv[..., :d].contiguous()
     _check(q, k, v, dout.dtype, dout, lse, delta, kernel=name)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _run(name, (q, k, v, dout, lse, delta, dk, dv), q, k, scale, causal,
-         dout.dtype)
+    tensors = (q, k, v, dout, lse, delta)
+    if name.endswith("_sm90"):
+        tensors += (_amax_arg(name, q, dout, dout_amax),)
+    _run(name, tensors + (dk, dv), q, k, scale, causal, dout.dtype)
     return dk, dv
 
 
@@ -522,13 +611,14 @@ def wgmma_probe(a, b):
     """One 64 x 64 x 64 product on the tensor cores through the building
     blocks of the sm90 kernels (TMA, wgmma descriptors, the register A
     operand) for [64, 64] CUDA tensors a, b of one dtype: returns
-    (a @ b^T, r(a @ b^T) @ b) in fp32, where r rounds to bf16 for bf16
-    inputs and is the identity for fp32 ones, whose products run as 3xTF32
-    (split, transposed B tile, hi and lo register operands). A check for
-    the card tests; not on any path."""
+    (a @ b^T, r(a @ b^T) @ b) in fp32, where r rounds to bf16 or fp16 for
+    bf16 or fp16 inputs (wgmma's .bf16 or .f16 operands) and is the
+    identity for fp32 ones, whose products run as 3xTF32 (split, transposed
+    B tile, hi and lo register operands). A check for the card tests; not
+    on any path."""
     if a.shape != (64, 64) or b.shape != (64, 64) or a.device.type != "cuda" \
             or a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
-        raise ValueError("wgmma_probe takes bf16 or fp32 [64, 64] CUDA "
+        raise ValueError("wgmma_probe takes bf16, fp16 or fp32 [64, 64] CUDA "
                          "tensors of one dtype")
     a, b = a.contiguous(), b.contiguous()
     c1 = torch.empty((64, 64), dtype=torch.float32, device=a.device)

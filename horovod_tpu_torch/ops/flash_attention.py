@@ -38,9 +38,10 @@ def resolve_flash(use_flash, local_seq, dtype, head_dim,
     ``local_seq`` positions of q in ``dtype`` with ``head_dim``, o in
     ``out_dtype`` (default q's): "auto" is True above
     ``FLASH_AUTO_THRESHOLD`` where all three kernels take the shape
-    (``_kernels.sm90_takes``: bf16 q at head_dim 1..256 with a bf16 or
-    fp32 o, fp32 at 1..256), else the einsum path; True stays True, and the
-    kernels then raise on a CUDA tensor whose shape they do not take."""
+    (``_kernels.sm90_takes``: bf16 or fp16 q at head_dim 1..256 with an o
+    in q's dtype or fp32, fp32 at 1..256), else the einsum path; True stays
+    True, and the kernels then raise on a CUDA tensor whose shape they do
+    not take."""
     if isinstance(use_flash, str):
         if use_flash != "auto":
             raise ValueError(
@@ -78,9 +79,12 @@ class _FlashAttention(torch.autograd.Function):
         if dlse is not None:
             delta = delta - dlse.float()
         delta = delta.contiguous()                         # [B, H, S]
-        dq = _kernels.flash_dq(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
+        # fp16: dO's largest magnitude, which both kernels scale dO by
+        amax = _kernels.dout_amax(do) if q.dtype == torch.float16 else None
+        dq = _kernels.flash_dq(q, k, v, do, lse, delta, ctx.scale, ctx.causal,
+                               dout_amax=amax)
         dk, dv = _kernels.flash_dkv(q, k, v, do, lse, delta, ctx.scale,
-                                    ctx.causal)
+                                    ctx.causal, dout_amax=amax)
         return dq[..., :d], dk[..., :d], dv[..., :d], None, None, None
 
 

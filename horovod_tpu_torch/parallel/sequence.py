@@ -140,7 +140,8 @@ def ring_attention_shard(q, k, v, *, process_set, causal=True, scale=None,
     travel once around the ring, stacked in one buffer of ``n_kv_heads``
     heads (n - 1 shifts). ``use_flash`` runs each block through the flash
     kernels; ``"auto"`` resolves by the shard length, and by what the
-    kernels take with an fp32 o (bf16 and fp32 q at head_dim 1..256).
+    kernels take with an fp32 o (bf16, fp16 and fp32 q at head_dim
+    1..256).
     Causal masks use
     global positions. Returns ``[batch, seq_shard, heads, head_dim]`` in
     q's dtype.

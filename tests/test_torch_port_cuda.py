@@ -9,11 +9,13 @@ repo's conftest imports JAX, so on such a machine run it as
 
 Tolerances: fp32 1e-5 (the same fp32 arithmetic summed in another order;
 the sm90 kernels take fp32 as 3xTF32, within about 2^-21 of fp32
-products); bf16 2e-2, about two bf16 ulps at the outputs' magnitude. The
-sm90 kernels on bf16 are held to the plain versions that round their
-operands where the tensor cores take them in bf16: dkv's p and ds
+products); bf16 2e-2, about two bf16 ulps at the outputs' magnitude; fp16
+5e-3, about five fp16 ulps (fp16 keeps 3 bits more than bf16). The sm90
+kernels on bf16 and fp16 are held to the plain versions that round their
+operands where the tensor cores take them in q's dtype: dkv's p and ds
 (``round_operands=True``), dq's ds (``round_ds=True``), each with an fp32
-dO carried as two bf16 terms (``split_dout=True``).
+dO carried as two terms (``split_dout=True``), and on fp16 with dO's scale
+(``_kernels.dout_scale``).
 """
 
 import numpy as np
@@ -24,7 +26,7 @@ from horovod_tpu_torch.ops import _kernels
 from horovod_tpu_torch.ops.flash_attention import (flash_attention_reference,
                                                    flash_attention_with_lse)
 
-TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 5e-3}
 # no wire codec kernel runs where no lossy wire codec is set
 NO_CODEC = {k: 0 for k in _kernels.CODEC_KERNELS}
 
@@ -74,11 +76,32 @@ WIDE_CASES = [
     (1, 200, 2, 2, 200, torch.float32, True, torch.float32),     # to 256
     (2, 130, 4, 2, 136, torch.float32, True, torch.float32),     # to 192
 ]
+# fp16 q, which only the tensor-core kernels take: every padded width (64,
+# 128, 192, 256), D fixed and at run time, with o and dO in fp16 or in fp32
+# (the sequence ring's)
+F16 = torch.float16
+FP16_CASES = [
+    (2, 256, 4, 4, 64, F16, False, F16),
+    (2, 100, 4, 2, 32, F16, True, F16),        # ragged, GQA, padded to 64
+    (1, 300, 4, 1, 128, F16, True, F16),       # MQA, D 128
+    (1, 300, 8, 2, 96, F16, True, F16),        # GQA, padded to 128
+    (1, 300, 8, 2, 100, F16, False, F16),      # to 104, padded to 128
+    (2, 300, 4, 1, 256, F16, True, F16),       # MQA
+    (2, 256, 3, 3, 192, F16, False, F16),
+    (1, 200, 2, 2, 200, F16, True, F16),       # to 256
+    (2, 130, 4, 2, 136, F16, True, F16),       # to 192
+    (2, 192, 4, 2, 64, F16, True, torch.float32),
+    (2, 256, 4, 2, 96, F16, True, torch.float32),
+    (2, 300, 4, 1, 256, F16, True, torch.float32),
+    (2, 256, 3, 3, 192, F16, False, torch.float32),
+    (1, 200, 8, 1, 250, F16, True, torch.float32),   # to 256
+    (2, 130, 4, 2, 136, F16, True, torch.float32),   # to 192
+]
 # every case on the SIMT kernels, and on each kernel's own route (None:
 # _variant's choice) where that reaches a tensor-core kernel; the wide heads
-# on their route only
+# and fp16 on their route only
 VARIANT_CASES = [(c, "simt") for c in CASES] + [
-    (c, None) for c in CASES + WIDE_CASES
+    (c, None) for c in CASES + WIDE_CASES + FP16_CASES
     if any(_kernels._variant(base, c[5], c[4], c[7]) == "sm90"
            for base in ("flash_fwd", "flash_dq", "flash_dkv"))]
 
@@ -119,20 +142,20 @@ def test_kernels_match_plain_versions(cuda, case, variant):
     torch.testing.assert_close(lse, rl, rtol=1e-5, atol=1e-5)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse, delta, scale, causal)
-    bf16 = q.dtype == torch.bfloat16
+    two_byte = q.dtype in (torch.bfloat16, torch.float16)
     dq = _kernels.flash_dq(*args, variant=variant)
     assert dq.dtype == q.dtype
-    dq_bf16 = bf16 and names["flash_dq"].endswith("_sm90")
+    dq_rounds = two_byte and names["flash_dq"].endswith("_sm90")
     torch.testing.assert_close(
         dq.float(),
-        _kernels.flash_dq_plain(*args, split_dout=dq_bf16,
-                                round_ds=dq_bf16).float(),
+        _kernels.flash_dq_plain(*args, split_dout=dq_rounds,
+                                round_ds=dq_rounds).float(),
         rtol=tol, atol=tol)
-    dkv_bf16 = bf16 and names["flash_dkv"].endswith("_sm90")
+    dkv_rounds = two_byte and names["flash_dkv"].endswith("_sm90")
     for got, want in zip(_kernels.flash_dkv(*args, variant=variant),
                          _kernels.flash_dkv_plain(
-                             *args, split_dout=dkv_bf16,
-                             round_operands=dkv_bf16)):
+                             *args, split_dout=dkv_rounds,
+                             round_operands=dkv_rounds)):
         assert got.shape == k.shape and got.dtype == k.dtype
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
@@ -142,20 +165,21 @@ def test_kernels_match_plain_versions(cuda, case, variant):
         want_launches
 
 
-# bf16 q with an fp32 o, and so an fp32 dO: the sequence ring's blocks
-FP32_DOUT_CASES = [c for c in CASES + WIDE_CASES
-                   if c[5] == torch.bfloat16 and c[7] == torch.float32]
+# bf16 or fp16 q with an fp32 o, and so an fp32 dO: the sequence ring's
+# blocks
+FP32_DOUT_CASES = [c for c in CASES + WIDE_CASES + FP16_CASES
+                   if c[5] in (torch.bfloat16, F16) and c[7] == torch.float32]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FP32_DOUT_CASES,
                          ids=lambda c: "-".join(map(str, c[:7])))
 def test_dq_with_fp32_dout_keeps_its_lo_term(cuda, case):
-    """flash_dq_sm90 with bf16 q splits an fp32 dO into two bf16 terms. A
-    kernel that dropped the lo term would still pass the kernels test's
-    2e-2, so its dq must lie nearer the plain version that takes both terms
-    than the one that rounds dO to one: at most half as far, in the
-    Frobenius norm."""
+    """flash_dq_sm90 with bf16 or fp16 q splits an fp32 dO into two terms
+    of q's dtype. A kernel that dropped the lo term would still pass the
+    kernels test's tolerance, so its dq must lie nearer the plain version
+    that takes both terms than the one that rounds dO to one: at most half
+    as far, in the Frobenius norm."""
     q, k, v, do = _inputs(case, cuda)
     causal = case[6]
     scale = q.shape[-1] ** -0.5
@@ -165,7 +189,7 @@ def test_dq_with_fp32_dout_keeps_its_lo_term(cuda, case):
     assert _kernels._kernel("flash_dq", q, None) == "flash_dq_sm90"
     dq = _kernels.flash_dq(*args).float()
     two = _kernels.flash_dq_plain(*args, split_dout=True, round_ds=True)
-    one = _kernels.flash_dq_plain(q, k, v, do.to(torch.bfloat16), lse, delta,
+    one = _kernels.flash_dq_plain(q, k, v, do.to(q.dtype), lse, delta,
                                   scale, causal, round_ds=True)
     near = float((dq - two.float()).norm())
     far = float((dq - one.float()).norm())
@@ -178,11 +202,12 @@ def test_dq_with_fp32_dout_keeps_its_lo_term(cuda, case):
 @pytest.mark.parametrize("case", FP32_DOUT_CASES,
                          ids=lambda c: "-".join(map(str, c[:7])))
 def test_dkv_with_fp32_dout_keeps_its_lo_term(cuda, case):
-    """flash_dkv_sm90 with bf16 q splits an fp32 dO into two bf16 terms for
-    both products that read it (dP^T and dV). A kernel that dropped the lo
-    term would still pass the kernels test's 2e-2, so its dk and dv must
-    each lie nearer the plain version that takes both terms than the one
-    that rounds dO to one: at most half as far, in the Frobenius norm."""
+    """flash_dkv_sm90 with bf16 or fp16 q splits an fp32 dO into two terms
+    of q's dtype for both products that read it (dP^T and dV). A kernel
+    that dropped the lo term would still pass the kernels test's
+    tolerance, so its dk and dv must each lie nearer the plain version that
+    takes both terms than the one that rounds dO to one: at most half as
+    far, in the Frobenius norm."""
     q, k, v, do = _inputs(case, cuda)
     causal = case[6]
     scale = q.shape[-1] ** -0.5
@@ -193,7 +218,7 @@ def test_dkv_with_fp32_dout_keeps_its_lo_term(cuda, case):
     got = _kernels.flash_dkv(*args)
     two = _kernels.flash_dkv_plain(*args, split_dout=True,
                                    round_operands=True)
-    one = _kernels.flash_dkv_plain(q, k, v, do.to(torch.bfloat16), lse,
+    one = _kernels.flash_dkv_plain(q, k, v, do.to(q.dtype), lse,
                                    delta, scale, causal, round_operands=True)
     for name, g, t, o1 in zip(("dk", "dv"), got, two, one):
         near = float((g.float() - t.float()).norm())
@@ -201,6 +226,53 @@ def test_dkv_with_fp32_dout_keeps_its_lo_term(cuda, case):
         print(f"{name} with fp32 dO {case[:7]}: {near:.4g} from two terms, "
               f"{far:.4g} from one")
         assert near < 0.5 * far, name
+
+
+# dO scaled by these: the ring's blocks with fp16 q and an fp32 dO
+DOUT_MAGNITUDES = (2.0 ** -20, 1.0, 2.0 ** 12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in FP16_CASES
+                                  if c[7] == torch.float32],
+                         ids=lambda c: "-".join(map(str, c[:7])))
+def test_fp16_ring_blocks_keep_their_precision_at_any_dout_magnitude(cuda,
+                                                                     case):
+    """fp16 q with an fp32 dO (the sequence ring's blocks) at dO times
+    2^-20, 1 and 2^12: dq, dk and dv against the plain version that keeps
+    every operand fp32. The kernels scale dO by a power of two from its
+    largest magnitude before they round anything derived from it to fp16,
+    so each output's error relative to its largest magnitude stays within
+    twice its error at magnitude 1, plus one step of fp16's subnormal grid
+    (2^-24) relative to that magnitude: the fp16 output's own resolution,
+    which the plain version's fp16 output has too (at 2^-20 a gradient of
+    these inputs is a few such steps). Nothing is inf or NaN where the plain
+    version's output is finite."""
+    q, k, v, do = _inputs(case, cuda)
+    causal = case[6]
+    scale = q.shape[-1] ** -0.5
+    o, lse = _kernels.flash_fwd_plain(q, k, v, scale, causal, torch.float32)
+    errs = {}
+    for m in DOUT_MAGNITUDES:
+        dom = do * m
+        delta = (dom * o).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, dom, lse, delta, scale, causal)
+        got = dict(zip(("dq", "dk", "dv"),
+                       (_kernels.flash_dq(*args), *_kernels.flash_dkv(*args))))
+        want = dict(zip(("dq", "dk", "dv"),
+                        (_kernels.flash_dq_plain(*args),
+                         *_kernels.flash_dkv_plain(*args))))
+        for n in got:
+            g, w = got[n].float(), want[n].float()
+            fin = torch.isfinite(w)
+            assert bool(torch.isfinite(g[fin]).all()), (m, n)
+            top = float(w[fin].abs().max())
+            errs[m, n] = (float((g - w)[fin].abs().max()) / top,
+                          2.0 ** -24 / top)
+    for (m, n), (err, floor) in errs.items():
+        print(f"fp16 ring {case[:7]} {n} at dO x {m:g}: {err:.3g} of its "
+              f"largest magnitude (floor {floor:.3g})")
+        assert err <= 2 * errs[1.0, n][0] + floor, (m, n, err)
 
 
 @pytest.mark.cuda
@@ -217,6 +289,24 @@ def test_single_wgmma_product_matches_matmul(cuda):
                                atol=1e-4)
     torch.testing.assert_close(c2, c1.to(torch.bfloat16).float() @ b.float(),
                                rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_single_fp16_wgmma_product_matches_matmul(cuda):
+    """The same building blocks with fp16 operands (wgmma's .f16, the TMA
+    map's FLOAT16 type, the accumulator packed to fp16 pairs as the register
+    A operand): fp16 products are exact in fp32, so only the order of the
+    fp32 sums differs, and c1's fp16 rounding may land one fp16 ulp from a
+    reference summed in another order."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a, b = (torch.randn(64, 64, generator=gen, device=cuda)
+            .to(torch.float16) for _ in range(2))
+    c1, c2 = _kernels.wgmma_probe(a, b)
+    torch.testing.assert_close(c1, a.float() @ b.float().T, rtol=1e-5,
+                               atol=1e-4)
+    torch.testing.assert_close(c2, c1.to(torch.float16).float() @ b.float(),
+                               rtol=1e-5, atol=2e-3)
+    assert not torch.equal(c2, c1.to(torch.bfloat16).float() @ b.float())
 
 
 @pytest.mark.cuda
@@ -246,6 +336,7 @@ def test_wide_wgmma_products_match_matmul(cuda, n):
     (1, 64, 2, 1, 264, torch.bfloat16, True, torch.bfloat16),    # past 256
     (1, 64, 2, 1, 264, torch.float32, True, torch.float32),      # past 256
     (1, 64, 2, 1, 256, torch.bfloat16, True, torch.float32),     # fp32 o
+    (1, 64, 2, 1, 264, F16, True, F16),                          # past 256
 ], ids=lambda c: "-".join(map(str, c[4:6] + c[7:])))
 def test_no_quiet_fallback_at_shapes_a_kernel_refuses(cuda, case):
     """use_flash=True at a shape no tensor-core kernel takes raises on the
@@ -389,12 +480,12 @@ def test_wire_codec_kernels_match_plain_versions_bit_for_bit(cuda, codec):
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
     """What the tensor-core kernels still refuse raises ValueError naming
-    the routes, before any launch: fp16, and head_dims above 256 (bf16 o or
-    the ring's fp32 one, and fp32)."""
+    the routes, before any launch: head_dims above 256 (bf16 and fp16 q with
+    an o in q's dtype or the ring's fp32 one, and fp32)."""
     before = dict(_kernels.LAUNCHES)
     for d, dtype, out_dtype in ((264, torch.float32, torch.float32),
-                                (100, torch.float16, torch.float16),
-                                (16, torch.float16, torch.float16),
+                                (264, torch.float16, torch.float16),
+                                (264, torch.float16, torch.float32),
                                 (264, torch.bfloat16, torch.bfloat16),
                                 (264, torch.bfloat16, torch.float32)):
         q = torch.zeros(1, 16, 2, d, device=cuda, dtype=dtype)

@@ -6,7 +6,9 @@ Tolerances: fp32 1e-5 forward and 1e-4 gradients, as
 tests/test_flash_attention.py holds the Pallas kernels to a dense reference
 (the two sides sum in different orders); bf16 5e-2, about six bf16 ulps at
 the outputs' magnitude, because the two sides round p and o at different
-points.
+points; fp16 1e-2 relative to each output's largest magnitude (fp16's ulp
+is 8x finer than bf16's; the sides round p, o and, on the port's side, ds
+and p before the backward products at different points).
 """
 
 import jax
@@ -23,7 +25,7 @@ from horovod_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_attention_with_lse,
                                                    resolve_flash)
 
-FP32_FWD, FP32_GRAD, BF16 = 1e-5, 1e-4, 5e-2
+FP32_FWD, FP32_GRAD, BF16, FP16 = 1e-5, 1e-4, 5e-2, 1e-2
 
 
 def _inputs(b, s, h, h_kv, d, seed=0):
@@ -86,6 +88,41 @@ def test_bf16_forward_matches_jax():
                                rtol=BF16, atol=BF16)
 
 
+@pytest.mark.parametrize("causal,h,h_kv", [
+    (True, 4, 4),       # causal
+    (False, 4, 2),      # GQA, non-causal
+    (True, 4, 1),       # GQA (one K/V head), causal
+])
+def test_fp16_outputs_and_grads_match_jax(causal, h, h_kv):
+    """fp16 q/k/v at head_dim 32: o, lse and the gradients through both
+    against the JAX package's flash attention in fp16 (Pallas interpret
+    mode), each within FP16 of its largest magnitude. On the CPU the port
+    runs the plain versions of the sm90 kernels with their fp16 operands:
+    ds and p rounded to fp16 after dO is scaled by dout_scale."""
+    q, k, v, w = _inputs(2, 128, h, h_kv, 32, seed=7)
+    to_j = lambda x: jnp.asarray(x, jnp.float16)
+    f16 = lambda x: torch.tensor(x).to(torch.float16)
+    qj, kj, vj = to_j(q), to_j(k), to_j(v)
+    o_j, lse_j = jax_flash(qj, kj, vj, causal=causal, block_q=32,
+                           block_k=32)
+    g_j = jax.grad(_loss_jax, argnums=(0, 1, 2))(qj, kj, vj, w, causal, 32)
+
+    qt, kt, vt = (f16(x).requires_grad_() for x in (q, k, v))
+    o_t, lse_t = flash_attention_with_lse(qt, kt, vt, causal=causal)
+    assert o_t.dtype == torch.float16 and lse_t.dtype == torch.float32
+    g_t = torch.autograd.grad(_loss_torch(qt, kt, vt, torch.tensor(w),
+                                          causal), (qt, kt, vt))
+    for name, got, want in [("o", o_t.detach(), o_j), ("lse", lse_t.detach(),
+                                                       lse_j)] + list(
+            zip(("dq", "dk", "dv"), g_t, g_j)):
+        want = np.asarray(want.astype(jnp.float32))
+        if name not in ("o", "lse"):
+            assert got.dtype == torch.float16, name
+        top = float(np.abs(want).max())
+        np.testing.assert_allclose(got.float().numpy() / top, want / top,
+                                   rtol=FP16, atol=FP16, err_msg=name)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_kernels_match_autograd_of_reference(causal):
     """The plain versions of the three kernels (what the CPU path runs)
@@ -129,7 +166,7 @@ def test_contract_errors_and_auto_policy():
     (dict(q=(1, 16, 2, 264), k=(1, 16, 2, 264)), ValueError, "head_dim"),
     (dict(k=(1, 16, 3, 16)), ValueError, "divisible"),
     (dict(k=(1, 8, 2, 16)), ValueError, "does not match"),
-    (dict(dtype=torch.float16), TypeError, "fp32 or bf16"),
+    (dict(dtype=torch.float64), TypeError, "fp32, bf16 or fp16"),
     (dict(out_dtype=torch.float16), TypeError, "o/dO"),
     (dict(dout=(1, 16, 2, 8)), ValueError, "dO"),
     (dict(lse=(1, 16, 2)), ValueError, "lse"),

@@ -217,6 +217,79 @@ def test_ring_route_dkv_carries_fp32_dout_as_two_terms(causal):
         assert (t - w).abs().max() < (o1 - w).abs().max(), name
 
 
+def _fp16_ring_grads(q, k, v, do, m, rounds):
+    """dq, dk, dv (fp32) of the plain versions at an fp16 ring block with
+    the fp32 dO times ``m``: with the kernels' fp16 operands (``rounds``) or
+    every operand fp32."""
+    scale = q.shape[-1] ** -0.5
+    o, lse = _kernels.flash_fwd_plain(q, k, v, scale, True, torch.float32)
+    dom = do * m
+    delta = (dom * o).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, dom, lse, delta, scale, True)
+    dq = _kernels.flash_dq_plain(*args, split_dout=rounds, round_ds=rounds)
+    dk, dv = _kernels.flash_dkv_plain(*args, split_dout=rounds,
+                                      round_operands=rounds)
+    return [t.float() for t in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("m", [2.0 ** -20, 1.0, 2.0 ** 12])
+def test_fp16_split_of_fp32_dout_keeps_its_precision_at_any_magnitude(m):
+    """fp16 q with the ring's fp32 dO, dO times 2^-20, 1 and 2^12: the plain
+    versions of flash_dq_sm90 and flash_dkv_sm90 take dO times
+    dout_scale(dO), the power of two that brings its largest magnitude
+    into [0.5, 1), and split that into two fp16 terms. The scale follows
+    the magnitude exactly, so the two terms are the same bits at every
+    magnitude and carry the scaled dO within 2^-22 of its largest
+    magnitude; unscaled, at 2^-20 they would lose dO's low bits to fp16's
+    subnormals. dq, dk and dv then stay within twice their error at
+    magnitude 1 against the fp32-operand plain version, relative to each
+    output's largest magnitude, plus one step of fp16's subnormal grid
+    (2^-24) relative to it: the fp16 output's own resolution."""
+    q, k, v = (torch.tensor(x).to(torch.float16)
+               for x in _inputs(1, 64, 4, 2, 32, seed=12)[:3])
+    do = torch.tensor(_inputs(1, 64, 4, 2, 32, seed=13)[3])
+    f16 = torch.float16
+    s1, sm = _kernels.dout_scale(do), _kernels.dout_scale(do * m)
+    top = float(do.abs().max()) * m
+    assert 0.5 <= top * float(sm) < 1 and float(sm) * m == float(s1)
+    terms = _kernels._terms(do * m * sm, f16)
+    assert torch.equal(terms, _kernels._terms(do * s1, f16))
+    assert float((terms - do * m * sm).abs().max()) <= 2.0 ** -22
+    if m < 1:
+        unscaled = _kernels._terms(do * m, f16)
+        assert float((unscaled - do * m).abs().max()) / top > 2.0 ** -14
+    for n, got, want, got1, want1 in zip(
+            ("dq", "dk", "dv"), _fp16_ring_grads(q, k, v, do, m, True),
+            _fp16_ring_grads(q, k, v, do, m, False),
+            _fp16_ring_grads(q, k, v, do, 1.0, True),
+            _fp16_ring_grads(q, k, v, do, 1.0, False)):
+        assert bool(torch.isfinite(got).all()), n
+        largest = float(want.abs().max())
+        err = float((got - want).abs().max()) / largest
+        err1 = float((got1 - want1).abs().max()) / float(want1.abs().max())
+        assert err <= 2 * err1 + 2.0 ** -24 / largest, (n, err, err1)
+
+
+def test_dout_scale_is_an_exact_power_of_two():
+    """dout_scale: 2^e with max |dO| 2^e in [0.5, 1), e within +-120, and 1
+    for an all-zero or non-finite dO, as the kernels compute it from the
+    magnitude the wrappers pass (dout_amax)."""
+    for top in (1e-5, 0.75, 1.0, 3.0, 65504.0, 2.0 ** -130, 3e38):
+        x = torch.tensor([top, -top / 3], dtype=torch.float32)
+        s = float(_kernels.dout_scale(x))
+        assert s == 2.0 ** round(np.log2(s))
+        if 2.0 ** -120 <= top <= 2.0 ** 120:
+            assert 0.5 <= top * s < 1
+        else:
+            assert s in (2.0 ** 120, 2.0 ** -120)
+    for x in (torch.zeros(4), torch.tensor([1.0, float("inf")]),
+              torch.tensor([float("nan")])):
+        assert float(_kernels.dout_scale(x)) == 1.0
+    half = torch.tensor([[6e-5, -2.0]], dtype=torch.float16)
+    assert float(_kernels.dout_amax(half)) == 2.0
+    assert float(_kernels.dout_scale(half)) == 0.25
+
+
 def test_dq_and_fwd_take_sm90_on_every_route_and_dkv_refuses_it_off_the_grid():
     """flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90 take bf16 and fp32
     at every head_dim 1..256 (off the kernels' grid of 8 zero-padded to it),
@@ -247,14 +320,17 @@ def test_dq_and_fwd_take_sm90_on_every_route_and_dkv_refuses_it_off_the_grid():
 def test_sm90_takes_fp32_and_bf16_up_to_256_and_no_fp16():
     """sm90_takes, which use_flash="auto" asks: fp32 q with an fp32 o at
     every head_dim 1..256 (3xTF32 at padded widths 192 and 256 above 128),
-    not at 264; bf16 q the same with either o; fp16 nowhere."""
+    not at 264; bf16 and fp16 q the same with an o in q's dtype or fp32; no
+    fp16 past 256, and no 2-byte o other than q's."""
     for d in range(1, 257):
         assert _kernels.sm90_takes(torch.float32, d)
-        assert _kernels.sm90_takes(torch.bfloat16, d)
-        assert _kernels.sm90_takes(torch.bfloat16, d, torch.float32)
-    for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.bfloat16, torch.float16):
+            assert _kernels.sm90_takes(dtype, d)
+            assert _kernels.sm90_takes(dtype, d, torch.float32)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         assert not _kernels.sm90_takes(dtype, 264)
-    assert not _kernels.sm90_takes(torch.float16, 64)
+    assert not _kernels.sm90_takes(torch.float16, 264, torch.float32)
+    assert not _kernels.sm90_takes(torch.float16, 64, torch.bfloat16)
     assert not _kernels.sm90_takes(torch.float32, 64, torch.bfloat16)
 
 
@@ -338,7 +414,7 @@ def test_fp32_wide_heads_take_the_sm90_route_with_fp32_operands(d):
     for base in ("flash_fwd", "flash_dq", "flash_dkv"):
         assert _kernels._variant(base, torch.float32, d) == "sm90"
         assert _kernels._kernel(base, q, None) == base + "_sm90"
-    assert not _kernels._bf16_operands("flash_dq_sm90", q, torch.float32)
+    assert not _kernels._rounds_operands("flash_dq_sm90", q, torch.float32)
     o, lse = _kernels.flash_fwd(q, k, v, scale, True, torch.float32)
     for got, want in zip((o, lse), _kernels.flash_fwd_plain(
             q, k, v, scale, True, torch.float32)):
@@ -354,11 +430,11 @@ def test_fp32_wide_heads_take_the_sm90_route_with_fp32_operands(d):
 
 @pytest.mark.parametrize("dtype,d,out_dtype", [
     (torch.float32, 264, None),            # past 256
-    (torch.float16, 64, None),             # fp16
-    (torch.float16, 128, torch.float32),   # fp16 with an fp32 o
+    (torch.float16, 264, None),            # fp16 past 256
+    (torch.float16, 264, torch.float32),   # fp16 with an fp32 o past 256
     (torch.bfloat16, 264, torch.float32),  # the ring's fp32 o past 256
     (torch.bfloat16, 264, None),           # past 256
-    (torch.float16, 100, None),            # fp16
+    (torch.float16, 300, None),            # fp16 past 256
 ])
 def test_shapes_no_kernel_takes_raise_on_a_cuda_tensor(monkeypatch, dtype,
                                                        d, out_dtype):
@@ -378,7 +454,9 @@ def test_shapes_no_kernel_takes_raise_on_a_cuda_tensor(monkeypatch, dtype,
     assert not _kernels.sm90_takes(dtype, d, out_dtype)
     with pytest.raises(ValueError, match=r"flash_fwd_sm90 takes bfloat16 q "
                                          r"with head_dim 1\.\.256 \(o/dO "
-                                         r"bfloat16 or float32\) and float32 "
+                                         r"bfloat16 or float32\), float16 q "
+                                         r"with head_dim 1\.\.256 \(o/dO "
+                                         r"float16 or float32\) and float32 "
                                          r"q with head_dim 1\.\.256"):
         _kernels.flash_fwd(q, q, q, 1.0, True, o_dtype)
     with pytest.raises(ValueError, match="flash_dq_sm90 takes"):
@@ -584,14 +662,14 @@ AUTO = [
     (torch.float32, 128, None, True),
     (torch.bfloat16, 264, None, False),
     (torch.bfloat16, 100, None, True),     # off the 8-grid: padded
-    (torch.float16, 64, None, False),
+    (torch.float16, 64, None, True),       # fp16 (PR 19)
     (torch.float32, 256, None, True),      # fp32 at the wide heads
     (torch.bfloat16, 256, torch.float32, True),  # the ring's at 256
     (torch.float32, 200, None, True),
     (torch.float32, 264, None, False),
-    (torch.float16, 256, None, False),
+    (torch.float16, 256, None, True),      # fp16 at Gemma's head
     (torch.bfloat16, 264, torch.float32, False),
-    (torch.float16, 100, None, False),
+    (torch.float16, 100, None, True),      # fp16 off the 8-grid: padded
     (torch.float32, 4, None, True),
 ]
 
@@ -660,7 +738,7 @@ class _OneMember:
     (torch.bfloat16, 64, True, True),
     (torch.bfloat16, 256, True, True),     # the ring's fp32 o at 256
     (torch.bfloat16, 264, False, False),
-    (torch.float16, 64, False, False),
+    (torch.float16, 64, True, True),       # fp16: the ring's fp32 o too
     (torch.bfloat16, 100, True, True),     # off the 8-grid: padded
     (torch.float32, 200, True, True),      # fp32 at the wide heads
     (torch.float32, 264, False, False),

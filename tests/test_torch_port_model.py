@@ -126,23 +126,12 @@ WIDE = dict(vocab_size=512, n_layers=2, d_model=512, n_heads=2, n_kv_heads=1,
             d_ff=512, max_seq_len=128)
 
 
-@pytest.mark.parametrize("dtype,tol", [
-    ("float32", 1e-4),
-    ("bfloat16", 5e-2),
-])
-def test_head_dim_256_gpt_loss_and_grads_match_flax(dtype, tol):
-    """A GPT at head_dim 256 with one K/V head through the flash path
-    (use_flash=True; on the CPU the kernels' plain versions, in bf16 those
-    of the head_dim-256 tensor-core kernels with their bf16 operands): the
-    loss and every parameter's gradient against the JAX GPT's (Pallas
-    interpret mode) from the same weights and tokens. Tolerance: fp32 1e-4,
-    relative to each gradient's largest magnitude (the module's: the same
-    fp32 arithmetic summed in other orders); bf16 5e-2, the bf16 flash
-    tolerance of tests/test_torch_port_flash.py (the two sides round every
-    product's output, p and, on the sm90 route, p and ds at different
-    points)."""
-    tokens = np.random.RandomState(2).randint(0, 512, (1, 128))
-    jcfg = JaxGPTConfig(**WIDE, dtype=getattr(jnp, dtype), use_flash=True)
+def _loss_and_grads_match_flax(config, dtype, tol, tokens):
+    """The port's GPT with ``config`` in ``dtype`` and use_flash=True against
+    the JAX GPT's (Pallas interpret mode) from the same weights and
+    tokens: the loss within ``tol`` (relative) and every parameter's
+    gradient within ``tol`` of its largest magnitude."""
+    jcfg = JaxGPTConfig(**config, dtype=getattr(jnp, dtype), use_flash=True)
     jmodel = JaxGPT(jcfg)
     # the same parameters as the flash model's, without tracing its kernels
     params = jax.jit(JaxGPT(dataclasses.replace(jcfg, use_flash=False)).init)(
@@ -155,16 +144,49 @@ def test_head_dim_256_gpt_loss_and_grads_match_flax(dtype, tol):
             logits[:, :-1], targets[:, :-1]).mean()
 
     want_loss, want_grads = jax.jit(jax.value_and_grad(jax_loss))(params)
-    tmodel = GPT(GPTConfig(**WIDE, dtype=getattr(torch, dtype),
+    tmodel = GPT(GPTConfig(**config, dtype=getattr(torch, dtype),
                            use_flash=True), device="cpu")
     tmodel.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
     loss = loss_fn(tmodel, torch.from_numpy(tokens))
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(want_loss), rtol=tol)
     want = params_from_flax(jax.tree.map(np.asarray, want_grads))
-    assert tmodel.blocks[0].attn.k.shape == (512, 1, 256)
     for name, p in tmodel.named_parameters():
         w = want[name].float()
         scale = float(w.abs().max())
         torch.testing.assert_close(p.grad / scale, w / scale, rtol=tol,
                                    atol=tol, msg=name)
+    return tmodel
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    ("float32", 1e-4),
+    ("bfloat16", 5e-2),
+    ("float16", 1e-2),
+])
+def test_head_dim_256_gpt_loss_and_grads_match_flax(dtype, tol):
+    """A GPT at head_dim 256 with one K/V head through the flash path
+    (use_flash=True; on the CPU the kernels' plain versions, in bf16 and
+    fp16 those of the head_dim-256 tensor-core kernels with their 2-byte
+    operands): the loss and every parameter's gradient against the JAX
+    GPT's (Pallas interpret mode) from the same weights and tokens.
+    Tolerance: fp32 1e-4, relative to each gradient's largest magnitude
+    (the module's: the same fp32 arithmetic summed in other orders); bf16
+    5e-2, the bf16 flash tolerance of tests/test_torch_port_flash.py (the
+    two sides round every product's output, p and, on the sm90 route, p and
+    ds at different points); fp16 1e-2, that file's fp16 tolerance (fp16's
+    ulp is 8x finer than bf16's)."""
+    tokens = np.random.RandomState(2).randint(0, 512, (1, 128))
+    tmodel = _loss_and_grads_match_flax(WIDE, dtype, tol, tokens)
+    assert tmodel.blocks[0].attn.k.shape == (512, 1, 256)
+
+
+def test_fp16_flash_entry_gpt_loss_and_grads_match_flax():
+    """The ENTRY GPT (head_dim 32) in fp16 with use_flash=True, as the JAX
+    package's GPT runs fp16 (no loss scaler): on the CPU the plain versions
+    of the fp16 tensor-core kernels (ds and p rounded to fp16 after dO is
+    scaled by a power of two). The loss and every parameter's gradient
+    within 1e-2 of the JAX GPT's, the fp16 flash tolerance."""
+    tokens = np.random.RandomState(3).randint(0, 512, (2, 64))
+    tmodel = _loss_and_grads_match_flax(ENTRY, "float16", 1e-2, tokens)
+    assert all(p.dtype == torch.float32 for p in tmodel.parameters())

@@ -24,9 +24,10 @@ operands; after ``main``, also held to the main shape's), ``ring_wide``
 (chip_smoke.WIDE_SHAPES, bf16 at head_dim 192 and 256),
 ``ring_wide_head`` (chip_smoke.RING_WIDE_HEAD_CASES, the ring's blocks at
 head_dim 256 and 192), ``off_grid`` (chip_smoke.OFF_GRID_SHAPES,
-head_dims off the kernels' grid of 8) and ``wide_fp32``
+head_dims off the kernels' grid of 8), ``wide_fp32``
 (chip_smoke.WIDE_FP32_SHAPES and WIDE_FP32_CHECKED, fp32 at head_dim 136
-to 256), each in checkouts that have it.
+to 256) and ``fp16`` (chip_smoke.FP16_CASES, fp16 q with an fp16 or the
+ring's fp32 o), each in checkouts that have it.
 Every shape it runs is timed. Needs a CUDA card.
 """
 
@@ -44,7 +45,8 @@ def main():
                     "(default: this one)")
     ap.add_argument("--shapes", nargs="+",
                     choices=("routes", "main", "ring", "ring_wide", "wide",
-                             "ring_wide_head", "off_grid", "wide_fp32"),
+                             "ring_wide_head", "off_grid", "wide_fp32",
+                             "fp16"),
                     default=["routes"])
     args = ap.parse_args()
     root = Path(args.repo).resolve() if args.repo else REPO
@@ -72,7 +74,8 @@ def main():
               "wide": lambda: C.WIDE_SHAPES,
               "ring_wide_head": lambda: C.RING_WIDE_HEAD_CASES,
               "off_grid": lambda: C.OFF_GRID_SHAPES,
-              "wide_fp32": lambda: C.WIDE_FP32_SHAPES + C.WIDE_FP32_CHECKED}
+              "wide_fp32": lambda: C.WIDE_FP32_SHAPES + C.WIDE_FP32_CHECKED,
+              "fp16": lambda: C.FP16_CASES}
     cases = [c for name in args.shapes for c in shapes[name]()]
     # kernel_phase times only the shapes in TIMED
     C.TIMED.extend(c for c in cases if c not in C.TIMED)
