@@ -10,7 +10,7 @@ Phases, each of which exits non-zero on a failure:
    from csrc/ with nvcc, one process per source, in parallel.
 3. kernels: hold every kernel against its plain PyTorch version, and the
    autograd Function built on them (cotangents on o and on lse) against
-   autograd of flash_attention_reference, at fifty-one shapes: the main
+   autograd of flash_attention_reference, at sixty-three shapes: the main
    path's (B 8, H 12, S 1024, D 64, bf16, causal), the accumulation
    phase's micro-batch (the same with B 4), non-causal, GQA (H 12,
    H_kv 4), ragged (S 1000, D 32, fp32), bf16 ragged (S 1000, D 64), bf16
@@ -63,8 +63,18 @@ Phases, each of which exits non-zero on a failure:
    the two-term checks), the ring's blocks also at dO times 2^-20 and
    2^12 (fp16_magnitude_checks); the main shape, D 192, the wide_head
    attention and the causal ring blocks timed beside SDPA in fp16. The
-   build line carries every instance's ptxas line, and the wide instances'
-   lines are printed again on their own.
+   widest heads (bf16 and fp16 q with o and dO in q's dtype at head_dim
+   264..512, padded widths 384 and 512: each warpgroup or block owns one
+   column half of the head) at XWIDE_SHAPES, timed: d_model 1536 at D 512
+   (H 3) in bf16 and fp16, D 384 (H 4), D 400 (H 3, to 512) and D 264 (H
+   4, to 384) in bf16, and the head512 phases' attention (H 4, H_kv 1, D
+   512) in bf16 and fp16; and at XWIDE_CHECKED, held only: D 300 off the
+   grid, D 512 not causal at S 1000, GQA at D 392 (H 8, H_kv 1), S 4096 at
+   D 512, and fp16 at D 512 also at dO times 2^-20 and 2^12. Every timed
+   row names the SDPA backend PyTorch's dispatch picks there (its flash
+   backend stops at head_dim 256). The build line carries every instance's
+   ptxas line, and the wide and the widest instances' lines are printed
+   again on their own.
 4. main path: hvt.init() (a one-process NCCL world), then
    horovod_tpu_torch.train.train on the bench.py GPT (vocab 32768, 12
    layers, d_model 768, 12 heads, d_ff 3072, seq 1024, bf16, flash
@@ -270,7 +280,7 @@ Phases, each of which exits non-zero on a failure:
    step and no other kernel, the einsum attention never; the einsum model
    from the same seed within ENTRY_RTOL's fp32 tolerance (1e-4) at steps 1
    and WIDE_HEAD_STEPS; step ms and peak memory of both.
-28. gpt_fp16 (last): the main path's GPT (bench.py --model gpt --flash at
+28. gpt_fp16: the main path's GPT (bench.py --model gpt --flash at
    full width) with fp16 compute and fp32 parameters, no loss scaler (as
    the JAX package's GPT runs fp16), use_flash=True, through train.train
    for 7 steps on the main path's seeded batch: the fp16 instances of
@@ -278,11 +288,22 @@ Phases, each of which exits non-zero on a failure:
    launch with fp16 q and o), no SIMT kernel, the einsum attention never;
    the einsum fp16 model from the same seed within LOSS_RTOL at steps 1 and
    7; step ms and peak memory of both.
-29. summary: one JSON line listing the kernels (launches on the main path,
+29. head512 (after gpt_fp16): the wide_head GPT with four heads of 512
+   instead of eight of 256 (vocab 32768, 4 layers, d_model 2048, one K/V
+   head, d_ff 8192, seq 1024, bf16 compute with fp32 parameters,
+   use_flash="auto") through train.train, WIDE_HEAD_STEPS steps on a
+   seeded batch of 8 x 1024: flash_fwd_sm90, flash_dq_sm90 and
+   flash_dkv_sm90 at head_dim 512 (their padded-width-512 instances) once a
+   layer a step and no other kernel, the einsum attention never; the
+   einsum-attention model from the same seed within LOSS_RTOL at steps 1
+   and WIDE_HEAD_STEPS; step ms and peak memory of both.
+30. head512_fp16 (last): the same GPT in fp16 compute (fp32 parameters, no
+   loss scaler), the fp16 instances at padded width 512, the same checks.
+31. summary: one JSON line listing the kernels (launches on the main path,
    or the wire phase's route for the codec kernels; the observe,
    accumulation, sequence, checkpoint, fsdp, launch, elastic, fleet,
    serving, run, estimator, examples, entry, wide_head, wide_head_fp32,
-   ring_wide_head and gpt_fp16 phases; the
+   ring_wide_head, gpt_fp16, head512 and head512_fp16 phases; the
    timings at the kernel's own route's shape, and at every timed shape in
    by_shape), the nvidia-smi line, and last the {"ok": true, ...} line.
 """
@@ -422,11 +443,37 @@ FP16_CASES = FP16_TIMED[:1] + [
     (4, 1024, 8, 8, 32, "float16", True, "float16"),
     (8, 1024, 8, 8, 100, "float16", True, "float16")] + FP16_TIMED[1:3] + \
     FP16_RING_CASES
+# the widest heads (bf16 and fp16 q with o and dO in q's dtype at head_dim
+# 264..512, padded widths 384 and 512; only the sm90 kernels take them):
+# the head512 phases' GPT (WIDE_HEAD_CONFIG with four heads of 512) and its
+# attention (B 8, S 1024, H 4, H_kv 1, D 512) in bf16 and fp16, and d_model
+# 1536 at B 8, S 1024, causal with D 512 (H 3) in bf16 and fp16, D 384
+# (H 4), D 400 (H 3, padded to 512, D at run time) and D 264 (H 4, padded
+# to 384, D at run time), all timed
+HEAD512_CONFIG = dict(WIDE_HEAD_CONFIG, n_heads=4)
+HEAD512_SHAPES = [(WIDE_HEAD_BATCH, HEAD512_CONFIG["max_seq_len"],
+                   HEAD512_CONFIG["n_heads"], HEAD512_CONFIG["n_kv_heads"],
+                   HEAD512_CONFIG["d_model"] // HEAD512_CONFIG["n_heads"],
+                   dtype, True, dtype) for dtype in ("bfloat16", "float16")]
+XWIDE_SHAPES = [(8, 1024, h, h, d, dtype, True, dtype)
+                for d, h, dtype in ((512, 3, "bfloat16"), (512, 3, "float16"),
+                                    (384, 4, "bfloat16"), (400, 3, "bfloat16"),
+                                    (264, 4, "bfloat16"))] + HEAD512_SHAPES
+# and checked only: D 300 off the grid of 8 (zero-padded to 304), D 512 not
+# causal at a ragged S, GQA at D 392 (H 8, H_kv 1), the longest sums dq and
+# dk/dv see (S 4096), and fp16 at D 512, also at dO times each of
+# FP16_DOUT_MAGNITUDES (fp16_magnitude_checks)
+XWIDE_FP16_MAGNITUDE_CASE = (2, 1000, 4, 1, 512, "float16", True, "float16")
+XWIDE_CHECKED = [(2, 1000, 4, 2, 300, "bfloat16", True, "bfloat16"),
+                 (2, 1000, 4, 1, 512, "bfloat16", False, "bfloat16"),
+                 (2, 1024, 8, 1, 392, "bfloat16", True, "bfloat16"),
+                 (1, 4096, 2, 1, 512, "bfloat16", True, "bfloat16"),
+                 XWIDE_FP16_MAGNITUDE_CASE]
 # and the ring's causal blocks: bf16 q with an fp32 dO, which flash_dq_sm90
 # and flash_dkv_sm90 split into two bf16 terms in shared memory
 TIMED = [MAIN_SHAPE, RING_CASES[0], RING_WIDE_CASE, *ROUTE_SHAPES,
          *WIDE_SHAPES, *RING_WIDE_HEAD_CASES, OFF_GRID_SHAPES[0],
-         *WIDE_FP32_SHAPES, *FP16_TIMED]
+         *WIDE_FP32_SHAPES, *FP16_TIMED, *XWIDE_SHAPES]
 CASES = [MAIN_SHAPE,
          MICRO_SHAPE,
          (8, 1024, 12, 12, 64, "bfloat16", False, "bfloat16"),
@@ -439,7 +486,8 @@ CASES = [MAIN_SHAPE,
          (1, 4096, 4, 2, 64, "float32", True, "float32"),
          *RING_CASES, RING_WIDE_CASE, ULYSSES_CASE, *ROUTE_SHAPES,
          *WIDE_SHAPES, *RING_WIDE_HEAD_CASES, *OFF_GRID_SHAPES,
-         *WIDE_FP32_SHAPES, *WIDE_FP32_CHECKED, *FP16_CASES]
+         *WIDE_FP32_SHAPES, *WIDE_FP32_CHECKED, *FP16_CASES, *XWIDE_SHAPES,
+         *XWIDE_CHECKED]
 # the shape whose timing stands in the kernels line for each SIMT kernel:
 # bf16 D 48 at d_model 768, where, since no route sends any kernel to the
 # SIMT design, they are timed as variant="simt" beside the padded sm90 ones
@@ -861,7 +909,8 @@ def dkv_ring_checks(case, K, args, got, two_term, least, fp32_operands):
 
 
 def fp16_magnitude_checks(case, K, inputs, ro, rlse, scale):
-    """At an fp16 ring block (fp16 q, fp32 dO) run flash_dq_sm90 and
+    """At an fp16 ring block (fp16 q, fp32 dO), or an fp16 case at the
+    widest heads (XWIDE_FP16_MAGNITUDE_CASE, dO in fp16), run flash_dq_sm90 and
     flash_dkv_sm90 with dO times 1 and each of FP16_DOUT_MAGNITUDES and hold
     each output's error against the fp32-operand plain version, relative to
     its largest magnitude, to FP16_MAGNITUDE_FACTOR times its error at
@@ -991,7 +1040,7 @@ def kernel_phase(case, K, ref_fn, timings):
                 dkv_ring_checks(case, K, args, got, want, least,
                                 fp32_operands)
         del o, lse, got, want
-    if case in FP16_RING_CASES:
+    if case in FP16_RING_CASES or case == XWIDE_FP16_MAGNITUDE_CASE:
         fp16_magnitude_checks(case, K, (q, k, v, do), ro, rlse, scale)
     for name, found in errs.items():
         emit({"phase": "kernel", "kernel": name, "shape": shape,
@@ -1037,6 +1086,10 @@ def kernel_phase(case, K, ref_fn, timings):
     sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, is_causal=causal, scale=scale), 20)[0]
     leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+    # the backend PyTorch's dispatch picks for these inputs (its flash
+    # backend stops at head_dim 256)
+    sdpa_backend = torch.nn.attention.SDPBackend(torch._fused_sdp_choice(
+        *leaves, is_causal=causal, scale=scale)).name
 
     def sdpa_fwd_bwd():
         out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
@@ -1104,7 +1157,7 @@ def kernel_phase(case, K, ref_fn, timings):
                   "max_abs_err": max(e[0] for e in errs[name]),
                   "ms": ms, "plain_ms": cuda_ms(plain, 5)[0],
                   "bound_ms": bound_ms, "bound_by": bound_by,
-                  "library_ms": lib}
+                  "library_ms": lib, "library_backend": sdpa_backend}
         if pad_ms:   # the kernel at the padded head_dim; its copies apart
             record["padded_head_dim"] = dp
             record["pad_copies_ms"] = pad_ms[name.replace("_sm90", "")]
@@ -1369,6 +1422,28 @@ def wide_head_phase(K, dtype_name="bfloat16"):
         LOSS_RTOL if bf16 else ENTRY_RTOL[dtype_name],
         "flash_{fwd,dq,dkv}_sm90 at padded width 256, D 256"
         + ("" if bf16 else ", 3xTF32"))
+
+
+def head512_phase(K, dtype_name="bfloat16"):
+    """WIDE_HEAD_CONFIG's GPT with four heads of 512 (module docstring,
+    phases 29 and 30) in ``dtype_name`` (bf16 or fp16 compute, fp32
+    parameters) through train.train with use_flash="auto": the
+    padded-width-512 instances of the three sm90 kernels once a layer a
+    step, no einsum attention, and the einsum model's losses from the same
+    seed within LOSS_RTOL at steps 1 and WIDE_HEAD_STEPS. Returns the
+    launches."""
+    import torch
+
+    from horovod_tpu_torch.models.transformer import GPTConfig
+
+    cfg = GPTConfig(**HEAD512_CONFIG, dtype=getattr(torch, dtype_name),
+                    use_flash="auto")
+    return flash_model_phase(
+        K, {"bfloat16": "head512", "float16": "head512_fp16"}[dtype_name],
+        cfg, WIDE_HEAD_BATCH, WIDE_HEAD_STEPS, LOSS_RTOL,
+        "flash_{fwd,dq,dkv}_sm90 at padded width 512, D 512 (column halves)"
+        + (", dO scaled by a power of two" if dtype_name == "float16"
+           else ""))
 
 
 def gpt_fp16_phase(K):
@@ -3340,6 +3415,11 @@ def main():
         n: [line for line in ptxas_summary(log)
             if "wide_kernel" in line or "ILi192E" in line or "ILi256E" in line]
         for n, log in K.build_log().items() if n.endswith("_sm90")}})
+    # the widest heads' instances (padded width 384 and 512)
+    emit({"phase": "build", "widest_head_instances": {
+        n: [line for line in ptxas_summary(log)
+            if "ILi384E" in line or "ILi512E" in line]
+        for n, log in K.build_log().items() if n.endswith("_sm90")}})
     timings = {}
     for case in CASES:
         kernel_phase(case, K, flash_attention_reference, timings)
@@ -3416,6 +3496,14 @@ def main():
     gpt_fp16_launches = gpt_fp16_phase(K)
     hvt.shutdown()
     emit({"phase": "gpt_fp16_seconds", "seconds": time.perf_counter() - t0})
+    head512_launches = {}
+    for dtype_name in ("bfloat16", "float16"):
+        t0 = time.perf_counter()
+        head512_launches[dtype_name] = head512_phase(K, dtype_name)
+        hvt.shutdown()
+        torch.cuda.empty_cache()
+        emit({"phase": f"head512_{dtype_name}_seconds",
+              "seconds": time.perf_counter() - t0})
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
@@ -3448,6 +3536,8 @@ def main():
          "launches_ring_wide_head": ring_wide_launches[name],
          "launches_ring_wide_head_blocks": ring_wide_block_launches[name],
          "launches_gpt_fp16": gpt_fp16_launches[name],
+         "launches_head512": head512_launches["bfloat16"][name],
+         "launches_head512_fp16": head512_launches["float16"][name],
          **line_timing(K, name, timings)} for name in K.LAUNCHES]})
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,9 +8,10 @@
 //   q, k, v, o, dO   [B, S, H, D] contiguous (k and v carry H_kv heads)
 //   lse, delta       [B, H, S] fp32 contiguous
 //   H % H_kv == 0, D % 8 == 0 (the wrappers pad other head_dims with zero
-//   columns), any S; 0 < D <= 128 for the SIMT kernels (fp32 or bf16), 0 < D
-//   <= 256 on the tensor cores (bf16 or fp16 q with o and dO in q's dtype or
-//   fp32, fp32 q with fp32 o and dO).
+//   columns), any S; 0 < D <= 128 for the SIMT kernels (fp32 or bf16); on
+//   the tensor cores 0 < D <= 512 for bf16 or fp16 q with o and dO in q's
+//   dtype, 0 < D <= 256 for bf16 or fp16 q with an fp32 o and dO, and for
+//   fp32 q with fp32 o and dO.
 //
 // Every SIMT kernel works on 64 x 64 tiles with 256 threads laid out 16 x 16:
 // thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of a
@@ -30,10 +31,18 @@ constexpr int kTile = 64;         // query rows and key rows per tile
 constexpr int kThreads = 256;     // 16 x 16
 constexpr int kPadS = kTile + 1;  // row stride of a 64 x 64 score tile in shared memory
 constexpr int kMaxD = 128;       // the SIMT kernels' widest head
-constexpr int kMaxDSm90 = 256;   // the tensor-core kernels'
+constexpr int kMaxDSm90 = 512;   // the tensor-core kernels': 2-byte q, o/dO in q's dtype
+constexpr int kMaxDSm90F32 = 256;  // theirs with fp32 q, or with an fp32 o/dO
 constexpr float kMasked = -1e30f;  // the reference's fill for causally masked scores
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+// The widest head_dim a tensor-core kernel takes with q of `dtype` and o (dO)
+// of `second`: a C caller past it gets cudaErrorInvalidValue at the entry
+// point, never a launch.
+inline int sm90_max_d(int dtype, int second) {
+  return dtype != kF32 && second == dtype ? kMaxDSm90 : kMaxDSm90F32;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

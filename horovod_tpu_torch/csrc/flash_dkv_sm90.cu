@@ -3,8 +3,8 @@
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_dkv_kernel (pl.pallas_call in
 // _flash_bwd) for q/k/v in bf16, fp16 or fp32 with any head_dim the port
-// takes (8..256 in steps of 8: above 128 bf16 or fp16 q in
-// flash_dkv_sm90_wide_kernel,
+// takes (in steps of 8: 8..512 for bf16 or fp16 q with dO in q's dtype,
+// else 8..256; above 128 bf16 or fp16 q in flash_dkv_sm90_wide_kernel,
 // fp32 q in flash_dkv_sm90_tf32_wide_kernel; the wrappers pad other
 // head_dims with zero columns); flash_dkv.cu stays
 // built and checked as the SIMT
@@ -36,9 +36,9 @@
 // as it is written. The plain version (split_dout, round_operands on fp16
 // q) models the scale.
 //
-// Head dims. A kernel is instantiated per padded width DP (64, 128, 192 or
-// 256 in bf16; 32, 64, 96, 128, 192 or 256 in fp32): TMA zero-fills the
-// columns past D, which
+// Head dims. A kernel is instantiated per padded width DP (64, 128, 192,
+// 256, 384 or 512 in bf16 and fp16; 32, 64, 96, 128, 192 or 256 in fp32):
+// TMA zero-fills the columns past D, which
 // add nothing to any product, and only D columns of dk and dv are written.
 // At D 32, 64, 96 and 128 with dO in q's dtype D is fixed at compile time;
 // every other head_dim, and bf16 q with an fp32 dO, comes at run time.
@@ -125,6 +125,23 @@
 // 256, where the next Q/dO tile loads only once this one's products are
 // done. dP^T takes V dO_lo^T in the same commit group, and warpgroup 0 adds
 // P^T dO_lo to dV, a third more products than warpgroup 1's dK.
+//
+// Widest heads, bf16 and fp16 q and dO at DP 384 and 512 (head_dim
+// 264..512; D fixed at 384 and 512, at run time between), the wide kernel
+// again. One warpgroup's dV or dK would be DP / 2 = 256 registers a thread,
+// and wgmma's N stops at 256. So the grid's z takes the batch times D's
+// two column halves: a block owns one 64-key tile and one half of dK and
+// dV (96 / 128 registers a thread), its warpgroups split by product as
+// above (warpgroup 0 dV_half += P^T dO_half, 1 dK_half += dS^T Q_half,
+// m64nNk16 with N = DP / 2, the B tile's column half MN-major from its
+// panel, sm90.cuh panel_offset). Each block forms S^T and dP^T over the
+// whole head, so the two halves' blocks compute them twice: 1.5 times the
+// products. K and V for 64 keys take 96 / 128 KB, so Q/dO tiles are 32
+// rows, 16 a warpgroup for S^T and dP^T (m64n16k16), and the two dV, dK
+// products two k-steps each; a stage (Q, dO) is 48 / 64 KB, two stages at
+// DP 384 and one at 512, beside the A tiles (16 KB): 210 KB in all either
+// way. A thread holds its half's accumulator, S^T and dP^T (8 + 8). The
+// query group is still summed in the kernel; dk, dv are written once.
 //
 // Wide heads, fp32 q at DP 192 and 256 (flash_dkv_sm90_tf32_wide_kernel,
 // 3xTF32). The fp32 design above holds K, V and their lo for 64 keys (4 *
@@ -470,12 +487,20 @@ __global__ void __launch_bounds__(DkvCfg<DP, T, kDoTerms>::kThreads, 1)
 // (kDoTerms 1) or fp32 (2: its two 2-byte terms).
 template <int DP, int kDoTerms>
 struct DkvWideCfg {
-  static_assert(DP == 192 || DP == 256, "DP: three or four bf16 panels");
+  static_assert(DP == 192 || DP == 256 || (kDoTerms == 1 && (DP == 384 || DP == 512)),
+                "DP: three, four, six or eight 2-byte panels");
+  // DP 384 and 512: each block owns one column half of dK and dV (see
+  // Widest heads)
+  static constexpr int kHalves = DP > 256 ? 2 : 1;
+  static constexpr int kCols = DP / kHalves;  // columns of dK and dV a block owns
   static constexpr int kThreads = 256;  // two warpgroups
   static constexpr int kBKV = 64;       // keys per block, shared by both warpgroups
-  static constexpr int kBQ = 64;        // query rows a tile, 32 a warpgroup for S^T, dP^T
-  // an fp32 dO's stage: two fit at DP 192, one at DP 256
-  static constexpr int kStages = kDoTerms == 2 && DP == 256 ? 1 : 2;
+  // query rows a tile, kQW a warpgroup for S^T, dP^T: 64 (32) up to DP 256,
+  // 32 (16) above
+  static constexpr int kBQ = DP > 256 ? 32 : 64;
+  static constexpr int kQW = kBQ / 2;
+  // an fp32 dO's stage: two fit at DP 192, one at DP 256; at DP 512 one
+  static constexpr int kStages = (kDoTerms == 2 && DP == 256) || DP == 512 ? 1 : 2;
   static constexpr int kKV = kBKV * DP * 2;  // bytes of the K (or V) tile
   static constexpr int kQ = kBQ * DP * 2;    // of one Q (or bf16 dO) tile
   // a stage: Q, then dO; an fp32 dO (2 kQ) is split in place into its hi
@@ -483,7 +508,7 @@ struct DkvWideCfg {
   // of kDoRows rows
   static constexpr int kStage = (1 + kDoTerms) * kQ;
   static constexpr int kDoRows = kDoTerms * kBQ;
-  static constexpr int kA = kBKV * kBQ * 2;  // P^T or dS^T, bf16, one 128-byte panel a row
+  static constexpr int kA = kBKV * sm90::kRowBytes;  // P^T or dS^T, 2-byte, a 128-byte row a key
   static constexpr int kBarriers = (1 + 2 * kStages) * 8;
   static constexpr int kBytes =
       2 * kKV + kStages * kStage + 2 * kA + kBarriers + sm90::kAtomBytes;
@@ -506,6 +531,7 @@ __global__ void __launch_bounds__(256, 1)
   using namespace sm90;
   using L = DkvWideCfg<DP, kDoTerms>;
   constexpr int kBKV = L::kBKV, kBQ = L::kBQ, kStages = L::kStages, kDoRows = L::kDoRows;
+  constexpr int kQW = L::kQW;
   const int D = kD ? kD : d_rt;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1k(smem_raw);
@@ -518,7 +544,9 @@ __global__ void __launch_bounds__(256, 1)
   uint64_t* empty = full + kStages;
 
   const int kt = blockIdx.x;  // low key tiles see the most queries: start them first
-  const int hk = blockIdx.y, b = blockIdx.z, group = H / Hkv;
+  // z: the batch, and with column halves the half of dK, dV this block owns
+  const int hk = blockIdx.y, b = blockIdx.z / L::kHalves, group = H / Hkv;
+  const int col0 = (blockIdx.z % L::kHalves) * L::kCols;
   const int k0 = kt * kBKV;
   const int n_qt = (S + kBQ - 1) / kBQ;
   const int qt_start = causal ? k0 / kBQ : 0;  // earlier query tiles see none of these keys
@@ -564,21 +592,22 @@ __global__ void __launch_bounds__(256, 1)
   float do_scale = 1.f, unscale = 1.f;
   if constexpr (is_f16<T>()) dout_scale(dout_amax, do_scale, unscale);
   const float dp_scale = kDoTerms == 1 ? do_scale : 1.f;  // two terms: scaled in the split
-  float acc[DP / 2];
+  float acc[L::kCols / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < L::kCols / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(bar_kv, 0);
   for (int t = 0; t < n_iter; ++t) {
     const int s = t % kStages;
     const int h = hk * group + t / per_head, q0 = (qt_start + t % per_head) * kBQ;
-    const int qw = q0 + 32 * wg;  // this warpgroup's first query of S^T, dP^T
+    const int qw = q0 + kQW * wg;  // this warpgroup's first query of S^T, dP^T
     const uint32_t q_addr = qdo_addr + s * L::kStage, do_addr = q_addr + L::kQ;
 
-    // lse and delta of this thread's 8 queries, read while the products run
-    float lse2[8], dlt[8];
+    // lse and delta of this thread's kQW / 4 queries, read while the
+    // products run
+    float lse2[kQW / 4], dlt[kQW / 4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kQW / 4; ++j) {
       const int qp = qw + 8 * (j / 2) + 2 * (lane % 4) + j % 2;
       const long long off = ((long long)b * H + h) * S + qp;
       lse2[j] = qp < S ? lse[off] * kLog2e : 0.f;
@@ -594,30 +623,30 @@ __global__ void __launch_bounds__(256, 1)
       __syncthreads();
     }
 
-    float sc[16], dp[16];
+    float sc[kQW / 2], dp[kQW / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
       wgmma_ss<0, T>(sc, desc_kmajor(k_addr, kBKV, 0, kk),
-                     desc_kmajor(q_addr, kBQ, 32 * wg, kk), kk > 0);
+                     desc_kmajor(q_addr, kBQ, kQW * wg, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
       wgmma_ss<0, T>(dp, desc_kmajor(v_addr, kBKV, 0, kk),
-                     desc_kmajor(do_addr, kDoRows, 32 * wg, kk), kk > 0);
+                     desc_kmajor(do_addr, kDoRows, kQW * wg, kk), kk > 0);
     if constexpr (kDoTerms == 2) {
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
         wgmma_ss<0, T>(dp, desc_kmajor(v_addr, kBKV, 0, kk),
-                       desc_kmajor(do_addr + kBQ * kRowBytes, kDoRows, 32 * wg, kk), 1);
+                       desc_kmajor(do_addr + kBQ * kRowBytes, kDoRows, kQW * wg, kk), 1);
     }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
     fence_regs(dp);
 
-    const bool edge = qw + 32 > S || k0 + kBKV > S || (causal && k0 + kBKV - 1 > qw);
+    const bool edge = qw + kQW > S || k0 + kBKV > S || (causal && k0 + kBKV - 1 > qw);
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < kQW / 2; ++i) {
       const int j = 2 * (i / 4) + i % 2;  // the query's slot in lse2, dlt
       float p = exp2f(fmaf(sc[i], scale_log2, -lse2[j]));
       if (edge) {
@@ -633,13 +662,13 @@ __global__ void __launch_bounds__(256, 1)
 
     // both warpgroups' products of the previous tile have read the A tiles
     __syncthreads();
-    // this warpgroup's 32 columns of P^T and dS^T, in T, as the K-major A
+    // this warpgroup's kQW columns of P^T and dS^T, in T, as the K-major A
     // operand: row = key (64 rows of one 128-byte panel), column = query
-    // 32 wg + c, swizzled by 16-byte chunk
+    // kQW wg + c, swizzled by 16-byte chunk
 #pragma unroll
-    for (int i = 0; i < 16; i += 2) {
+    for (int i = 0; i < kQW / 2; i += 2) {
       const int row = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
-      const int col = 32 * wg + 8 * (i / 4) + 2 * (lane % 4);
+      const int col = kQW * wg + 8 * (i / 4) + 2 * (lane % 4);
       const int off = row * kRowBytes + (((col / 8) ^ (row % 8)) * 16) + (col % 8) * 2;
       *reinterpret_cast<uint32_t*>(pt_s + off) = pack2<T>(sc[i], sc[i + 1]);
       *reinterpret_cast<uint32_t*>(pt_s + L::kA + off) = pack2<T>(dp[i], dp[i + 1]);
@@ -648,9 +677,9 @@ __global__ void __launch_bounds__(256, 1)
     __syncthreads();
 
     // dV += P^T dO (warpgroup 0; with dO's two terms, P^T dO_lo too) or
-    // dK += dS^T Q (warpgroup 1)
-    const uint32_t b_addr = wg == 0 ? do_addr : q_addr;
+    // dK += dS^T Q (warpgroup 1), over this block's columns of dO or Q
     const int b_rows = wg == 0 ? kDoRows : kBQ;
+    const uint32_t b_addr = (wg == 0 ? do_addr : q_addr) + panel_offset(col0, b_rows);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBQ / 16; ++kk)
@@ -684,10 +713,10 @@ __global__ void __launch_bounds__(256, 1)
   for (int r = 0; r < 2; ++r) {
     const int key = key_lo + 8 * r;
     if (key >= S) continue;
-    const long long off = ((long long)b * S + key) * kstride + (long long)hk * D;
+    const long long off = ((long long)b * S + key) * kstride + (long long)hk * D + col0;
 #pragma unroll
-    for (int c = 0; c < (kD ? kD : DP) / 8; ++c) {
-      if (8 * c >= D) continue;  // the padded columns are not written
+    for (int c = 0; c < L::kCols / 8; ++c) {
+      if (col0 + 8 * c >= D) continue;  // the padded columns are not written
       const int i = 4 * c + 2 * r;
       store2(out + off + 8 * c + 2 * (lane % 4), acc[i] * mult, acc[i + 1] * mult);
     }
@@ -707,7 +736,7 @@ int launch_dkv_sm90_wide(const void* q, const void* k, const void* v, const void
   if (err == 0) err = make_bshd_map<T>(&tk, k, B, S, Hkv, D, L::kBKV);
   if (err == 0) err = make_bshd_map<T>(&tv, v, B, S, Hkv, D, L::kBKV);
   if (err != 0) return err;
-  const dim3 grid((S + L::kBKV - 1) / L::kBKV, Hkv, B);
+  const dim3 grid((S + L::kBKV - 1) / L::kBKV, Hkv, B * L::kHalves);
   return launch_n(flash_dkv_sm90_wide_kernel<DP, kD, T, kDoTerms>, grid, L::kThreads, L::kBytes,
                   stream, tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
                   (const float*)dout_amax, (T*)dk, (T*)dv, S, H, Hkv, D, scale, scale * kLog2e,
@@ -944,10 +973,11 @@ int launch_dkv_sm90(const void* q, const void* k, const void* v, const void* dou
                   causal);
 }
 
-// dO in q's dtype at D 32, 64, 96 and 128 (and bf16 or fp16 at 192 and 256,
-// the wide kernel): D fixed at compile time; every other case at its padded
-// width with D at run time. D above 128 takes bf16 or fp16 q in the wide
-// kernel (with dO in q's dtype or fp32) and fp32 q in the 3xTF32 wide one.
+// dO in q's dtype at D 32, 64, 96 and 128 (and bf16 or fp16 at 192, 256,
+// 384 and 512, the wide kernel): D fixed at compile time; every other case
+// at its padded width with D at run time. D above 128 takes bf16 or fp16 q
+// in the wide kernel (with dO in q's dtype or fp32; above 256 in q's dtype
+// only) and fp32 q in the 3xTF32 wide one.
 template <typename T, int kDoTerms>
 int launch_dkv_sm90_d(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, const void* amax, void* dk, void* dv,
@@ -971,6 +1001,18 @@ int launch_dkv_sm90_d(const void* q, const void* k, const void* v, const void* d
                                                Hkv, D, scale, causal, st);
     }
     if constexpr (kTwoByte) {
+      if (D == 512)
+        return launch_dkv_sm90_wide<512, 512, T, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B,
+                                                    S, H, Hkv, D, scale, causal, st);
+      if (D == 384)
+        return launch_dkv_sm90_wide<384, 384, T, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B,
+                                                    S, H, Hkv, D, scale, causal, st);
+      if (D > 384)
+        return launch_dkv_sm90_wide<512, 0, T, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B, S,
+                                                  H, Hkv, D, scale, causal, st);
+      if (D > 256)
+        return launch_dkv_sm90_wide<384, 0, T, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B, S,
+                                                  H, Hkv, D, scale, causal, st);
       if (D == 192)
         return launch_dkv_sm90_wide<192, 192, T, 1>(q, k, v, dout, lse, delta, amax, dk, dv, B,
                                                     S, H, Hkv, D, scale, causal, st);
@@ -979,6 +1021,7 @@ int launch_dkv_sm90_d(const void* q, const void* k, const void* v, const void* d
                                                     S, H, Hkv, D, scale, causal, st);
     }
   }
+  if (D > 256) return (int)cudaErrorInvalidValue;
   if constexpr (kTwoByte) {
     if (D > 192)
       return launch_dkv_sm90_wide<256, 0, T, kDoTerms>(q, k, v, dout, lse, delta, amax, dk, dv,
@@ -1024,10 +1067,10 @@ int launch_dkv_sm90_d(const void* q, const void* k, const void* v, const void* d
 }  // namespace
 }  // namespace hvt
 
-// Returns 0 or the CUDA error of the launch. The port's head_dims (8..256 in
-// steps of 8) and dtypes: q, k, v and dO fp32 (dtype and dout_dtype 0), dk,
-// dv fp32; q, k, v bf16 (dtype 1) or fp16 (2) with dO in q's dtype or fp32
-// (0), dk, dv in q's dtype. dk, dv are [B, S, H_kv, D]. dout_amax: a device
+// Returns 0 or the CUDA error of the launch. The port's head_dims (in steps
+// of 8) and dtypes: q, k, v and dO fp32 (dtype and dout_dtype 0), dk, dv
+// fp32, D 8..256; q, k, v bf16 (dtype 1) or fp16 (2) with dO in q's dtype
+// (D 8..512) or fp32 (0; D 8..256), dk, dv in q's dtype. dk, dv are [B, S, H_kv, D]. dout_amax: a device
 // fp32 scalar, dO's largest magnitude, which fp16 q needs (sm90.cuh,
 // dout_scale) and the others do not read. The signature is hvt_flash_dkv's
 // with dout_amax after delta.
@@ -1037,7 +1080,8 @@ extern "C" int hvt_flash_dkv_sm90(const void* q, const void* k, const void* v, c
                                   float scale, int causal, int dtype, int dout_dtype,
                                   void* stream) {
   using namespace hvt;
-  if (!valid_shape(B, S, H, Hkv, D, kMaxDSm90)) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, S, H, Hkv, D, sm90_max_d(dtype, dout_dtype)))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const void* amax = dout_amax;

@@ -3,8 +3,9 @@
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_dq_kernel (pl.pallas_call in
 // _flash_bwd) for q/k/v in bf16, fp16 or fp32 with any head_dim the port
-// takes (8..256 in steps of 8; the wrappers pad other head_dims with zero
-// columns); flash_dq.cu
+// takes (in steps of 8: 8..512 for bf16 or fp16 q with dO in q's dtype,
+// else 8..256; the wrappers pad other head_dims with zero columns);
+// flash_dq.cu
 // stays built and checked as the SIMT
 // design, on no route. Same function:
 //   p = exp(scale q k^T - lse) with the causal fill, keys past S weigh 0,
@@ -29,11 +30,12 @@
 // written. The plain version (split_dout, round_ds on fp16 q) models the
 // scale.
 //
-// Head dims. A kernel is instantiated per padded width DP (64, 128, 192 or
-// 256 in bf16; 32, 64, 96, 128, 192 or 256 in fp32): TMA zero-fills the
-// columns past D, which add nothing to any product, and only D columns of
-// dq are written. The bf16 instances at D 64, 128, 192 and 256 with a bf16
-// dO and the fp32 ones at D 192 and 256 fix D at compile time; every other
+// Head dims. A kernel is instantiated per padded width DP (64, 128, 192,
+// 256, 384 or 512 in bf16 and fp16; 32, 64, 96, 128, 192 or 256 in fp32):
+// TMA zero-fills the columns past D, which add nothing to any product, and
+// only D columns of dq are written. The bf16 and fp16 instances at D 64,
+// 128, 192, 256, 384 and 512 with dO in q's dtype and the fp32 ones at D
+// 192 and 256 fix D at compile time; every other
 // head_dim comes at run time.
 //
 // Design, bf16. The TPU kernel carries dq in VMEM scratch across the grid's
@@ -109,6 +111,21 @@
 // to 128: 168 KB and 160 KB in all. The grid has twice the blocks, and a
 // block's softmax no longer runs beside another warpgroup's products.
 //
+// Widest heads, bf16 and fp16 DP 384 and 512 with dO in q's dtype (head_dim
+// 264..512; D fixed at 384 and 512, at run time between). dq would be DP /
+// 2 = 256 registers a thread and Q and dO for 128 rows 256 KB. So the
+// block's two warpgroups share one 64-row Q/dO tile (2 * 64 * DP * 2 B: 96
+// / 128 KB) and each owns one column half of dq (96 / 128 registers). Each
+// forms S = Q K^T and dP = dO V^T over the whole head itself (m64n32k16)
+// and so P and dS, the same bits in both, and adds dS K_half (m64nNk16, N =
+// DP / 2, K's column half MN-major from its panel, sm90.cuh panel_offset):
+// 1.67 times the products of one S, dP and dS K, and no tile through shared
+// memory and no barrier beyond the K/V ring's. K/V tiles are 32 keys, two
+// stages at DP 384 (96 KB, 193 KB in all) and one at DP 512 (64 KB, 193
+// KB), where the next tile loads once this one's products are done. A
+// thread holds its dq half, S and dP (16 + 16) and dS's two A fragments
+// (8). dq keeps its one owner: no atomics, the same bits every run.
+//
 // Wide heads, fp32 DP 192 and 256 (flash_dq_sm90_tf32_wide_kernel). The
 // fp32 design above keeps Q, dO and their lo resident (4 * 64 * DP * 4 B,
 // 192 / 256 KB) and holds dq plus a fresh tile sum (192 / 256 registers a
@@ -150,20 +167,24 @@
 namespace hvt {
 namespace {
 
-constexpr int kStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // kDoTerms: the 2-byte terms dO comes in (1: dO in q's dtype, bf16 or
 // fp16; 2: an fp32 dO as hi and lo).
 template <int DP, int kDoTerms>
 struct DqSmem {
-  static_assert(DP % 64 == 0 && DP <= 256, "DP: whole panels");
+  static_assert(DP % 64 == 0 && DP <= (kDoTerms == 1 ? 512 : 256), "DP: whole panels");
+  // DP 384 and 512: both warpgroups on one 64-row Q/dO tile, each owning
+  // one column half of dq (see Widest heads)
+  static constexpr bool kHalves = DP > 256;
   // warpgroups, 64 query rows each: two, but one where an fp32 dO's two
   // terms sit beside Q at the wide heads (see Wide heads)
   static constexpr int kWG = kDoTerms == 2 && DP > 128 ? 1 : 2;
   static constexpr int kThreads = 128 * kWG;
-  static constexpr int kBM = 64 * kWG;             // query rows per block
+  static constexpr int kBM = kHalves ? 64 : 64 * kWG;  // query rows per block
+  static constexpr int kQCols = kHalves ? DP / 2 : DP;  // columns of dq a warpgroup owns
   static constexpr int kBN = DP <= 192 ? 64 : 32;  // bf16: keys per K/V tile (see Wide heads)
+  static constexpr int kStages = DP == 512 ? 1 : 2;  // K/V stages; at DP 512 one fits
   static constexpr int kQ = kBM * DP * 2;   // bytes of the Q (or a dO) tile
   static constexpr int kKV = kBN * DP * 2;  // bytes of one K (or V) tile
   static constexpr int kBarriers = (1 + 2 * kStages) * 8;
@@ -188,7 +209,7 @@ __global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 :
                          int Hkv, int d_rt, float scale, float scale_log2, int causal) {
   using namespace sm90;
   using L = DqSmem<DP, kDoTerms>;
-  constexpr int kBM = L::kBM, kBN = L::kBN, kThreads = L::kThreads;
+  constexpr int kBM = L::kBM, kBN = L::kBN, kThreads = L::kThreads, kStages = L::kStages;
   const int D = kD ? kD : d_rt;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1k(smem_raw);
@@ -207,7 +228,10 @@ __global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 :
   const int tid = threadIdx.x, warp = (tid % 128) / 32, lane = tid % 32;
   // the warpgroup, through a shuffle so that the compiler knows it is warp-uniform
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
-  const int wg_row0 = q0 + 64 * wg;  // this warpgroup's first row
+  // this warpgroup's first row of the tile, and its first column of dq
+  const int wg_row = L::kHalves ? 0 : 64 * wg;
+  const int col0 = L::kHalves ? wg * L::kQCols : 0;
+  const int wg_row0 = q0 + wg_row;
   // tiles past this warpgroup's last row hold no key that it can see
   const int n_mine = causal ? min(n_kt, (wg_row0 + 63) / kBN + 1) : n_kt;
 
@@ -265,9 +289,9 @@ __global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 :
     if constexpr (is_f16<T>()) dlt[r] *= do_scale;
   }
   const uint32_t q_addr = smem_u32(q_s), do_addr = smem_u32(do_s), kv_addr = smem_u32(kv_s);
-  float acc[DP / 2];
+  float acc[L::kQCols / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < L::kQCols / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(bar_q, 0);
   if constexpr (kDoTerms == 2) {
@@ -289,16 +313,16 @@ __global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 :
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss<0, T>(sc, desc_kmajor(q_addr, kBM, 64 * wg, kk), desc_kmajor(k_addr, kBN, 0, kk),
+      wgmma_ss<0, T>(sc, desc_kmajor(q_addr, kBM, wg_row, kk), desc_kmajor(k_addr, kBN, 0, kk),
                      kk > 0);
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss<0, T>(dp, desc_kmajor(do_addr, kBM, 64 * wg, kk), desc_kmajor(v_addr, kBN, 0, kk),
+      wgmma_ss<0, T>(dp, desc_kmajor(do_addr, kBM, wg_row, kk), desc_kmajor(v_addr, kBN, 0, kk),
                      kk > 0);
     if constexpr (kDoTerms == 2) {
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_ss<0, T>(dp, desc_kmajor(do_addr + L::kQ, kBM, 64 * wg, kk),
+        wgmma_ss<0, T>(dp, desc_kmajor(do_addr + L::kQ, kBM, wg_row, kk),
                        desc_kmajor(v_addr, kBN, 0, kk), 1);
     }
     wgmma_commit();
@@ -329,7 +353,7 @@ __global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 :
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk)
-      wgmma_rs<1, T>(acc, a[kk], desc_mnmajor(k_addr, kBN, kk), 1);
+      wgmma_rs<1, T>(acc, a[kk], desc_mnmajor(k_addr + panel_offset(col0, kBN), kBN, kk), 1);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -346,10 +370,10 @@ __global__ void __launch_bounds__(DqSmem<DP, kDoTerms>::kThreads, DP == 64 ? 2 :
   for (int r = 0; r < 2; ++r) {
     const int row = row_lo + 8 * r;
     if (row >= S) continue;
-    T* drow = dq + ((long long)b * S + row) * qstride + (long long)h * D;
+    T* drow = dq + ((long long)b * S + row) * qstride + (long long)h * D + col0;
 #pragma unroll
-    for (int c = 0; c < DP / 8; ++c) {
-      if (8 * c >= D) continue;  // the padded columns are not written
+    for (int c = 0; c < L::kQCols / 8; ++c) {
+      if (col0 + 8 * c >= D) continue;  // the padded columns are not written
       const int i = 4 * c + 2 * r;
       store2(drow + 8 * c + 2 * (lane % 4), acc[i] * mult, acc[i + 1] * mult);
     }
@@ -556,14 +580,26 @@ int launch_dq_sm90(const void* q, const void* k, const void* v, const void* dout
                   (const float*)dout_amax, (T*)dq, S, H, Hkv, D, scale, scale * kLog2e, causal);
 }
 
-// bf16 and fp16: D 64, 128, 192 and 256 with dO in q's dtype at D fixed,
-// every other case (an fp32 dO at every D) at its padded width with D at
-// run time.
+// bf16 and fp16: D 64, 128, 192, 256, 384 and 512 with dO in q's dtype at
+// D fixed, every other case (an fp32 dO at every D) at its padded width
+// with D at run time; above 256 dO in q's dtype only.
 template <typename T, int kDoTerms>
 int launch_dq_sm90_d(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, const void* amax, void* dq, int B, int S,
                      int H, int Hkv, int D, float scale, int causal, cudaStream_t st) {
   if constexpr (kDoTerms == 1) {
+    if (D == 512)
+      return launch_dq_sm90<512, 512, T, 1>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
+                                            scale, causal, st);
+    if (D == 384)
+      return launch_dq_sm90<384, 384, T, 1>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
+                                            scale, causal, st);
+    if (D > 384)
+      return launch_dq_sm90<512, 0, T, 1>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
+                                          scale, causal, st);
+    if (D > 256)
+      return launch_dq_sm90<384, 0, T, 1>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
+                                          scale, causal, st);
     if (D == 64)
       return launch_dq_sm90<64, 64, T, 1>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
                                           scale, causal, st);
@@ -583,6 +619,7 @@ int launch_dq_sm90_d(const void* q, const void* k, const void* v, const void* do
       return launch_dq_sm90<192, 0, T, 1>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
                                           scale, causal, st);
   } else {
+    if (D > 256) return (int)cudaErrorInvalidValue;
     if (D > 192)
       return launch_dq_sm90<256, 0, T, 2>(q, k, v, dout, lse, delta, amax, dq, B, S, H, Hkv, D,
                                           scale, causal, st);
@@ -809,10 +846,10 @@ int launch_dq_sm90_tf32_wide(const void* q, const void* k, const void* v, const 
 }  // namespace
 }  // namespace hvt
 
-// Returns 0 or the CUDA error of the launch. The port's head_dims (8..256 in
-// steps of 8) and dtypes: q, k, v and dO fp32 (dtype and dout_dtype 0), dq
-// fp32; q, k, v bf16 (dtype 1) or fp16 (2) with dO in q's dtype or fp32
-// (0), dq in q's dtype. dout_amax: a device fp32 scalar, dO's largest
+// Returns 0 or the CUDA error of the launch. The port's head_dims (in steps
+// of 8) and dtypes: q, k, v and dO fp32 (dtype and dout_dtype 0), dq fp32,
+// D 8..256; q, k, v bf16 (dtype 1) or fp16 (2) with dO in q's dtype (D
+// 8..512) or fp32 (0; D 8..256), dq in q's dtype. dout_amax: a device fp32 scalar, dO's largest
 // magnitude, which fp16 q needs (sm90.cuh, dout_scale) and the others do
 // not read. The signature is hvt_flash_dq's with dout_amax after delta.
 extern "C" int hvt_flash_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
@@ -820,7 +857,8 @@ extern "C" int hvt_flash_dq_sm90(const void* q, const void* k, const void* v, co
                                  void* dq, int B, int S, int H, int Hkv, int D, float scale,
                                  int causal, int dtype, int dout_dtype, void* stream) {
   using namespace hvt;
-  if (!valid_shape(B, S, H, Hkv, D, kMaxDSm90)) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, S, H, Hkv, D, sm90_max_d(dtype, dout_dtype)))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const void* amax = dout_amax;

@@ -3,9 +3,9 @@
 //
 // Replaces horovod_tpu/ops/flash_attention.py:_fwd_kernel (launched by
 // _flash_fwd_impl through pl.pallas_call) for q/k/v in bf16, fp16 or fp32
-// with any head_dim the port takes (8..256 in steps of 8: bf16 or fp16 q
-// with an o in q's dtype or fp32, fp32 q with an fp32 o; the wrappers pad
-// other head_dims with zero columns);
+// with any head_dim the port takes (in steps of 8: bf16 or fp16 q at
+// 8..512 with an o in q's dtype, at 8..256 with an fp32 o, fp32 q with an
+// fp32 o at 8..256; the wrappers pad other head_dims with zero columns);
 // flash_fwd.cu stays
 // built and checked as the SIMT design, on no route. Same arithmetic:
 // scores scale * q k^T summed in fp32, causal fill
@@ -19,12 +19,12 @@
 // rounding of p to fp16 does the same).
 //
 // Head dims. A kernel is instantiated per padded width DP, the head_dim
-// rounded up to whole 128-byte panels (64, 128, 192 or 256 in bf16; 32, 64,
-// 96 or 128 in fp32, and 192 or 256 above 128): TMA zero-fills the columns
-// past D, which add nothing
+// rounded up to whole 128-byte panels (64, 128, 192, 256, 384 or 512 in
+// bf16 and fp16; 32, 64, 96 or 128 in fp32, and 192 or 256 above 128): TMA
+// zero-fills the columns past D, which add nothing
 // to any product, and only D columns are written. The instances at D 32,
-// 64, 96, 128, 192 and 256 (bf16 D 32 and 96 padded) fix D at compile
-// time; every other head_dim comes at run time, for the store mask and the
+// 64, 96, 128, 192, 256, 384 and 512 (bf16 D 32 and 96 padded) fix D at
+// compile time; every other head_dim comes at run time, for the store mask and the
 // row stride. A padded head_dim pays for the zero columns: at bf16 D 32
 // half the products issued are of zeros, at D 80 three eighths.
 //
@@ -80,6 +80,22 @@
 // o goes from the accumulators straight to device memory, so the sequence
 // ring's fp32 o takes the same instances: only the store differs.
 //
+// Widest heads, bf16 and fp16 DP 384 and 512 (head_dim 264..512, o in q's
+// dtype; D fixed at 384 and 512, at run time between). wgmma's N stops at
+// 256 and one warpgroup's O would be DP / 2 = 256 registers a thread. So
+// the block's two warpgroups share one 64-row Q tile and each owns one
+// column half of O (DP / 2 columns: 96 or 128 accumulator registers). Each
+// forms S = Q K^T over the whole head itself (m64n32k16, DP / 16 k-steps):
+// the two get the same bits, so the same m and l, and no P goes through
+// shared memory; the price is S twice, 1.5 times the products of one S and
+// one P V. Then O_half += P V_half, wgmma m64nNk16 (N = DP / 2) with P as
+// the register A operand and V's column half MN-major from the panel at
+// column DP / 2 (sm90.cuh, panel_offset). K/V tiles are 32 keys: Q takes 48
+// / 64 KB, a stage (K and V) 48 / 64 KB, two stages 145 / 193 KB in all at
+// DP 384 / 512. A thread holds its O half (96 / 128), S (16) and P's two
+// A fragments (8). One block per SM; warpgroup 0 writes lse. o goes to
+// device memory in q's dtype only: the ring's fp32 o stops at 256.
+//
 // Wide heads, fp32 DP 192 and 256 (head_dim 136..256, 3xTF32). The fp32
 // layout above would keep Q and its lo for 64 rows (2 * 64 * DP * 4 B, 128
 // KB at DP 256) beside a 32-key stage of five tiles (160 KB): 288 KB. So Q
@@ -122,16 +138,22 @@ constexpr float kLn2 = 0.6931471805599453f;
 template <int DP, typename T>
 struct FwdCfg {
   static constexpr bool kTf32 = std::is_same<T, float>::value;
-  static_assert(DP % sm90::panel_cols<T>() == 0 && DP <= 256, "DP: whole panels");
+  static_assert(DP % sm90::panel_cols<T>() == 0 && DP <= (kTf32 ? 256 : 512),
+                "DP: whole panels");
   // fp32 at DP 192 and 256: Q stays raw, split in registers (see Wide heads, fp32)
   static constexpr bool kQRegs = kTf32 && DP > 128;
+  // 2-byte DP 384 and 512: both warpgroups on one 64-row Q tile, each
+  // owning one column half of O (see Widest heads)
+  static constexpr bool kHalves = DP > 256;
   // warpgroups, 64 query rows each; fp32 at DP 32 and the wide heads: one
   // (see Design, fp32)
   static constexpr int kWG = kTf32 && (DP == 32 || kQRegs) ? 1 : 2;
   static constexpr int kThreads = 128 * kWG;
-  static constexpr int kBM = 64 * kWG;               // query rows per block
-  // keys per K/V tile; bf16 wide heads: 64 (see Wide heads)
-  static constexpr int kBN = !kTf32 ? (DP <= 128 ? 128 : 64) : DP <= 96 ? 64 : 32;
+  static constexpr int kBM = kHalves ? 64 : 64 * kWG;  // query rows per block
+  static constexpr int kOCols = kHalves ? DP / 2 : DP;  // columns of O a warpgroup owns
+  // keys per K/V tile; bf16 wide heads: 64 (see Wide heads), widest: 32
+  static constexpr int kBN = !kTf32 ? (DP <= 128 ? 128 : DP <= 256 ? 64 : 32)
+                                    : DP <= 96 ? 64 : 32;
   // fp32: one stage but at DP 64 (see Design, fp32)
   static constexpr int kStages = kTf32 && DP != 64 ? 1 : 2;
   static constexpr int kQ = kBM * DP * (int)sizeof(T);   // bytes of the Q tile
@@ -174,6 +196,9 @@ __global__ void __launch_bounds__(FwdCfg<DP, T>::kThreads, FwdCfg<DP, T>::kMinBl
   if (causal) n_kt = min(n_kt, (q0 + kBM - 1) / kBN + 1);
   const int tid = threadIdx.x, warp = (tid % 128) / 32, lane = tid % 32;
   const int wg = C::kWG == 1 ? 0 : tid / 128;
+  // this warpgroup's first row of the Q tile, and its first column of O
+  const int wg_row = C::kHalves ? 0 : 64 * wg;
+  const int col0 = C::kHalves ? wg * C::kOCols : 0;
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
@@ -198,10 +223,10 @@ __global__ void __launch_bounds__(FwdCfg<DP, T>::kThreads, FwdCfg<DP, T>::kMinBl
   }
 
   const uint32_t q_addr = smem_u32(q_s), kv_addr = smem_u32(kv_s);
-  const int row_lo = q0 + 64 * wg + 16 * warp + lane / 4;  // rows row_lo and row_lo + 8
-  float acc[DP / 2];
+  const int row_lo = q0 + wg_row + 16 * warp + lane / 4;  // rows row_lo and row_lo + 8
+  float acc[C::kOCols / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < C::kOCols / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // per thread: partial l
 
   mbar_wait(bar_q, 0);
@@ -230,8 +255,8 @@ __global__ void __launch_bounds__(FwdCfg<DP, T>::kThreads, FwdCfg<DP, T>::kMinBl
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DP / 8; ++kk) {
-          const uint64_t qh = desc_kmajor(q_addr, kBM, 64 * wg, kk),
-                         ql = desc_kmajor(qlo_addr, kBM, 64 * wg, kk);
+          const uint64_t qh = desc_kmajor(q_addr, kBM, wg_row, kk),
+                         ql = desc_kmajor(qlo_addr, kBM, wg_row, kk);
           const uint64_t kh = desc_kmajor(k_addr, kBN, 0, kk),
                          kl = desc_kmajor(klo_addr, kBN, 0, kk);
           wgmma_ss_tf32(sc, ql, kh, kk > 0);
@@ -243,7 +268,7 @@ __global__ void __launch_bounds__(FwdCfg<DP, T>::kThreads, FwdCfg<DP, T>::kMinBl
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_ss<0, T>(sc, desc_kmajor(q_addr, kBM, 64 * wg, kk),
+        wgmma_ss<0, T>(sc, desc_kmajor(q_addr, kBM, wg_row, kk),
                        desc_kmajor(k_addr, kBN, 0, kk), kk > 0);
     }
     wgmma_commit();
@@ -251,7 +276,7 @@ __global__ void __launch_bounds__(FwdCfg<DP, T>::kThreads, FwdCfg<DP, T>::kMinBl
     fence_regs(sc);
 
     const int k0 = j * kBN;
-    const bool edge = k0 + kBN > S || (causal && k0 + kBN - 1 > q0 + 64 * wg);
+    const bool edge = k0 + kBN > S || (causal && k0 + kBN - 1 > q0 + wg_row);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < kBN / 2; ++i) {
@@ -281,7 +306,7 @@ __global__ void __launch_bounds__(FwdCfg<DP, T>::kThreads, FwdCfg<DP, T>::kMinBl
       sc[i] = p;
     }
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+    for (int i = 0; i < C::kOCols / 2; ++i) acc[i] *= corr[(i / 2) % 2];
 
     if constexpr (C::kTf32) {
       const uint32_t vt_addr = k_addr + 3 * kKV, vtlo_addr = k_addr + 4 * kKV;
@@ -302,7 +327,7 @@ __global__ void __launch_bounds__(FwdCfg<DP, T>::kThreads, FwdCfg<DP, T>::kMinBl
       for (int kk = 0; kk < kBN / 16; ++kk) {
         uint32_t a[4];
         a_fragment<T>(a, sc, kk);
-        wgmma_rs<1, T>(acc, a, desc_mnmajor(v_addr, kBN, kk), 1);
+        wgmma_rs<1, T>(acc, a, desc_mnmajor(v_addr + panel_offset(col0, kBN), kBN, kk), 1);
       }
     }
     wgmma_commit();
@@ -324,13 +349,17 @@ __global__ void __launch_bounds__(FwdCfg<DP, T>::kThreads, FwdCfg<DP, T>::kMinBl
     const int row = row_lo + 8 * r;
     if (row >= S) continue;
     const float li = fmaxf(l[r], 1e-30f);
-    TO* orow = o + ((long long)b * S + row) * qstride + (long long)h * D;
+    TO* orow = o + ((long long)b * S + row) * qstride + (long long)h * D + col0;
+    // this warpgroup's columns of O (kD at most where D is fixed)
+    constexpr int kCols = C::kHalves ? C::kOCols : kD ? kD : DP;
 #pragma unroll
-    for (int c = 0; c < (kD ? kD : DP) / 8; ++c)
-      if (8 * c < D)  // the padded columns are not written
+    for (int c = 0; c < kCols / 8; ++c)
+      if (col0 + 8 * c < D)  // the padded columns are not written
         store2(orow + 8 * c + 2 * (lane % 4), acc[4 * c + 2 * r] / li,
                acc[4 * c + 2 * r + 1] / li);
-    if (lane % 4 == 0) lse[((long long)b * H + h) * S + row] = m[r] * kLn2 + logf(li);
+    // with column halves both warpgroups hold the row's m and l: one writes
+    if (lane % 4 == 0 && (!C::kHalves || wg == 0))
+      lse[((long long)b * H + h) * S + row] = m[r] * kLn2 + logf(li);
   }
 }
 
@@ -350,14 +379,27 @@ int launch_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* 
 
 // The instance for head_dim D: D 32, 64, 96 and 128 with D fixed at
 // compile time (the head_dims these instances took before every head_dim
-// had a route, so their code stands), and the wide heads at D 192 and 256;
-// every other D at its padded width with D at run time. Wide heads (DP 192
-// for D 136..192, 256 above) take bf16 or fp16 q with an o in q's dtype or
-// the sequence ring's fp32 one, and fp32 q with an fp32 o.
+// had a route, so their code stands), and the wide heads at D 192, 256, 384
+// and 512; every other D at its padded width with D at run time. Wide heads
+// (DP 192 for D 136..192, 256 above) take bf16 or fp16 q with an o in q's
+// dtype or the sequence ring's fp32 one, and fp32 q with an fp32 o; the
+// widest (DP 384 for D 264..384, 512 above) bf16 or fp16 q with an o in q's
+// dtype only.
 template <typename T, typename TO>
 int launch_fwd_sm90_d(int D, const void* q, const void* k, const void* v, void* o, void* lse,
                       int B, int S, int H, int Hkv, float scale, int causal, cudaStream_t st) {
   using sm90::padded_width;
+  if constexpr (std::is_same<T, TO>::value && !std::is_same<T, float>::value) {
+    if (D == 512)
+      return launch_fwd_sm90<512, 512, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+    if (D == 384)
+      return launch_fwd_sm90<384, 384, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+    if (D > 384)
+      return launch_fwd_sm90<512, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+    if (D > 256)
+      return launch_fwd_sm90<384, 0, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D, scale, causal, st);
+  }
+  if (D > 256) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 32:
       return launch_fwd_sm90<padded_width<T>(32), 32, T, TO>(q, k, v, o, lse, B, S, H, Hkv, D,
@@ -696,13 +738,15 @@ int launch_probe_tf32_wide(const void* a, const void* b, void* c1, void* c2, voi
 }  // namespace hvt
 
 // Returns 0 or the CUDA error of the launch. q, k, v bf16 (dtype 1), fp16
-// (2) or fp32 (0) with any D the port takes (8..256 in steps of 8);
-// out_dtype: the dtype of o, q's or fp32 (0).
+// (2) or fp32 (0) with any D the port takes in steps of 8 (8..512 for
+// bf16 or fp16 q with o in q's dtype, else 8..256); out_dtype: the dtype of
+// o, q's or fp32 (0).
 extern "C" int hvt_flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int B, int S, int H, int Hkv, int D, float scale,
                                   int causal, int dtype, int out_dtype, void* stream) {
   using namespace hvt;
-  if (!valid_shape(B, S, H, Hkv, D, kMaxDSm90)) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(B, S, H, Hkv, D, sm90_max_d(dtype, out_dtype)))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kBF16 && out_dtype == kBF16)

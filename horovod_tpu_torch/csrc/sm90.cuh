@@ -170,8 +170,15 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int rows, int row
   return desc_sw128(addr, 16, kAtomBytes);
 }
 
+// Byte offset of column col0 (a multiple of 64) in a panelled 2-byte tile
+// of `rows` rows: where an MN-major operand over columns col0.. starts (the
+// column halves of the head_dim-264..512 kernels).
+__host__ __device__ constexpr int panel_offset(int col0, int rows) {
+  return col0 / 64 * rows * kRowBytes;
+}
+
 // MN-major operand: the kk-th 16-row step of a panelled tile with `rows`
-// rows; its columns (all panels) are the product's N.
+// rows; its columns (all panels from the start) are the product's N.
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int rows, int kk) {
   return desc_sw128(tile + kk * 16 * kRowBytes, rows * kRowBytes, kAtomBytes);
 }
@@ -424,6 +431,9 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
 
 // The wrappers' operand lists: an accumulator of n fp32 registers as the asm
 // operands %0..%(n - 1) (HVT_Rn) and their constraints (HVT_Dn).
+#define HVT_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define HVT_D8 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
 #define HVT_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define HVT_D16 \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
@@ -493,9 +503,26 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
   "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
   "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
 
-// Generated operand lists: m64nNk16 at N 32, 64, 128, 192 and 256 (ss) and
-// 64, 128, 192 and 256 (rs), T (bf16 or fp16) in, fp32 out. kTransB = 0: B
-// is K-major; 1: B is MN-major. scale_d = 0 overwrites d.
+// Generated operand lists: m64nNk16 at N 16, 32, 64, 128, 192 and 256 (ss)
+// and 64, 128, 192 and 256 (rs), T (bf16 or fp16) in, fp32 out. kTransB =
+// 0: B is K-major; 1: B is MN-major. scale_d = 0 overwrites d.
+// d[0:8] (+)= A[64 x 16] B[16 x 16]; A and B from shared memory.
+template <int kTransB, typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+#define HVT_MMA(AB)                                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                            \
+               "wgmma.mma_async.sync.aligned.m64n16k16.f32." AB "." AB " {" HVT_R8 "}, " \
+               "%8, %9, p, 1, 1, 0, %11;\n}\n"                                  \
+               : HVT_D8                                                               \
+               : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB))
+  if constexpr (is_f16<T>())
+    HVT_MMA("f16");
+  else
+    HVT_MMA("bf16");
+#undef HVT_MMA
+}
+
 // d[0:16] (+)= A[64 x 16] B[16 x 32]; A and B from shared memory.
 template <int kTransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,

@@ -18,11 +18,13 @@ kernel              source (``csrc/``)        replaces
 
 The ``*_sm90`` kernels run their products on the tensor cores (``wgmma``,
 tiles brought by TMA) and take what ``SM90_ROUTES`` lists, keyed by q's
-dtype and o's (dO's) dtype: bf16 and fp16 q at every head_dim 1..256, with
-an o in q's dtype or the sequence ring's fp32 one (``flash_dq_sm90`` and
-``flash_dkv_sm90`` take an fp32 dO as two terms of q's dtype), and fp32 q
-with an fp32 o at every head_dim 1..256 too (products as 3xTF32: each
-operand split into two TF32 terms, three products summed in fp32). fp16's
+dtype and o's (dO's) dtype: bf16 and fp16 q at every head_dim 1..512 with
+an o in q's dtype (above 256 each warpgroup or block owns one column half
+of the head), and at every head_dim 1..256 with the sequence ring's fp32 o
+(``flash_dq_sm90`` and ``flash_dkv_sm90`` take an fp32 dO as two terms of
+q's dtype); fp32 q with an fp32 o at every head_dim 1..256 (products as
+3xTF32: each operand split into two TF32 terms, three products summed in
+fp32). fp16's
 range is narrow (normals from 2^-14, at most 65504), so on fp16 q the dq
 and dkv kernels take dO times a power of two 2^e from dO's largest
 magnitude (``dout_scale``; the wrappers pass that magnitude as a device
@@ -35,9 +37,9 @@ dv, which are cut off), and a head_dim that is not a whole number of
 do fp32 FMAs on the CUDA cores and take fp32 or bf16 with any head_dim up
 to 128; no route reaches them, and all three stay built and checked on the
 card as ``variant="simt"``. A shape that no tensor-core kernel takes (head
-dims above 256, or a 2-byte o of another dtype than q's) raises
-``ValueError`` on a CUDA tensor,
-naming the routes; ``use_flash="auto"`` takes the kernels only where
+dims above 512, above 256 with fp32 q or an fp32 o, or a 2-byte o of
+another dtype than q's) raises ``ValueError`` on a CUDA tensor, naming
+each route's range; ``use_flash="auto"`` takes the kernels only where
 ``sm90_takes`` says all three do. A kernel that fails to build or launch
 raises.
 
@@ -442,18 +444,20 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale, causal,
 
 # what each tensor-core kernel takes: {(q's dtype, o's or dO's dtype): the
 # head_dims the kernels see, in steps of 8; every head_dim up to the last
-# reaches them zero-padded (padded_head_dim)}. Off these routes: head_dims
-# above 256 (ROADMAP).
+# reaches them zero-padded (padded_head_dim)}. Off these routes (ROADMAP):
+# head_dims above 512, and above 256 the ring's fp32 o/dO and fp32 q.
 HEAD_DIMS = tuple(range(8, 129, 8))         # 1-4 fp32 or 1-2 2-byte panels
 WIDE_HEAD_DIMS = tuple(range(136, 257, 8))  # padded widths 192 and 256
+XWIDE_HEAD_DIMS = tuple(range(264, 513, 8))  # 384 and 512: 2-byte, o in q's dtype
 SIMT_MAX_HEAD_DIM = 128
 _BF16, _FP16, _FP32 = torch.bfloat16, torch.float16, torch.float32
-SM90_ROUTES = {base: {(_BF16, _BF16): HEAD_DIMS + WIDE_HEAD_DIMS,
-                      (_BF16, _FP32): HEAD_DIMS + WIDE_HEAD_DIMS,
-                      (_FP16, _FP16): HEAD_DIMS + WIDE_HEAD_DIMS,
-                      (_FP16, _FP32): HEAD_DIMS + WIDE_HEAD_DIMS,
-                      (_FP32, _FP32): HEAD_DIMS + WIDE_HEAD_DIMS}
-               for base in ("flash_fwd", "flash_dq", "flash_dkv")}
+SM90_ROUTES = {base: {
+    (_BF16, _BF16): HEAD_DIMS + WIDE_HEAD_DIMS + XWIDE_HEAD_DIMS,
+    (_BF16, _FP32): HEAD_DIMS + WIDE_HEAD_DIMS,
+    (_FP16, _FP16): HEAD_DIMS + WIDE_HEAD_DIMS + XWIDE_HEAD_DIMS,
+    (_FP16, _FP32): HEAD_DIMS + WIDE_HEAD_DIMS,
+    (_FP32, _FP32): HEAD_DIMS + WIDE_HEAD_DIMS}
+    for base in ("flash_fwd", "flash_dq", "flash_dkv")}
 
 
 def padded_head_dim(d) -> int:
@@ -487,13 +491,17 @@ def sm90_takes(dtype, head_dim, out_dtype=None) -> bool:
 
 
 def _refusal(name, dtype, out_dtype, d) -> str:
+    """What ``name`` takes, each route with its own range of head_dims, and
+    what it was given."""
     short = lambda t: str(t).split(".")[-1]
-    top = WIDE_HEAD_DIMS[-1]
-    return (f"{name} takes bfloat16 q with head_dim 1..{top} (o/dO bfloat16 "
-            f"or float32), float16 q with head_dim 1..{top} (o/dO float16 "
-            f"or float32) and float32 q with head_dim 1..{top} (o/dO "
-            f"float32); got {short(dtype)} q with {short(out_dtype)} o/dO, "
-            f"head_dim {d}")
+    routes = SM90_ROUTES[name[:-len("_sm90")]]
+    takes = [f"{short(q)} q with head_dim "
+             + " or ".join(f"1..{routes[q, o][-1]} (o/dO {short(o)})"
+                           for o in dict.fromkeys((q, _FP32))
+                           if (q, o) in routes)
+             for q in (_BF16, _FP16, _FP32)]
+    return (f"{name} takes {takes[0]}, {takes[1]} and {takes[2]}; got "
+            f"{short(dtype)} q with {short(out_dtype)} o/dO, head_dim {d}")
 
 
 def _kernel(base, q, variant, out_dtype=None):

@@ -38,10 +38,10 @@ def resolve_flash(use_flash, local_seq, dtype, head_dim,
     ``local_seq`` positions of q in ``dtype`` with ``head_dim``, o in
     ``out_dtype`` (default q's): "auto" is True above
     ``FLASH_AUTO_THRESHOLD`` where all three kernels take the shape
-    (``_kernels.sm90_takes``: bf16 or fp16 q at head_dim 1..256 with an o
-    in q's dtype or fp32, fp32 at 1..256), else the einsum path; True stays
-    True, and the kernels then raise on a CUDA tensor whose shape they do
-    not take."""
+    (``_kernels.sm90_takes``: bf16 or fp16 q at head_dim 1..512 with an o
+    in q's dtype and at 1..256 with an fp32 o, fp32 at 1..256), else the
+    einsum path; True stays True, and the kernels then raise on a CUDA
+    tensor whose shape they do not take."""
     if isinstance(use_flash, str):
         if use_flash != "auto":
             raise ValueError(

@@ -97,11 +97,25 @@ FP16_CASES = [
     (1, 200, 8, 1, 250, F16, True, torch.float32),   # to 256
     (2, 130, 4, 2, 136, F16, True, torch.float32),   # to 192
 ]
+# the widest heads, head_dim 264..512, bf16 and fp16 q with o and dO in q's
+# dtype: padded widths 384 and 512, D fixed at 384 and 512 and at run time
+# between, causal and not, GQA and MQA, and one head_dim off the grid of 8
+BF = torch.bfloat16
+XWIDE_CASES = [
+    (c[0], c[1], c[2], c[3], c[4], dtype, c[5], dtype)
+    for dtype in (BF, F16) for c in (
+        (2, 300, 4, 1, 512, True),      # MQA
+        (2, 256, 3, 3, 384, False),
+        (1, 200, 2, 2, 400, True),      # to 512
+        (2, 130, 4, 2, 264, True),      # GQA, to 384
+        (1, 200, 8, 1, 512, False),     # MQA
+        (1, 150, 4, 2, 300, False),     # to 304, then 384
+    )]
 # every case on the SIMT kernels, and on each kernel's own route (None:
 # _variant's choice) where that reaches a tensor-core kernel; the wide heads
 # and fp16 on their route only
 VARIANT_CASES = [(c, "simt") for c in CASES] + [
-    (c, None) for c in CASES + WIDE_CASES + FP16_CASES
+    (c, None) for c in CASES + WIDE_CASES + FP16_CASES + XWIDE_CASES
     if any(_kernels._variant(base, c[5], c[4], c[7]) == "sm90"
            for base in ("flash_fwd", "flash_dq", "flash_dkv"))]
 
@@ -163,6 +177,21 @@ def test_kernels_match_plain_versions(cuda, case, variant):
     want_launches.update({n: 1 for n in names.values()})
     assert {n: _kernels.LAUNCHES[n] - before[n] for n in before} == \
         want_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", XWIDE_CASES,
+                         ids=lambda c: "-".join(map(str, c[:7])))
+def test_widest_heads_dq_gives_the_same_bits_every_run(cuda, case):
+    """dq at head_dim 264..512 keeps its one owner (each warpgroup its
+    column half, no atomics): a second launch on the same inputs gives the
+    same bits."""
+    q, k, v, do = _inputs(case, cuda)
+    scale = q.shape[-1] ** -0.5
+    o, lse = _kernels.flash_fwd(q, k, v, scale, case[6], case[7])
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, scale, case[6])
+    assert torch.equal(_kernels.flash_dq(*args), _kernels.flash_dq(*args))
 
 
 # bf16 or fp16 q with an fp32 o, and so an fp32 dO: the sequence ring's
@@ -336,7 +365,9 @@ def test_wide_wgmma_products_match_matmul(cuda, n):
     (1, 64, 2, 1, 264, torch.bfloat16, True, torch.bfloat16),    # past 256
     (1, 64, 2, 1, 264, torch.float32, True, torch.float32),      # past 256
     (1, 64, 2, 1, 256, torch.bfloat16, True, torch.float32),     # fp32 o
-    (1, 64, 2, 1, 264, F16, True, F16),                          # past 256
+    (1, 64, 2, 1, 520, F16, True, F16),                          # past 512
+    (1, 64, 2, 1, 520, torch.bfloat16, True, torch.bfloat16),    # past 512
+    (1, 64, 2, 1, 264, F16, True, torch.float32),  # fp32 o past 256
 ], ids=lambda c: "-".join(map(str, c[4:6] + c[7:])))
 def test_no_quiet_fallback_at_shapes_a_kernel_refuses(cuda, case):
     """use_flash=True at a shape no tensor-core kernel takes raises on the
@@ -480,13 +511,13 @@ def test_wire_codec_kernels_match_plain_versions_bit_for_bit(cuda, codec):
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda):
     """What the tensor-core kernels still refuse raises ValueError naming
-    the routes, before any launch: head_dims above 256 (bf16 and fp16 q with
-    an o in q's dtype or the ring's fp32 one, and fp32)."""
+    the routes, before any launch: head_dims above 512 (bf16 and fp16 q with
+    an o in q's dtype), above 256 with the ring's fp32 o or fp32 q."""
     before = dict(_kernels.LAUNCHES)
     for d, dtype, out_dtype in ((264, torch.float32, torch.float32),
-                                (264, torch.float16, torch.float16),
+                                (520, torch.float16, torch.float16),
                                 (264, torch.float16, torch.float32),
-                                (264, torch.bfloat16, torch.bfloat16),
+                                (520, torch.bfloat16, torch.bfloat16),
                                 (264, torch.bfloat16, torch.float32)):
         q = torch.zeros(1, 16, 2, d, device=cuda, dtype=dtype)
         with pytest.raises(ValueError, match="flash_fwd_sm90 takes "

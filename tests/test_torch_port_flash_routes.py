@@ -4,9 +4,10 @@ at head_dim 32 and 96, then dq's fp32 and bf16 at every head_dim, the
 forward's and dk/dv's head_dims off the 32-grid (8, 48, 80), the sequence
 ring's bf16 q with an fp32 o and dO, bf16 at the wide heads (head_dim
 136..256, padded to 192 or 256), the ring's fp32 o and dO at the wide heads
-too, fp32 at the wide heads, and head_dims off the kernels' grid of 8 (1..7
-and the rest), which the port's flash attention zero-pads to the next
-multiple of 8. Each wrapper
+too, fp32 at the wide heads, bf16 and fp16 at the widest heads (head_dim
+264..512, padded to 384 or 512, o in q's dtype), and head_dims off the
+kernels' grid of 8 (1..7 and the rest), which the port's flash attention
+zero-pads to the next multiple of 8. Each wrapper
 runs the plain version of the kernel it would launch on a CUDA tensor, and
 the port's flash attention on these routes is held against the JAX
 package's (Pallas interpret mode, as tests/test_flash_attention.py runs it)
@@ -16,7 +17,10 @@ sequence-parallel paths follow it.
 
 Tolerances: bf16 5e-2 (tests/test_torch_port_flash.py's: the two sides
 round p, o and, on the sm90 route, p and ds before the dk/dv products and
-ds before ds k at different points); fp32 1e-5 forward and 1e-4 gradients,
+ds before ds k at different points); fp16 1e-2 relative to each output's
+largest magnitude (that file's too: fp16's ulp is 8x finer than bf16's,
+the sides round at the same different points); fp32 1e-5 forward and 1e-4
+gradients,
 as tests/test_flash_attention.py holds the Pallas kernels to a dense
 reference. On the card the fp32 route's products run as 3xTF32, within
 about 2^-21 of fp32 products (tests/test_torch_port_cuda.py holds them to
@@ -38,7 +42,7 @@ from horovod_tpu_torch.ops.flash_attention import (flash_attention_with_lse,
                                                    resolve_flash)
 from horovod_tpu_torch.parallel import sequence
 
-BF16, FP32_FWD, FP32_GRAD = 5e-2, 1e-5, 1e-4
+BF16, FP16, FP32_FWD, FP32_GRAD = 5e-2, 1e-2, 1e-5, 1e-4
 
 
 def _inputs(b, s, h, h_kv, d, seed=0):
@@ -295,8 +299,8 @@ def test_dq_and_fwd_take_sm90_on_every_route_and_dkv_refuses_it_off_the_grid():
     at every head_dim 1..256 (off the kernels' grid of 8 zero-padded to it),
     so no route reaches a SIMT kernel, and each works asked for by name at a
     padded head_dim (48) and at one off the grid (44); off the routes' grid
-    of head_dims (above 256) dkv's tensor-core kernel, asked for by name,
-    raises."""
+    of head_dims (fp32 above 256) dkv's tensor-core kernel, asked for by
+    name, raises, naming each route's range."""
     lse = torch.zeros(1, 2, 8)
     for dtype in (torch.bfloat16, torch.float32):
         for d in range(1, 257):
@@ -312,24 +316,28 @@ def test_dq_and_fwd_take_sm90_on_every_route_and_dkv_refuses_it_off_the_grid():
             assert dk.shape == dv.shape == q.shape and dk.dtype == dtype
     q = torch.zeros(1, 8, 2, 264)
     assert _kernels._variant("flash_dkv", torch.float32, 264) == "simt"
-    with pytest.raises(ValueError, match="flash_dkv_sm90 takes bfloat16 q "
-                                         "with head_dim 1..256"):
+    with pytest.raises(ValueError, match=r"flash_dkv_sm90 takes bfloat16 q "
+                                         r"with head_dim 1\.\.512 \(o/dO "
+                                         r"bfloat16\) or 1\.\.256 \(o/dO "
+                                         r"float32\)"):
         _kernels.flash_dkv(q, q, q, q, lse, lse, 1.0, True, variant="sm90")
 
 
-def test_sm90_takes_fp32_and_bf16_up_to_256_and_no_fp16():
-    """sm90_takes, which use_flash="auto" asks: fp32 q with an fp32 o at
-    every head_dim 1..256 (3xTF32 at padded widths 192 and 256 above 128),
-    not at 264; bf16 and fp16 q the same with an o in q's dtype or fp32; no
-    fp16 past 256, and no 2-byte o other than q's."""
-    for d in range(1, 257):
-        assert _kernels.sm90_takes(torch.float32, d)
+def test_sm90_takes_2byte_q_up_to_512_and_fp32_or_an_fp32_o_up_to_256():
+    """sm90_takes, which use_flash="auto" asks: bf16 and fp16 q with an o in
+    q's dtype at every head_dim 1..512 (padded widths 384 and 512 above
+    256), not at 520; with the ring's fp32 o at 1..256, not at 264; fp32 q
+    with an fp32 o at 1..256 (3xTF32 at padded widths 192 and 256 above
+    128), not at 264; and no 2-byte o other than q's."""
+    for d in range(1, 513):
         for dtype in (torch.bfloat16, torch.float16):
             assert _kernels.sm90_takes(dtype, d)
-            assert _kernels.sm90_takes(dtype, d, torch.float32)
+            assert _kernels.sm90_takes(dtype, d, torch.float32) == (d <= 256)
+        assert _kernels.sm90_takes(torch.float32, d) == (d <= 256)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        assert not _kernels.sm90_takes(dtype, 264)
+        assert not _kernels.sm90_takes(dtype, 520)
     assert not _kernels.sm90_takes(torch.float16, 264, torch.float32)
+    assert not _kernels.sm90_takes(torch.bfloat16, 264, torch.float32)
     assert not _kernels.sm90_takes(torch.float16, 64, torch.bfloat16)
     assert not _kernels.sm90_takes(torch.float32, 64, torch.bfloat16)
 
@@ -428,13 +436,75 @@ def test_fp32_wide_heads_take_the_sm90_route_with_fp32_operands(d):
         assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
+# ---- the widest heads (bf16 and fp16 q, o in q's dtype, head_dim 264..512)
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,causal", [(264, True), (384, True), (512, True),
+                                      (512, False)])
+def test_widest_heads_match_jax(d, causal, dtype):
+    """bf16 and fp16 at head_dim 264, 384 and 512 (padded widths 384 and
+    512 on the card, 264 with D at run time), one K/V head, causal and not:
+    the plain versions of flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90
+    (what the wrappers run on CPU tensors, with the kernels' 2-byte
+    operands) against the JAX package's flash attention (Pallas interpret
+    mode) on the same inputs and cotangent: o, dq, dk and dv within BF16
+    (bf16) or within FP16 of each output's largest magnitude (fp16), lse
+    within FP32_GRAD."""
+    q, k, v, do = _inputs(1, 128, 2, 1, d, seed=14)
+    bf16 = dtype == torch.bfloat16
+    o_j, lse_j, g_j = _jax_side(q, k, v, do, causal,
+                                jnp.bfloat16 if bf16 else jnp.float16, 64)
+    o_t, lse_t, g_t = _torch_side(q, k, v, do, causal, dtype)
+    np.testing.assert_allclose(lse_t.numpy(), lse_j, rtol=FP32_GRAD,
+                               atol=FP32_GRAD)
+    for name, got, want in zip(("o", "dq", "dk", "dv"), [o_t, *g_t],
+                               [o_j, *g_j]):
+        assert got.dtype == dtype and got.shape[-1] == d, name
+        top = 1.0 if bf16 else float(np.abs(want).max())
+        tol = BF16 if bf16 else FP16
+        np.testing.assert_allclose(got.float().numpy() / top, want / top,
+                                   rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [264, 400, 512])
+def test_widest_heads_take_the_sm90_route_and_its_rounding(d, dtype):
+    """On a CPU tensor each wrapper runs the plain version of the
+    tensor-core kernel at the widest heads (264 and 400 with D at run time
+    in the padded-width-384 and 512 instances): dq and dk/dv round their
+    operands to q's dtype as the kernels do (fp16 after dO's scale), and
+    that rounding is real at these inputs."""
+    q, k, v, do = (torch.tensor(x).to(dtype)
+                   for x in _inputs(1, 64, 2, 1, d, seed=15))
+    scale = d ** -0.5
+    for base in ("flash_fwd", "flash_dq", "flash_dkv"):
+        assert _kernels._variant(base, dtype, d) == "sm90"
+        assert _kernels._kernel(base, q, None) == base + "_sm90"
+    assert _kernels._rounds_operands("flash_dkv_sm90", q, dtype)
+    o, lse = _kernels.flash_fwd(q, k, v, scale, True, dtype)
+    for got, want in zip((o, lse), _kernels.flash_fwd_plain(
+            q, k, v, scale, True, dtype)):
+        assert torch.equal(got, want)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, scale, True)
+    dq = _kernels.flash_dq(*args)
+    assert torch.equal(dq, _kernels.flash_dq_plain(*args, split_dout=True,
+                                                   round_ds=True))
+    assert not torch.equal(dq, _kernels.flash_dq_plain(*args))
+    dk, dv = _kernels.flash_dkv(*args)
+    for got, want in zip((dk, dv), _kernels.flash_dkv_plain(
+            *args, split_dout=True, round_operands=True)):
+        assert got.dtype == dtype and torch.equal(got, want)
+    assert not torch.equal(dk, _kernels.flash_dkv_plain(*args)[0])
+
+
 @pytest.mark.parametrize("dtype,d,out_dtype", [
-    (torch.float32, 264, None),            # past 256
-    (torch.float16, 264, None),            # fp16 past 256
+    (torch.float32, 264, None),            # fp32 past 256
+    (torch.float16, 520, None),            # fp16 past 512
     (torch.float16, 264, torch.float32),   # fp16 with an fp32 o past 256
     (torch.bfloat16, 264, torch.float32),  # the ring's fp32 o past 256
-    (torch.bfloat16, 264, None),           # past 256
-    (torch.float16, 300, None),            # fp16 past 256
+    (torch.bfloat16, 520, None),           # past 512
+    (torch.float16, 516, None),            # padded to 520: past 512
 ])
 def test_shapes_no_kernel_takes_raise_on_a_cuda_tensor(monkeypatch, dtype,
                                                        d, out_dtype):
@@ -453,11 +523,14 @@ def test_shapes_no_kernel_takes_raise_on_a_cuda_tensor(monkeypatch, dtype,
     lse = meta((1, 2, 16), torch.float32)
     assert not _kernels.sm90_takes(dtype, d, out_dtype)
     with pytest.raises(ValueError, match=r"flash_fwd_sm90 takes bfloat16 q "
-                                         r"with head_dim 1\.\.256 \(o/dO "
-                                         r"bfloat16 or float32\), float16 q "
-                                         r"with head_dim 1\.\.256 \(o/dO "
-                                         r"float16 or float32\) and float32 "
-                                         r"q with head_dim 1\.\.256"):
+                                         r"with head_dim 1\.\.512 \(o/dO "
+                                         r"bfloat16\) or 1\.\.256 \(o/dO "
+                                         r"float32\), float16 q with "
+                                         r"head_dim 1\.\.512 \(o/dO "
+                                         r"float16\) or 1\.\.256 \(o/dO "
+                                         r"float32\) and float32 q with "
+                                         r"head_dim 1\.\.256 \(o/dO "
+                                         r"float32\); got "):
         _kernels.flash_fwd(q, q, q, 1.0, True, o_dtype)
     with pytest.raises(ValueError, match="flash_dq_sm90 takes"):
         _kernels.flash_dq(q, q, q, do, lse, lse, 1.0, True)
@@ -480,6 +553,11 @@ def test_shapes_no_kernel_takes_raise_on_a_cuda_tensor(monkeypatch, dtype,
     (torch.float32, 200, None),
     (torch.float32, 256, None),
     (torch.float32, 250, None),            # and off the grid
+    (torch.bfloat16, 264, None),           # the widest heads: to 384
+    (torch.float16, 264, None),
+    (torch.float16, 300, None),            # off the 8-grid: to 304, 384
+    (torch.bfloat16, 512, None),
+    (torch.float16, 400, None),            # to 512
 ])
 def test_new_routes_reach_the_kernels_on_a_cuda_tensor(monkeypatch, dtype, d,
                                                        out_dtype):
@@ -660,7 +738,7 @@ AUTO = [
     (torch.bfloat16, 256, None, True),     # Gemma's head
     (torch.bfloat16, 64, torch.float32, True),   # the ring's blocks
     (torch.float32, 128, None, True),
-    (torch.bfloat16, 264, None, False),
+    (torch.bfloat16, 264, None, True),     # the widest heads: to 384
     (torch.bfloat16, 100, None, True),     # off the 8-grid: padded
     (torch.float16, 64, None, True),       # fp16 (PR 19)
     (torch.float32, 256, None, True),      # fp32 at the wide heads
@@ -671,6 +749,9 @@ AUTO = [
     (torch.bfloat16, 264, torch.float32, False),
     (torch.float16, 100, None, True),      # fp16 off the 8-grid: padded
     (torch.float32, 4, None, True),
+    (torch.float16, 512, None, True),      # fp16 at the widest heads
+    (torch.bfloat16, 520, None, False),    # past 512
+    (torch.float16, 300, torch.float32, False),  # the ring's past 256
 ]
 
 
@@ -704,9 +785,10 @@ def _spy(monkeypatch, module, name):
 @pytest.mark.parametrize("dtype,d,flash", [
     (torch.bfloat16, 64, True),
     (torch.bfloat16, 256, True),
-    (torch.bfloat16, 264, False),
+    (torch.bfloat16, 264, True),
     (torch.float32, 256, True),
     (torch.float32, 264, False),
+    (torch.bfloat16, 520, False),
 ])
 def test_the_model_follows_auto(monkeypatch, dtype, d, flash):
     """models/transformer.py's attention with use_flash="auto" at sequence
@@ -737,7 +819,8 @@ class _OneMember:
 @pytest.mark.parametrize("dtype,d,ring_flash,ulysses_flash", [
     (torch.bfloat16, 64, True, True),
     (torch.bfloat16, 256, True, True),     # the ring's fp32 o at 256
-    (torch.bfloat16, 264, False, False),
+    (torch.bfloat16, 264, False, True),    # the ring's fp32 o stops at 256
+    (torch.bfloat16, 520, False, False),
     (torch.float16, 64, True, True),       # fp16: the ring's fp32 o too
     (torch.bfloat16, 100, True, True),     # off the 8-grid: padded
     (torch.float32, 200, True, True),      # fp32 at the wide heads
@@ -746,9 +829,9 @@ class _OneMember:
 def test_the_sequence_paths_follow_auto(monkeypatch, dtype, d, ring_flash,
                                         ulysses_flash):
     """parallel/sequence.py with use_flash="auto" on a 256-position shard:
-    ring attention's blocks (bf16 q with an fp32 o) and Ulysses' local
-    attention (o in q's dtype) take the flash kernels where "auto" takes
-    them, else the einsum blocks."""
+    ring attention's blocks (bf16 q with an fp32 o, up to head_dim 256)
+    and Ulysses' local attention (o in q's dtype, up to 512) take the flash
+    kernels where "auto" takes them, else the einsum blocks."""
     monkeypatch.setattr(sequence.basics, "rank", lambda: 0)
     blocks = _spy(monkeypatch, sequence, "flash_ring_block")
     local = _spy(monkeypatch, sequence, "flash_attention")

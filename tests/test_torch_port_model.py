@@ -181,6 +181,27 @@ def test_head_dim_256_gpt_loss_and_grads_match_flax(dtype, tol):
     assert tmodel.blocks[0].attn.k.shape == (512, 1, 256)
 
 
+# the widest heads cut to a small size: two heads of 512, one K/V head
+WIDEST = dict(vocab_size=512, n_layers=2, d_model=1024, n_heads=2,
+              n_kv_heads=1, d_ff=512, max_seq_len=128)
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    ("bfloat16", 5e-2),
+    ("float16", 1e-2),
+])
+def test_head_dim_512_gpt_loss_and_grads_match_flax(dtype, tol):
+    """A GPT at head_dim 512 with one K/V head through the flash path
+    (use_flash=True; on the CPU the plain versions of the padded-width-512
+    tensor-core kernels with their 2-byte operands): the loss and every
+    parameter's gradient against the JAX GPT's (Pallas interpret mode) from
+    the same weights and tokens, at the tolerances of
+    test_head_dim_256_gpt_loss_and_grads_match_flax."""
+    tokens = np.random.RandomState(4).randint(0, 512, (1, 128))
+    tmodel = _loss_and_grads_match_flax(WIDEST, dtype, tol, tokens)
+    assert tmodel.blocks[0].attn.k.shape == (1024, 1, 512)
+
+
 def test_fp16_flash_entry_gpt_loss_and_grads_match_flax():
     """The ENTRY GPT (head_dim 32) in fp16 with use_flash=True, as the JAX
     package's GPT runs fp16 (no loss scaler): on the CPU the plain versions

@@ -53,6 +53,10 @@ BF16_OPERANDS = 2e-2
     (torch.float32, 136, "sm90", "sm90"),
     (torch.float32, 200, "sm90", "sm90"),
     (torch.float32, 250, "sm90", "sm90"),
+    # bf16 and fp16 at the widest heads (padded widths 384 and 512)
+    (torch.bfloat16, 264, "sm90", "sm90"),
+    (torch.bfloat16, 512, "sm90", "sm90"),
+    (torch.float16, 300, "sm90", "sm90"),
     (torch.float32, 256, "sm90", "sm90"),
 ])
 def test_variant_routes_by_dtype_and_head_dim(dtype, d, fwd_dq, dkv):
@@ -67,16 +71,17 @@ def test_variant_routes_by_dtype_and_head_dim(dtype, d, fwd_dq, dkv):
 
 @pytest.mark.parametrize("dtype,d,variant,match", [
     (torch.float32, 264, "sm90",
-     r"flash_dkv_sm90 takes bfloat16 q with head_dim 1\.\.256 "),
-    (torch.float16, 264, "sm90", "flash_dkv_sm90 takes"),
+     r"flash_dkv_sm90 takes bfloat16 q with head_dim 1\.\.512 \(o/dO "
+     r"bfloat16\) or 1\.\.256 "),
+    (torch.float16, 520, "sm90", "flash_dkv_sm90 takes"),
     (torch.bfloat16, 64, "wgmma", "variant must be"),
-    (torch.bfloat16, 264, "sm90", "flash_dkv_sm90 takes"),
-    (torch.float16, 320, "sm90", "flash_dkv_sm90 takes"),
+    (torch.bfloat16, 520, "sm90", "flash_dkv_sm90 takes"),
+    (torch.float16, 600, "sm90", "flash_dkv_sm90 takes"),
 ])
 def test_explicit_variant_must_take_the_inputs(dtype, d, variant, match):
     """A design asked for by name that does not take the inputs raises: the
-    tensor-core dkv off the kernels' routes (bf16, fp16 and fp32 q at
-    head_dim 1..256), or an unknown variant."""
+    tensor-core dkv off the kernels' routes (bf16 and fp16 q with dO in q's
+    dtype at head_dim 1..512, fp32 q at 1..256), or an unknown variant."""
     q = torch.zeros(1, 16, 2, d, dtype=dtype)
     lse = torch.zeros(1, 2, 16)
     with pytest.raises(ValueError, match=match):

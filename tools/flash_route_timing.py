@@ -26,8 +26,9 @@ operands; after ``main``, also held to the main shape's), ``ring_wide``
 head_dim 256 and 192), ``off_grid`` (chip_smoke.OFF_GRID_SHAPES,
 head_dims off the kernels' grid of 8), ``wide_fp32``
 (chip_smoke.WIDE_FP32_SHAPES and WIDE_FP32_CHECKED, fp32 at head_dim 136
-to 256) and ``fp16`` (chip_smoke.FP16_CASES, fp16 q with an fp16 or the
-ring's fp32 o), each in checkouts that have it.
+to 256), ``fp16`` (chip_smoke.FP16_CASES, fp16 q with an fp16 or the
+ring's fp32 o) and ``xwide`` (chip_smoke.XWIDE_SHAPES and XWIDE_CHECKED,
+bf16 and fp16 at head_dim 264 to 512), each in checkouts that have it.
 Every shape it runs is timed. Needs a CUDA card.
 """
 
@@ -46,7 +47,7 @@ def main():
     ap.add_argument("--shapes", nargs="+",
                     choices=("routes", "main", "ring", "ring_wide", "wide",
                              "ring_wide_head", "off_grid", "wide_fp32",
-                             "fp16"),
+                             "fp16", "xwide"),
                     default=["routes"])
     args = ap.parse_args()
     root = Path(args.repo).resolve() if args.repo else REPO
@@ -75,7 +76,8 @@ def main():
               "ring_wide_head": lambda: C.RING_WIDE_HEAD_CASES,
               "off_grid": lambda: C.OFF_GRID_SHAPES,
               "wide_fp32": lambda: C.WIDE_FP32_SHAPES + C.WIDE_FP32_CHECKED,
-              "fp16": lambda: C.FP16_CASES}
+              "fp16": lambda: C.FP16_CASES,
+              "xwide": lambda: C.XWIDE_SHAPES + C.XWIDE_CHECKED}
     cases = [c for name in args.shapes for c in shapes[name]()]
     # kernel_phase times only the shapes in TIMED
     C.TIMED.extend(c for c in cases if c not in C.TIMED)
